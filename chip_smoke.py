@@ -9,10 +9,18 @@ Usage (from the root of a checkout, one CUDA card visible):
 
 Phases, one output line each (a failing phase raises, exit != 0):
   1. toolchain facts (torch, CUDA, nvcc, triton, nvidia-smi);
-  2. build of the CUDA kernels from tpubwa_torch/csrc (nvcc, sm_90a);
+  2. build of the CUDA kernels from tpubwa_torch/csrc (nvcc, sm_90a; one
+     nvcc per source, all started together), with ptxas's registers and
+     spills for each;
   3. the extension kernel == extend_batch_plain on the card, exactly,
      at the main path's shapes, and descriptor extension kernel ==
      plain on adversarial descriptors, with CUDA-event times;
+ 3b. the int16 extension kernel == extend_batch16_plain == K1's kernel,
+     exactly, at phase 3's shapes, with CUDA-event times for all three;
+     then the ported int16 experiment
+     (tpubwa_torch.scripts.exp_int16_kernel.main: int32 against int16
+     timing, and its 1,920-job equality fuzz, which must find 0
+     mismatches), whose int16 kernel launches are counted;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
      the snapshots (tpubwa's own output), @PG stripped;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
@@ -20,7 +28,8 @@ Phases, one output line each (a failing phase raises, exit != 0):
      tpubwa's process_batches with the port's aligner on cuda; the
      first 512 pairs' SAM equals a run with device="cpu" and one through
      tpubwa's scalar host pipeline.
-Then a JSON line of the kernels (launches in phase 5, error, times)
+Then a JSON line of the kernels (launches on each kernel's path: K1 in
+phase 5, the int16 kernel in the experiment of phase 3b; errors, times)
 and, last, {"ok": true, "device": {...}}.
 
 Everything it builds or caches (kernels, the native host library, the
@@ -132,18 +141,30 @@ def phase_toolchain(torch):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from tpubwa_torch.device import _build
     from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.scripts import exp_int16_kernel as x16
+    kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES}
     t0 = time.perf_counter()
-    _build.load("extend", ek._SIGNATURES)
-    info = _build.build_info["extend"]
-    ptxas = [l.strip() for l in info["ptxas"].splitlines()
-             if "registers" in l or "spill" in l]
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        futures = [ex.submit(_build.load, name, sigs)
+                   for name, sigs in kernels.items()]
+        for f in futures:
+            f.result()
+    built = []
+    for name in kernels:
+        info = _build.build_info[name]
+        ptxas = [l.strip() for l in info["ptxas"].splitlines()
+                 if "registers" in l or "spill" in l]
+        if not ptxas:
+            raise AssertionError(f"no ptxas report for {name}")
+        built.append({"source": f"tpubwa_torch/csrc/{name}.cu",
+                      "nvcc_s": round(info["seconds"], 3),
+                      "ptxas": ptxas})
     print("[2 build] " + json.dumps({
-        "source": "tpubwa_torch/csrc/extend.cu",
-        "nvcc_s": round(info["seconds"], 3),
-        "load_s": round(time.perf_counter() - t0, 3),
-        "ptxas": ptxas}), flush=True)
+        "kernels": built, "load_s": round(time.perf_counter() - t0, 3)}),
+        flush=True)
 
 
 def phase_kernel(torch, np):
@@ -190,6 +211,84 @@ def phase_kernel(torch, np):
          "max_abs_err": max_err}),
         flush=True)
     return main_shape, max_err
+
+
+def phase_kernel16(torch, np):
+    """The int16 kernel against its plain version and K1's kernel on
+    phase 3's job shapes (all inside the int16 domain: h0 < 60,
+    qlen < 256), then the ported experiment with the counts set to 0
+    just before it and read just after."""
+    from tpubwa.opts import MemOpt
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.scripts import exp_int16_kernel as x16
+    o = MemOpt()
+    pen = (o.a, o.b, o.o_del, o.e_del, o.o_ins, o.e_ins)
+    rng = np.random.default_rng(0x16)
+    cases = []
+    max_err = 0
+    main_shape = None
+    for W, tmax in ((128, 256), (256, 512)):
+        for n in (512, 8192):
+            for zdrop in (0, 100):
+                q, t, p = (torch.from_numpy(x).to(DEV)
+                           for x in make_jobs(rng, n, W, tmax))
+
+                def kern():
+                    return x16.extend_batch16(q, t, p, *pen, zdrop)
+
+                def k1():
+                    return ek.extend_batch(q, t, p, *pen, zdrop)
+
+                def plain():
+                    return x16.extend_batch16_plain(q, t, p, *pen, zdrop)
+
+                def kern_alone():   # no input checks, no host sync
+                    return x16._extend16_cuda(q, t, p, *pen, zdrop)
+
+                def k1_alone():
+                    return ek._extend_cuda(q, t, p, *pen, zdrop)
+                got, want, ref = kern(), plain(), k1()
+                torch.cuda.synchronize()
+                err = max(int((got.long() - x.long()).abs().max())
+                          for x in (want, ref))
+                for other, x in (("plain", want), ("K1", ref)):
+                    if not torch.equal(got, x):
+                        bad = (got != x).any(1).nonzero()[:3, 0].tolist()
+                        raise AssertionError(
+                            f"int16 kernel != {other} at W={W} "
+                            f"tmax={tmax} n={n} zdrop={zdrop}: rows {bad}: "
+                            f"{got[bad].tolist()} vs {x[bad].tolist()}")
+                case = {"W": W, "tmax": tmax, "n": n, "zdrop": zdrop,
+                        "equal": True, "ms": round(cuda_ms(kern, 20), 4),
+                        "k1_ms": round(cuda_ms(k1, 20), 4),
+                        "kernel_alone_ms": round(cuda_ms(kern_alone, 20), 4),
+                        "k1_alone_ms": round(cuda_ms(k1_alone, 20), 4),
+                        "plain_ms": round(cuda_ms(plain, 3), 3)}
+                max_err = max(max_err, err)
+                cases.append(case)
+                if (W, tmax, n, zdrop) == (128, 256, 8192, 100):
+                    main_shape = case
+    ek.extend_batch.launches = 0
+    x16.extend_batch16.launches = 0
+    res = x16.main(["--device", DEV, "--jobs", "512,1024,16384,131072"])
+    launches = x16.extend_batch16.launches
+    k1_launches = ek.extend_batch.launches
+    if launches <= 0 or k1_launches <= 0:
+        raise AssertionError("the int16 experiment launched "
+                             f"{launches} int16 and {k1_launches} K1 "
+                             "kernels")
+    if res["fuzz_mismatches"] != 0 or res["fuzz_jobs"] != 1920:
+        raise AssertionError(f"int16 fuzz: {res}")
+    print("[3b int16 kernel==plain==K1] " + json.dumps(
+        {"tolerance": 0, "cases": cases, "max_abs_err": max_err,
+         "experiment": {"timing": [{k: round(v, 4) for k, v in r.items()}
+                                   for r in res["timing"]],
+                        "fuzz_jobs": res["fuzz_jobs"],
+                        "fuzz_mismatches": res["fuzz_mismatches"],
+                        "i16_launches": launches,
+                        "k1_launches": k1_launches}}),
+        flush=True)
+    return main_shape, max_err, launches
 
 
 def phase_desc(torch, np):
@@ -382,6 +481,7 @@ def main() -> int:
     phase_toolchain(torch)
     phase_build()
     main_case, max_err = phase_kernel(torch, np)
+    case16, err16, launches16 = phase_kernel16(torch, np)
     phase_golden(torch)
     launches = phase_main_path(torch, np)
     if "jax" in sys.modules:
@@ -391,7 +491,12 @@ def main() -> int:
         "source": "tpubwa_torch/csrc/extend.cu",
         "replaces": "tpubwa/device/extend_pallas.py:162",
         "launches": launches, "max_abs_err": max_err,
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}]}),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}, {
+        "name": "ksw_extend16", "route": "cuda",
+        "source": "tpubwa_torch/csrc/extend16.cu",
+        "replaces": "scripts/exp_int16_kernel.py:48",
+        "launches": launches16, "max_abs_err": err16,
+        "ms": case16["ms"], "plain_ms": case16["plain_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

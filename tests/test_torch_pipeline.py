@@ -12,6 +12,7 @@ import torch
 
 import tpubwa.device  # noqa: F401  (x64, as the JAX package runs)
 from tpubwa.cli import main_index
+from tpubwa.cli import main_mem as tpubwa_main_mem
 from tpubwa.device.pipeline import make_device_aligner as jax_aligner
 from tpubwa.index import FMIndex
 from tpubwa.io.fastq import Read
@@ -19,7 +20,7 @@ from tpubwa.opts import MEM_F_PE, MemOpt
 from tpubwa_torch.cli import main_mem
 from tpubwa_torch.device import pipeline as tp
 from tpubwa_torch.device.smem import collect_intv_device
-from simread import simulate_pairs, simulate_reads
+from simread import simulate_pairs, simulate_reads, write_fastq
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")
@@ -116,9 +117,66 @@ def test_cli_mem_cpu_equals_golden(golden_index, name, fqs):
         assert got == fh.read()
 
 
+@pytest.fixture(scope="module")
+def alt_index(tmp_path_factory):
+    """Two contigs, the second a diverged copy of part of the first and
+    declared ALT in a .alt file (as tests/test_flags.py builds one), with
+    SE and PE reads drawn from both."""
+    rng = np.random.default_rng(5)
+    d = tmp_path_factory.mktemp("talt")
+    primary = rng.integers(0, 4, 9000).astype(np.uint8)
+    alt = primary[2000:6000].copy()
+    snp = rng.random(len(alt)) < 0.01
+    alt[snp] = (alt[snp] + 1) % 4
+    fa = d / "ref.fa"
+    fa.write_text("".join(
+        f">{name}\n" + "".join("ACGT"[c] for c in seq) + "\n"
+        for name, seq in (("chrM main", primary), ("chrA alt", alt))))
+    assert main_index([str(fa)]) == 0
+    (d / "ref.fa.alt").write_text("chrA\t0\t*\n")
+    codes = np.concatenate([primary, alt])
+    write_fastq(str(d / "se.fq"), simulate_reads(codes, 60, 100, rng))
+    pairs = simulate_pairs(codes, 40, 100, rng, insert_mean=300)
+    write_fastq(str(d / "pe1.fq"), [(n, s1) for n, s1, *_ in pairs])
+    write_fastq(str(d / "pe2.fq"), [(n, s2) for n, _, s2, *_ in pairs])
+    return str(fa), d
+
+
+def _sam(main, argv):
+    out = io.StringIO()
+    assert main(argv, out=out) == 0
+    return [l for l in out.getvalue().splitlines()
+            if not l.startswith("@PG")]
+
+
+@pytest.mark.parametrize("index,paired,port_opts", [
+    ("alt", False, []), ("alt", True, []),
+    ("golden", False, ["-t", "4"]), ("golden", True, ["-t", "4"])])
+def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index, index,
+                                          paired, port_opts):
+    """The port's `mem --device cpu` against tpubwa's scalar pipeline
+    (`-t 1`): on an index with ALT contigs, and with 4 host threads."""
+    if index == "alt":
+        prefix, d = alt_index
+        fqs = ["pe1.fq", "pe2.fq"] if paired else ["se.fq"]
+        fqs = [str(d / f) for f in fqs]
+    else:
+        prefix = golden_index
+        fqs = [os.path.join(GOLD, f) for f in (
+            ["pe1.fq", "pe2.fq"] if paired else ["se.fq"])]
+    want = _sam(tpubwa_main_mem, ["--device", "scalar", prefix] + fqs)
+    got = _sam(main_mem, ["--device", "cpu"] + port_opts + [prefix] + fqs)
+    assert len(got) > len(fqs) * 40
+    assert got == want
+    if index == "alt":
+        assert any(l.startswith("@SQ") and l.endswith("AH:*")
+                   for l in got)
+
+
 def test_no_jax_import():
     code = ("import sys, tpubwa_torch, tpubwa_torch.cli, "
-            "tpubwa_torch.device.pipeline; "
+            "tpubwa_torch.device.pipeline, "
+            "tpubwa_torch.scripts.exp_int16_kernel; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpubwa.device' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -7,7 +7,10 @@ with ctypes.  Nothing here runs at import time: the CPU-only test
 environment imports every module and has no nvcc.
 
 The build directory is ``build/cuda`` at the root of the checkout
-(git-ignored), or ``$TPUBWA_TORCH_BUILD``.
+(git-ignored), or ``$TPUBWA_TORCH_BUILD``.  Beside each library the
+assembler's register/spill report is kept (``<name>-<hash>.ptxas.txt``),
+so a cached load reports it too.  Different kernels build concurrently
+from separate threads.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
-_lock = threading.Lock()
+_locks: dict = {}            # one lock per kernel source
+_locks_guard = threading.Lock()
 # per kernel source: {"so": path, "seconds": build wall (0.0 when the
 # hash-keyed library already existed), "ptxas": the assembler's
 # register/spill report}
@@ -51,8 +55,12 @@ def _compile(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     so = BUILD / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+    report = so.with_suffix(".ptxas.txt")
     info = {"so": str(so), "seconds": 0.0, "ptxas": ""}
-    if not so.exists():
+    if so.exists():
+        if report.exists():
+            info["ptxas"] = report.read_text()
+    else:
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
@@ -60,6 +68,11 @@ def _compile(name: str) -> Path:
                               str(src)], capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+        # the report lands before the library, so a library that exists
+        # has its report
+        tmp_report = report.with_suffix(f".{os.getpid()}.tmp")
+        tmp_report.write_text(res.stderr)
+        os.replace(tmp_report, report)
         os.replace(tmp, so)
         info["seconds"] = time.perf_counter() - t0
         info["ptxas"] = res.stderr
@@ -72,7 +85,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     ``signatures`` maps each exported function to (restype, argtypes);
     pointers and the stream are c_void_p, so ctypes never narrows
     them to 32 bits.  Raises if the build fails."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))
