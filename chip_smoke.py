@@ -21,22 +21,40 @@ Phases, one output line each (a failing phase raises, exit != 0):
      (tpubwa_torch.scripts.exp_int16_kernel.main: int32 against int16
      timing, and its 1,920-job equality fuzz, which must find 0
      mismatches), whose int16 kernel launches are counted;
+ 3c. every K1-real variant's kernel == extend_real_plain, exactly, at
+     phase 3's main shape, on the script's jobs and on jobs built for
+     z-drop and the band write-back (each no-* variant must differ from
+     full on one job at least); the four exact variants == K1's kernel;
+     full and -u4 == plain on the experiment's 131,072 jobs; then the
+     ported real-kernel experiment
+     (tpubwa_torch.scripts.exp_kernel_real.main at 512, 16,384 and
+     131,072 jobs, and its equality fuzz against K1), whose K1-real
+     launches are counted;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
      the snapshots (tpubwa's own output), @PG stripped;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
      reads on the 64 Mbp repeat-realistic synthetic genome, through
-     tpubwa's process_batches with the port's aligner on cuda; the
-     first 512 pairs' SAM equals a run with device="cpu" and one through
-     tpubwa's scalar host pipeline.
-Then a JSON line of the kernels (launches on each kernel's path: K1 in
-phase 5, the int16 kernel in the experiment of phase 3b; errors, times)
-and, last, {"ok": true, "device": {...}}.
+     the port's process_batches with its aligner on cuda; the first 512
+     pairs' SAM equals a run with device="cpu" and one through the
+     port's scalar host pipeline.
+Then the bounds (each kernel's least time on this card: the band cells
+its plain version counted on the timed inputs, times the integer
+instructions per cell of its inner loop in SASS (memory, control,
+moves, address arithmetic and the loop counter left out), over the
+card's integer rate; or its bytes over HBM bandwidth, whichever is
+larger), a JSON line of the kernels (launches on each kernel's path: K1
+in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
+that of 3c; errors, times, bounds) and, last, {"ok": true, "device":
+{...}}.
 
-Everything it builds or caches (kernels, the native host library, the
-benchmark index) goes under build/ in the checkout.  It imports no JAX.
+Everything it builds or caches (kernels, the native host libraries, the
+benchmark index) goes under build/ in the checkout.  It imports nothing
+of JAX and nothing of the tpubwa package.
 """
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -46,6 +64,9 @@ BUILD = os.path.join(ROOT, "build")
 DEV = "cuda"
 GENOME_MB = 64          # the benchmark genome of phase 5
 PAIRS = 8192            # pairs per batch in phase 5 (2 batches)
+HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 (NVIDIA's data sheet)
+INT32_LANES = 64        # INT32 lanes per SM per clock on Hopper
+SCHED_LANES = 128       # 4 schedulers x 32 lanes per SM per clock
 
 
 def _run(cmd):
@@ -67,6 +88,18 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(torch, fn):
+    """(fn(), ms): one call timed with CUDA events (the plain versions
+    are timed by the call that is compared)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def make_jobs(rng, n, W, tmax):
@@ -121,6 +154,68 @@ def retry_descs(bnt, rng, n, L=100):
     return reads, np.asarray(rows, np.int64)
 
 
+def adversarial_descs(rng, lp, B, L, n):
+    """(A copy of scripts/chip_desc_equality.py:mk_descs: that script is
+    the JAX reference's TPU tooling and edits sys.path when imported;
+    the port imports nothing of the reference.)  Adversarial
+    descriptors honoring the extension_plan contract
+    (windows never cross l_pac; host/regions.py clips rmax) while
+    hitting every alignment edge the word path cares about."""
+    import numpy as np
+    rows = []
+    for k in range(n):
+        lq = int(rng.integers(60, L + 1))
+        # sweep every sub-word phase of qbeg and rbeg
+        qbeg = (k % 16) if k % 3 == 0 else int(rng.integers(0, lq - 19))
+        qbeg = min(qbeg, lq - 20)
+        slen = int(rng.integers(19, min(40, lq - qbeg) + 1))
+        if k % 5 == 0:
+            slen = lq - qbeg          # no right side
+        if k % 7 == 0:
+            qbeg = 0                  # no left side
+        side_rev = (k >> 1) % 2
+        lo, hi = (lp, 2 * lp) if side_rev else (0, lp)
+        rbeg = int(rng.integers(lo, hi - slen))
+        rbeg = (rbeg & ~15) | (k % 16)      # force sub-word phase
+        rbeg = max(lo, min(rbeg, hi - slen))
+        if k % 13 == 0:
+            rbeg = lo                 # window flush at boundary start
+        if k % 13 == 1:
+            rbeg = hi - slen          # window flush at boundary end
+        tl = int(rng.integers(0, 200)) if qbeg else 0
+        tr = (int(rng.integers(0, 200)) if lq - qbeg - slen else 0)
+        rmax0 = max(lo, rbeg - tl)
+        rmax1 = min(hi, rbeg + slen + tr)
+        rows.append((int(rng.integers(0, B)), qbeg, slen, lq, rbeg,
+                     rmax0, rmax1, int(rng.choice([25, 100])), slen,
+                     5, 5))
+    return np.asarray(rows, np.int64)
+
+
+def materialize(bnt, reads, d):
+    """Scalar job tuple for one descriptor row (the oracle's input); a
+    copy of scripts/chip_desc_equality.py:materialize, for the reason
+    adversarial_descs gives."""
+    ri, qbeg, slen, lq, rbeg, rmax0, rmax1 = (int(x) for x in d[:7])
+    query = reads[ri][:lq]
+    qe = qbeg + slen
+    qlen_r = lq - qe
+    empty = query[:0]
+    if qbeg:
+        qs = query[:qbeg][::-1].copy()
+        tlen_l = rbeg - rmax0
+        ts = bnt.get_seq(rmax0, rbeg)[::-1].copy()
+    else:
+        qs, tlen_l, ts = empty, 0, empty
+    if qlen_r:
+        tlen_r = rmax1 - rbeg - slen
+        tr = bnt.get_seq(rbeg + slen, rmax1)
+    else:
+        tlen_r, tr = 0, empty
+    return (qbeg, qs, tlen_l, ts, qlen_r, query[qe:], tlen_r, tr,
+            int(d[7]), int(d[8]), int(d[9]), int(d[10]))
+
+
 def phase_toolchain(torch):
     from tpubwa_torch.device import _build
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,7 +240,9 @@ def phase_build():
     from tpubwa_torch.device import _build
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.scripts import exp_int16_kernel as x16
-    kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES}
+    from tpubwa_torch.scripts import exp_kernel_real as xr
+    kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES,
+               "extend_real": xr._SIGNATURES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         futures = [ex.submit(_build.load, name, sigs)
@@ -168,7 +265,7 @@ def phase_build():
 
 
 def phase_kernel(torch, np):
-    from tpubwa.opts import MemOpt
+    from tpubwa_torch.opts import MemOpt
     from tpubwa_torch.device import extend_kernel as ek
     o = MemOpt()
     pen = (o.a, o.b, o.o_del, o.e_del, o.o_ins, o.e_ins)
@@ -185,10 +282,11 @@ def phase_kernel(torch, np):
                 def kern():
                     return ek.extend_batch(q, t, p, *pen, zdrop)
 
-                def plain():
-                    return ek.extend_batch_plain(q, t, p, *pen, zdrop)
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
+                stats = {}
+                got = kern()
+                want, plain_ms = timed_once(
+                    torch, lambda: ek.extend_batch_plain(
+                        q, t, p, *pen, zdrop, stats=stats))
                 err = int((got.long() - want.long()).abs().max())
                 if not torch.equal(got, want):
                     bad = (got != want).any(1).nonzero()[:3, 0].tolist()
@@ -197,11 +295,13 @@ def phase_kernel(torch, np):
                         f"zdrop={zdrop}: rows {bad}: "
                         f"{got[bad].tolist()} vs {want[bad].tolist()}")
                 ms = cuda_ms(kern, 20)
-                plain_ms = cuda_ms(plain, 3)
                 max_err = max(max_err, err)
                 case = {"W": W, "tmax": tmax, "n": n, "zdrop": zdrop,
                         "equal": True, "ms": round(ms, 4),
-                        "plain_ms": round(plain_ms, 3)}
+                        "plain_ms": round(plain_ms, 3),
+                        "cells": stats["cells"],
+                        "bytes": 4 * (q.numel() + t.numel() + p.numel()
+                                      + got.numel())}
                 cases.append(case)
                 if (W, tmax, n, zdrop) == (128, 256, 8192, 100):
                     main_shape = case
@@ -218,7 +318,7 @@ def phase_kernel16(torch, np):
     phase 3's job shapes (all inside the int16 domain: h0 < 60,
     qlen < 256), then the ported experiment with the counts set to 0
     just before it and read just after."""
-    from tpubwa.opts import MemOpt
+    from tpubwa_torch.opts import MemOpt
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.scripts import exp_int16_kernel as x16
     o = MemOpt()
@@ -239,16 +339,17 @@ def phase_kernel16(torch, np):
                 def k1():
                     return ek.extend_batch(q, t, p, *pen, zdrop)
 
-                def plain():
-                    return x16.extend_batch16_plain(q, t, p, *pen, zdrop)
+                stats = {}
 
                 def kern_alone():   # no input checks, no host sync
                     return x16._extend16_cuda(q, t, p, *pen, zdrop)
 
                 def k1_alone():
                     return ek._extend_cuda(q, t, p, *pen, zdrop)
-                got, want, ref = kern(), plain(), k1()
-                torch.cuda.synchronize()
+                got, ref = kern(), k1()
+                want, plain_ms = timed_once(
+                    torch, lambda: x16.extend_batch16_plain(
+                        q, t, p, *pen, zdrop, stats=stats))
                 err = max(int((got.long() - x.long()).abs().max())
                           for x in (want, ref))
                 for other, x in (("plain", want), ("K1", ref)):
@@ -263,7 +364,10 @@ def phase_kernel16(torch, np):
                         "k1_ms": round(cuda_ms(k1, 20), 4),
                         "kernel_alone_ms": round(cuda_ms(kern_alone, 20), 4),
                         "k1_alone_ms": round(cuda_ms(k1_alone, 20), 4),
-                        "plain_ms": round(cuda_ms(plain, 3), 3)}
+                        "plain_ms": round(plain_ms, 3),
+                        "cells": stats["cells"],
+                        "bytes": 4 * (q.numel() + t.numel() + p.numel()
+                                      + got.numel())}
                 max_err = max(max_err, err)
                 cases.append(case)
                 if (W, tmax, n, zdrop) == (128, 256, 8192, 100):
@@ -295,11 +399,9 @@ def phase_desc(torch, np):
     """Descriptor extension (tile gather + four extension passes) with
     the kernel vs with the plain version on the card, on the
     adversarial descriptor set; both also vs the scalar oracle."""
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from chip_desc_equality import materialize, mk_descs
-    from tpubwa.index import FMIndex
-    from tpubwa.opts import MemOpt
-    from tpubwa.sim import make_bench_bnt
+    from tpubwa_torch.index import FMIndex
+    from tpubwa_torch.opts import MemOpt
+    from tpubwa_torch.sim import make_bench_bnt
     from tpubwa_torch.device.extend_fused import (extend_seed_desc_np,
                                                   scalar_fused)
     from tpubwa_torch.device.extend_kernel import extend_batch_plain
@@ -317,7 +419,7 @@ def phase_desc(torch, np):
         s = int(rng.integers(0, len(text) - L))
         reads[i] = text[s:s + L]
     reads[1, 40:42] = 4        # N codes in a query
-    da = mk_descs(rng, fmi.bnt.l_pac, B, L, n - 128)
+    da = adversarial_descs(rng, fmi.bnt.l_pac, B, L, n - 128)
     # jobs that take the second band trial, on reads of their own
     r2, d2 = retry_descs(fmi.bnt, rng, 128, L)
     d2[:, 0] += B
@@ -353,7 +455,7 @@ def phase_desc(torch, np):
     # a realistic wave: 4,096 descriptors over 1,024 reads
     rng = np.random.default_rng(7)
     reads = rng.integers(0, 4, (1024, L)).astype(np.uint8)
-    wave = mk_descs(rng, fmi.bnt.l_pac, 1024, L, 4096)
+    wave = adversarial_descs(rng, fmi.bnt.l_pac, 1024, L, 4096)
     qd = torch.from_numpy(reads).to(DEV)
     ms = cuda_ms(lambda: extend_seed_desc_np(didx, qd, wave, *args), 10)
     plain_ms = cuda_ms(lambda: extend_seed_desc_np(
@@ -361,6 +463,368 @@ def phase_desc(torch, np):
     return {"n": n, "equal": True, "oracle_equal": n_oracle,
             "band_retries": retried, "wave4096_ms": round(ms, 3),
             "wave4096_plain_ms": round(plain_ms, 3)}
+
+
+def phase_kernel_real(torch, np):
+    """Every K1-real variant's kernel against its plain version on the
+    card, tolerance 0, at phase 3's main shape (make_jobs W 128, tmax
+    256, N 8,192), on 512 of the script's jobs, and on 256 jobs each
+    built so that only z-drop, or only the band write-back, separates
+    no-zdrop and no-wbmask from full; each no-* kernel must differ from
+    full's on at least one of these jobs.  The four exact variants
+    against K1's kernel; full and -u4 against the plain version on the
+    experiment's own 131,072 jobs.  Then the ported experiment, with
+    the counts set to 0 just before it and read just after."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.scripts import exp_kernel_real as xr
+    rng = np.random.default_rng(0x4EA1)
+    sets = {"make_jobs": make_jobs(rng, 8192, 128, 256),
+            "script": xr.script_jobs(rng, 512),
+            "zdrop": xr.zdrop_jobs(rng, 256),
+            "wbmask": xr.wbmask_jobs(rng, 256)}
+    variants = {v: {} for v in xr.VARIANTS}
+    differs = {v: 0 for v in xr.VARIANTS if v.startswith("no-")}
+    max_err = 0
+    main_case = None
+
+    def held(name, v, got, refs):
+        for other, x in refs:
+            if not torch.equal(got[:, :x.shape[1]], x):
+                bad = (got[:, :x.shape[1]] != x).any(1).nonzero()[:3, 0]
+                raise AssertionError(f"K1-real {v} != {other} on {name} "
+                                     f"jobs: rows {bad.tolist()}")
+
+    for name, arrays in sets.items():
+        q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                   for x in arrays)
+        k1 = ek.extend_batch(q, t, p, *xr.SCORING, xr.ZDROP)
+        full = None
+        for v in xr.VARIANTS:
+            stats = {}
+            got = xr.extend_real(q, t, p, v)
+            want, plain_ms = timed_once(
+                torch, lambda: xr.extend_real_plain(q, t, p, v, stats=stats))
+            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+            held(name, v, got, [("plain", want)]
+                 + ([("K1", k1)] if v in xr.TIMED else []))
+            if v == "full":
+                full = got
+            elif v in differs:
+                differs[v] += int((got[:, :6] != full[:, :6]).any(1).sum())
+            if name != "make_jobs":
+                continue
+            case = {"ms": round(cuda_ms(
+                        lambda v=v: xr.extend_real(q, t, p, v), 20), 4),
+                    "alone_ms": round(cuda_ms(
+                        lambda v=v: xr._extend_real_cuda(q, t, p, v), 20), 4),
+                    "plain_ms": round(plain_ms, 3),
+                    "cells": stats["cells"]}
+            variants[v] = case
+            if v == "full":
+                # K1 alone on the same inputs: the yardstick of the row
+                main_case = dict(case, bytes=4 * (
+                    q.numel() + t.numel() + p.numel() + got.numel()),
+                    k1_alone_ms=round(cuda_ms(lambda: ek._extend_cuda(
+                        q, t, p, *xr.SCORING, xr.ZDROP), 20), 4))
+                case["k1_alone_ms"] = main_case["k1_alone_ms"]
+    vacuous = [v for v, k in differs.items() if k == 0]
+    if vacuous:
+        raise AssertionError(f"{vacuous} equal full on every job: their "
+                             "comparison with the plain version is vacuous")
+    sizes = (512, 16384, 131072)
+    n_big, big = xr.experiment_jobs(sizes)[-1]
+    q, t, p = (torch.from_numpy(x).to(DEV) for x in big)
+    large = {}
+    for v in ("full", "rollred-fused-u4"):
+        got = xr.extend_real(q, t, p, v)
+        want, plain_ms = timed_once(
+            torch, lambda: xr.extend_real_plain(q, t, p, v))
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        held(f"the experiment's {n_big}", v, got, [("plain", want)])
+        large[v] = {"equal": True, "plain_ms": round(plain_ms, 3)}
+    del q, t, p, got, want
+    ek.extend_batch.launches = 0
+    xr.extend_real.launches = 0
+    res = xr.main(["--device", DEV, "--jobs", ",".join(map(str, sizes)),
+                   "--k1", "2", "--k2", "10", "--trials", "3", "--fuzz",
+                   "30"])
+    launches = xr.extend_real.launches
+    if launches <= 0 or ek.extend_batch.launches <= 0:
+        raise AssertionError(f"the real-kernel experiment launched "
+                             f"{launches} K1-real and "
+                             f"{ek.extend_batch.launches} K1 kernels")
+    if res["fuzz_mismatches"] != 0 or res["fuzz_jobs"] != 1920:
+        raise AssertionError(f"K1-real fuzz: {res}")
+    print("[3c K1-real kernel==plain, exact variants==K1] " + json.dumps(
+        {"tolerance": 0, "jobs": {k: len(v[0]) for k, v in sets.items()},
+         "variants": variants, "differs_from_full": differs,
+         f"experiment_{n_big}_jobs": large, "max_abs_err": max_err,
+         "experiment": {"timing": [{k: round(v, 4) for k, v in r.items()}
+                                   for r in res["timing"]],
+                        "fuzz_jobs": res["fuzz_jobs"],
+                        "fuzz_mismatches": res["fuzz_mismatches"],
+                        "real_launches": launches}}), flush=True)
+    return main_case, max_err, launches
+
+
+def card_rates(torch):
+    """The card's SMs, top SM clock and integer rates (lane instructions
+    per second): the INT32 pipe's SMs x 64 x clock, and the SM's issue
+    rate, SMs x 4 schedulers x 32 lanes x clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                      "--format=csv,noheader,nounits"]).splitlines()[0])
+    return {"sms": sms, "clock_max_mhz": mhz,
+            "int32_per_s": sms * INT32_LANES * mhz * 1e6,
+            "issue_per_s": sms * SCHED_LANES * mhz * 1e6}
+
+
+def _cuobjdump():
+    for tool in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if tool and os.path.exists(tool):
+            return tool
+    raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
+
+
+_CONTROL = {"BRA", "BSSY", "BSYNC", "NOP", "EXIT", "WARPSYNC", "BAR", "RET",
+            "CALL", "BREAK", "YIELD", "BMOV"}
+_MOVES = {"MOV", "S2R", "CS2R"}
+_GUARD = re.compile(r"^@(!?)(U?P\w+)\s+")
+
+
+def sass_class(op):
+    """The class of one SASS instruction: ``memory`` (loads, stores,
+    atomics), ``control`` (branches, barriers, NOP), ``move``,
+    ``uniform`` (the per-warp uniform datapath, U*), ``int_fma`` (IMAD
+    and VIADD, which may issue on the FMA pipe) or ``int_alu`` (every
+    other integer op: compares, selects, min/max, logic, adds)."""
+    mnem = _GUARD.sub("", op.strip()).split()[0]
+    base = mnem.split(".")[0]
+    if base.startswith(("LD", "ST", "ATOM", "RED")):
+        return "memory"
+    if base in _CONTROL:
+        return "control"
+    if base in _MOVES or mnem.startswith("IMAD.MOV"):
+        return "move"
+    if base.startswith("U"):
+        return "uniform"
+    if base in ("IMAD", "VIADD"):
+        return "int_fma"
+    return "int_alu"
+
+
+def _regs(operand, width=1):
+    """The registers (R<n>, P<n>) an operand names; ``width`` 2 or 4 for
+    a 64- or 128-bit register operand."""
+    out = []
+    for m in re.finditer(r"\b([RP])(\d+)(\.64)?\b", operand):
+        n = 2 if m.group(3) else width
+        out += [f"{m.group(1)}{int(m.group(2)) + k}" for k in range(n)]
+    return out
+
+
+def def_use(op):
+    """(writes, address reads, other reads, predicated) of one SASS
+    instruction, by register name."""
+    guard = _GUARD.match(op.strip())
+    text = _GUARD.sub("", op.strip())
+    parts = text.split(None, 1)
+    mnem = parts[0]
+    ops = [x.strip() for x in parts[1].split(",")] if len(parts) > 1 else []
+    width = 4 if ".128" in mnem else 2 if ".64" in mnem else 1
+    reads = [guard.group(2)] if guard else []
+    addr = [r for x in ops if "[" in x
+            for r in _regs(re.findall(r"\[([^\]]*)\]", x)[-1])]
+    if sass_class(op) == "memory":
+        plain = [x for x in ops if "[" not in x]
+        if mnem.startswith(("ST", "RED")):
+            return [], addr, reads + [r for x in plain
+                                      for r in _regs(x, width)], guard
+        return ([r for x in plain[:1] for r in _regs(x, width)], addr,
+                reads + [r for x in plain[1:] for r in _regs(x)], guard)
+    if sass_class(op) == "control" or not ops:
+        return [], [], reads + [r for x in ops for r in _regs(x)], guard
+    n_dest = 2 if len(ops) > 2 and re.fullmatch(r"P(\d|T)", ops[1]) else 1
+    wide = 2 if ".WIDE" in mnem else 1
+    writes = [r for x in ops[:n_dest] for r in _regs(x, wide)]
+    srcs = ops[n_dest:]
+    for k, x in enumerate(srcs):
+        reads += _regs(x, wide if ".WIDE" in mnem and k == len(srcs) - 1
+                       else 1)
+    return writes, [], reads, guard
+
+
+def address_ops(body):
+    """Indices in the loop ``body`` of its address arithmetic: the
+    instructions whose results are read, in the loop (around its back
+    edge, up to the next unpredicated write), only as the address of a
+    load or store or by other address arithmetic (the largest such set:
+    an address stepped each trip feeds itself around the back edge)."""
+    du = [def_use(op) for op in body]
+    n = len(body)
+
+    def uses(k, reg):
+        out = []
+        for step in range(1, n + 1):
+            j = (k + step) % n
+            writes, addr, reads, guard = du[j]
+            if reg in addr:
+                out.append((j, "addr"))
+            if reg in reads:
+                out.append((j, "data"))
+            if reg in writes and not guard:
+                break
+        return out
+
+    users = {k: [u for r in du[k][0] for u in uses(k, r)]
+             for k in range(n)
+             if du[k][0] and sass_class(body[k]) not in ("memory", "control")}
+    found = {k for k, us in users.items() if us}
+    while True:
+        # keep those that lead to an address ...
+        reach = {k for k in found
+                 if any(kind == "addr" for _, kind in users[k])}
+        grew = True
+        while grew:
+            grew = False
+            for k in found - reach:
+                if any(j in reach for j, _ in users[k]):
+                    reach.add(k)
+                    grew = True
+        # ... and whose every other reader is one of them
+        kept = {k for k in reach
+                if all(kind == "addr" or j in reach for j, kind in users[k])}
+        if kept == found:
+            return found
+        found = kept
+
+
+def loop_control(body, pred):
+    """Indices in ``body`` of the loop's own control arithmetic: the
+    compare that sets the back branch's predicate ``pred``, and the
+    counters it reads that the loop only steps by a constant (written
+    only as ``R = R + imm`` and read by nothing else in the loop)."""
+    du = [def_use(op) for op in body]
+    setters = [k for k, (w, _, _, _) in enumerate(du) if pred in w]
+    if not setters:
+        return set()
+    cmp_k = setters[-1]
+    out = {cmp_k}
+    for reg in du[cmp_k][2]:
+        writers = [k for k, (w, _, _, _) in enumerate(du)
+                   if reg in w and k != cmp_k]
+        readers = [k for k, (_, a, r, _) in enumerate(du)
+                   if (reg in a or reg in r) and k != cmp_k
+                   and k not in writers]
+        step = all(re.fullmatch(rf"(VIADD|IADD3) {reg}, {reg}(\.reuse)?, "
+                                r"-?0x[0-9a-f]+(, RZ)?", body[k].strip())
+                   for k in writers)
+        if writers and step and not readers:
+            out.update(writers)
+    return out
+
+
+def sass_loops(text, function):
+    """The inner band loop of one kernel in ``cuobjdump -sass`` output.
+
+    Takes the one function whose mangled name matches the regex
+    ``function`` and finds its loops (a backward branch to an earlier
+    address).  The inner band loop is an innermost loop that both stores
+    and loads global memory: it writes each cell's (h, e) scratch once,
+    and reads it and the query code, so its stores count its cells.
+    Returns, per cell, all its instructions (``sass``) and its integer
+    work (``int_alu`` + ``int_fma``): every instruction except memory,
+    control, moves, the uniform datapath, 64-bit address arithmetic and
+    the loop's own counter and exit compare.  Where the compiler
+    unrolled the loop and kept a remainder, the candidate with the least
+    integer work per cell is taken (a bound wants the least work)."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+            labels[cur] = {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m and cur:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m and cur:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[cur][lab] = addr
+            pending = []
+            funcs[cur].append((addr, m.group(2)))
+    names = [f for f in funcs if re.search(function, f)]
+    if len(names) != 1:
+        raise AssertionError(f"{len(names)} functions match {function!r} "
+                             f"of {list(funcs)}")
+    ins = funcs[names[0]]
+    loops = []
+    for addr, op in ins:
+        m = re.search(r"^(?:@(!?P\w+)\s+)?BRA\S*\s+(?:`\((\.L_x_\d+)\)"
+                      r"|(0x[0-9a-f]+))", op.strip())
+        if not m:
+            continue
+        target = (labels[names[0]].get(m.group(2)) if m.group(2)
+                  else int(m.group(3), 16))
+        if target is not None and target <= addr:
+            loops.append((target, addr, m.group(1)))
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                        for o in loops)]
+    found = []
+    for lo, hi, pred in inner:
+        body = [op for a, op in ins if lo <= a <= hi]
+        stores = sum(sass_class(op) == "memory"
+                     and bool(re.search(r"\bSTG?\.E", op)) for op in body)
+        loads = sum(bool(re.search(r"\bLDG?\.E", op)) for op in body)
+        if not stores or loads < stores:
+            continue
+        ctl = loop_control(body, pred.lstrip("!")) if pred else set()
+        adr = address_ops(body)
+        counts = {}
+        for k, op in enumerate(body):
+            c = ("loop_control" if k in ctl else "address" if k in adr
+                 else sass_class(op))
+            counts[c] = counts.get(c, 0) + 1
+        work = counts.get("int_alu", 0) + counts.get("int_fma", 0)
+        issued = sum(not re.search(r"\bNOP\b", op) for op in body)
+        found.append({"instructions": issued, "stores": stores,
+                      "loads": loads, "classes": counts,
+                      "sass_per_cell": issued / stores,
+                      "int_per_cell": work / stores,
+                      "alu_per_cell": counts.get("int_alu", 0) / stores})
+    if not found:
+        raise AssertionError(f"{names[0]}: no inner band loop among "
+                             f"{len(loops)} loops")
+    best = min(found, key=lambda f: f["int_per_cell"])
+    return dict(best, function=names[0], loops=len(loops),
+                inner_candidates=len(found))
+
+
+def bound(case, loop, rates):
+    """(bound_ms, bound_by, parts): the larger of the bytes the call must
+    move (each input read once, the output written once) over HBM
+    bandwidth, and its band cells times the inner loop's integer work
+    per cell over the card's integer rate.  That rate is the lesser
+    pair of limits: the INT32 pipe's 64 lanes per SM for the ALU-only
+    ops, and the SM's issue rate (4 x 32 lanes) for all of them, IMAD
+    and VIADD included (they may go to the FMA pipe)."""
+    t_bytes = case["bytes"] / HBM_BYTES_S * 1e3
+    t_alu = case["cells"] * loop["alu_per_cell"] / rates["int32_per_s"] * 1e3
+    t_issue = (case["cells"] * loop["int_per_cell"] / rates["issue_per_s"]
+               * 1e3)
+    t_ops = max(t_alu, t_issue)
+    parts = {"bytes_ms": t_bytes, "int_alu_ms": t_alu, "issue_ms": t_issue,
+             # the former figure: every SASS instruction of the loop over
+             # the INT32 pipe (memory, branches and addresses included)
+             "all_sass_int32_ms": case["cells"] * loop["sass_per_cell"]
+             / rates["int32_per_s"] * 1e3}
+    return ((t_bytes, "bytes", parts) if t_bytes > t_ops
+            else (t_ops, "operations", parts))
 
 
 def phase_golden(torch):
@@ -402,9 +866,9 @@ def phase_golden(torch):
 
 
 def phase_main_path(torch, np):
-    from tpubwa.host.pipeline import process_batches
-    from tpubwa.opts import MEM_F_PE, MemOpt
-    from tpubwa.sim import bench_index, simulate_pe
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.opts import MEM_F_PE, MemOpt
+    from tpubwa_torch.sim import bench_index, simulate_pe
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.device.pipeline import make_device_aligner
     t0 = time.perf_counter()
@@ -444,7 +908,7 @@ def phase_main_path(torch, np):
         raise AssertionError(f"{n_lines} SAM lines, {n_mapped} mapped "
                              f"for {n_reads} reads")
     # the first 512 pairs again: through the plain version on the CPU,
-    # and through tpubwa's scalar host pipeline (align_fn=None, the
+    # and through the port's scalar host pipeline (align_fn=None, the
     # path tpubwa's own tests hold its device pipeline to)
     first = batches[0][:1024]
     cpu = make_device_aligner(opt, fmi, device="cpu")
@@ -457,7 +921,7 @@ def phase_main_path(torch, np):
             raise AssertionError(f"first 512 pairs: {DEV} SAM != {name}")
     print("[5 main path] " + json.dumps({
         "genome": f"{GENOME_MB} Mbp repeat-realistic "
-                  f"(tpubwa.sim.bench_index({GENOME_MB}, realistic=True))",
+                  f"(tpubwa_torch.sim.bench_index({GENOME_MB}, realistic=True))",
         "index_s": round(index_s, 1), "reads": n_reads,
         "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
         "sam_lines": n_lines, "mapped": n_mapped,
@@ -473,31 +937,45 @@ def main() -> int:
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
         return 2
     sys.path.insert(0, ROOT)
-    # native host code builds inside the checkout, not under $HOME
-    os.environ.setdefault("TPUBWA_NATIVE_CACHE",
-                          os.path.join(BUILD, "native"))
     import numpy as np
     import tpubwa_torch  # noqa: F401  (fails outside a checkout)
     phase_toolchain(torch)
     phase_build()
     main_case, max_err = phase_kernel(torch, np)
     case16, err16, launches16 = phase_kernel16(torch, np)
+    case_real, err_real, launches_real = phase_kernel_real(torch, np)
     phase_golden(torch)
     launches = phase_main_path(torch, np)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "ksw_extend", "route": "cuda",
-        "source": "tpubwa_torch/csrc/extend.cu",
-        "replaces": "tpubwa/device/extend_pallas.py:162",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}, {
-        "name": "ksw_extend16", "route": "cuda",
-        "source": "tpubwa_torch/csrc/extend16.cu",
-        "replaces": "scripts/exp_int16_kernel.py:48",
-        "launches": launches16, "max_abs_err": err16,
-        "ms": case16["ms"], "plain_ms": case16["plain_ms"]}]}),
-        flush=True)
+    bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
+                 or k.startswith(("jax.", "tpubwa.")))
+    if bad:
+        raise AssertionError(f"imported {bad[:5]}")
+    from tpubwa_torch.device import _build
+    rates = card_rates(torch)
+    kernels, sass = [], {}
+    for (name, src, replaces, n, err, case, function) in (
+            ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
+             launches, max_err, main_case, r"extend_kernel"),
+            ("ksw_extend16", "extend16", "scripts/exp_int16_kernel.py:48",
+             launches16, err16, case16, r"extend16_kernel"),
+            ("extend_real", "extend_real",
+             "scripts/exp_kernel_real.py:87", launches_real, err_real,
+             case_real, r"extend_real_kernelI(Lb1E){7}Li1E")):
+        loop = sass_loops(_run([_cuobjdump(), "-sass",
+                                _build.build_info[src]["so"]]), function)
+        bound_ms, bound_by, parts = bound(case, loop, rates)
+        sass[name] = dict(loop, cells=case["cells"], bytes=case["bytes"],
+                          **{k: round(v, 6) for k, v in parts.items()})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpubwa_torch/csrc/{src}.cu", "replaces": replaces,
+            "launches": n, "max_abs_err": err, "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
+            "bound_by": bound_by, "library_ms": None})
+    print("[bounds] " + json.dumps({"card": rates, "hbm_bytes_s":
+                                    HBM_BYTES_S, "kernels": sass}),
+          flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

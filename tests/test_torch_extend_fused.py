@@ -19,6 +19,7 @@ from tpubwa.opts import MemOpt
 from tpubwa_torch.device import extend_fused as tf
 from tpubwa_torch.device.extend_kernel import extend_batch_plain
 from tpubwa_torch.device.occ import DeviceIndex
+from tpubwa_torch.index import FMIndex as TorchFMIndex
 from test_extend_desc import _materialize, _mk_descs
 from test_extend_fused import _rand_job
 
@@ -29,7 +30,7 @@ from chip_desc_equality import mk_descs as adversarial_descs  # noqa: E402
 
 
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
+def fasta(tmp_path_factory):
     rng = np.random.default_rng(5)
     unit = rng.integers(0, 4, 37).astype(np.uint8)
     codes = np.concatenate([
@@ -37,7 +38,12 @@ def setup(tmp_path_factory):
         rng.integers(0, 4, 2000).astype(np.uint8)])
     p = tmp_path_factory.mktemp("tdesc") / "g.fa"
     p.write_text(">g\n" + "".join("ACGT"[c] for c in codes) + "\n")
-    fmi = FMIndex.from_fasta(str(p))
+    return str(p)
+
+
+@pytest.fixture(scope="module")
+def setup(fasta):
+    fmi = FMIndex.from_fasta(fasta)
     jdidx = JaxDeviceIndex.from_fmindex(fmi)
     tdidx = DeviceIndex.from_numpy({
         "pac_words": np.asarray(jdidx.pac_words), "l_pac": jdidx.l_pac,
@@ -58,9 +64,13 @@ def _reads(fmi, rng, B=32, L=100):
     return reads
 
 
-def test_from_numpy_equals_from_fmindex(setup):
+def test_from_numpy_equals_from_fmindex(setup, fasta):
     fmi, jdidx, tdidx = setup
-    direct = DeviceIndex.from_fmindex(fmi, "cpu")
+    # the port's own index of the same FASTA holds the same reference
+    tfmi = TorchFMIndex.from_fasta(fasta)
+    assert np.array_equal(tfmi.bnt.codes, fmi.bnt.codes)
+    assert (tfmi.bnt.l_pac, tfmi.seq_len) == (fmi.bnt.l_pac, fmi.seq_len)
+    direct = DeviceIndex.from_fmindex(tfmi, "cpu")
     assert torch.equal(direct.pac_words, tdidx.pac_words)
     assert (direct.l_pac, direct.seq_len) == (tdidx.l_pac, tdidx.seq_len)
     assert tdidx.np_idt == jdidx.np_idt

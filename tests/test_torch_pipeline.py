@@ -1,6 +1,10 @@
 """The tpubwa_torch slice end to end on the CPU: regions equal to
 tpubwa's DeviceAligner, `mem` SAM byte-equal to the golden snapshots
-(tpubwa's own output), no JAX import, and no hidden CPU fallback."""
+(tpubwa's own output), no JAX import, and no hidden CPU fallback.
+
+The port carries its own index, reads and options: each test builds the
+port's objects and tpubwa's from the same input, and checks that the
+inputs are equal before it compares the outputs."""
 import io
 import os
 import subprocess
@@ -11,15 +15,17 @@ import pytest
 import torch
 
 import tpubwa.device  # noqa: F401  (x64, as the JAX package runs)
-from tpubwa.cli import main_index
+import tpubwa.index
+import tpubwa.io.fastq
+import tpubwa.opts
 from tpubwa.cli import main_mem as tpubwa_main_mem
 from tpubwa.device.pipeline import make_device_aligner as jax_aligner
-from tpubwa.index import FMIndex
-from tpubwa.io.fastq import Read
-from tpubwa.opts import MEM_F_PE, MemOpt
-from tpubwa_torch.cli import main_mem
+from tpubwa_torch.cli import main_index, main_mem
 from tpubwa_torch.device import pipeline as tp
 from tpubwa_torch.device.smem import collect_intv_device
+from tpubwa_torch.index import FMIndex
+from tpubwa_torch.io.fastq import Read
+from tpubwa_torch.opts import MEM_F_PE, MemOpt
 from simread import simulate_pairs, simulate_reads, write_fastq
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,13 +45,36 @@ def setup(tmp_path_factory):
     fa.write_text(">d1\n" + "\n".join(
         bases[i:i + 70] for i in range(0, len(bases), 70)) + "\n")
     assert main_index([str(fa)]) == 0
-    return codes, FMIndex.load(str(fa))
+    fmi, jfmi = FMIndex.load(str(fa)), tpubwa.index.FMIndex.load(str(fa))
+    assert_same_index(fmi, jfmi)
+    return codes, fmi, jfmi
+
+
+def assert_same_index(fmi, jfmi):
+    """The port's FMIndex and tpubwa's, loaded from one prefix, hold the
+    same arrays and contigs."""
+    assert (fmi.seq_len, fmi.primary) == (jfmi.seq_len, jfmi.primary)
+    for name in ("L2", "bwt_words", "occ_ckpt", "sa_sample"):
+        assert np.array_equal(getattr(fmi, name), getattr(jfmi, name))
+    assert np.array_equal(fmi.bnt.codes, jfmi.bnt.codes)
+    assert ([(a.name, a.offset, a.length) for a in fmi.bnt.anns]
+            == [(a.name, a.offset, a.length) for a in jfmi.bnt.anns])
+
+
+def _opts(**kw):
+    """MemOpt of the port and of tpubwa, from the same keywords."""
+    opt, jopt = MemOpt(**kw), tpubwa.opts.MemOpt(**kw)
+    assert vars(opt) == vars(jopt)
+    return opt, jopt
 
 
 def _reads(recs):
-    code = {"A": 0, "C": 1, "G": 2, "T": 3}
-    return [Read(name=n, seq=np.array([code[c] for c in s], np.uint8),
-                 qual=None) for n, s in recs]
+    """The port's reads and tpubwa's, from the same records."""
+    code = {"A": 0, "C": 1, "G": 2, "T": 3, "N": 4}
+    seqs = [(n, np.array([code[c] for c in s], np.uint8)) for n, s in recs]
+    return ([Read(name=n, seq=x, qual=None) for n, x in seqs],
+            [tpubwa.io.fastq.Read(name=n, seq=x, qual=None)
+             for n, x in seqs])
 
 
 def _flat(regs):
@@ -57,7 +86,7 @@ def _flat(regs):
 def test_regions_equal_jax_aligner(setup, paired, chunk_reads):
     """chunk_reads=16 splits the batch into chunks: the seeding of chunk
     i+1 overlaps the planning of chunk i."""
-    codes, fmi = setup
+    codes, fmi, jfmi = setup
     rng = np.random.default_rng(8 + paired)
     if paired:
         pairs = simulate_pairs(codes, 24, 100, rng, snp_rate=0.02)
@@ -65,31 +94,31 @@ def test_regions_equal_jax_aligner(setup, paired, chunk_reads):
     else:
         recs = [(n, s) for n, s, *_ in simulate_reads(
             codes, 40, 100, rng, snp_rate=0.02, indel_rate=0.004)]
-    reads = _reads(recs)
     # stress reads: garbage, N codes
-    reads.append(Read("garb", rng.integers(0, 4, 100).astype(np.uint8),
-                      None))
-    nread = reads[0].seq.copy()
-    nread[40:44] = 4
-    reads.append(Read("withn", nread, None))
-    opt = MemOpt(flag=MEM_F_PE) if paired else MemOpt()
+    garb = "".join("ACGT"[c] for c in rng.integers(0, 4, 100))
+    recs += [("garb", garb), ("withn", recs[0][1][:40] + "NNNN"
+                               + recs[0][1][44:])]
+    reads, jreads = _reads(recs)
+    assert reads[-1].seq[40:44].tolist() == [4] * 4
+    opt, jopt = _opts(flag=MEM_F_PE) if paired else _opts()
     port = tp.make_device_aligner(opt, fmi, device="cpu")
     if chunk_reads:
         port.chunk_reads = chunk_reads
     got = port(reads)
-    want = jax_aligner(opt, fmi, platform="cpu")(reads)
+    want = jax_aligner(jopt, jfmi, platform="cpu")(jreads)
     assert _flat(got) == _flat(want)
     assert port.extender.n_waves > 0 and port.extender.n_jobs > 0
 
 
 def test_oversize_reads_take_the_scalar_path(setup):
-    codes, fmi = setup
-    opt = MemOpt()
-    long_read = Read("long", codes[100:700].copy(), None)
-    short = Read("short", codes[2000:2100].copy(), None)
+    codes, fmi, jfmi = setup
+    opt, jopt = _opts()
+    recs = [("short", codes[2000:2100]), ("long", codes[100:700])]
+    reads = [Read(n, c.copy(), None) for n, c in recs]
+    jreads = [tpubwa.io.fastq.Read(n, c.copy(), None) for n, c in recs]
     port = tp.make_device_aligner(opt, fmi, device="cpu")
-    got = port([short, long_read])
-    want = jax_aligner(opt, fmi, platform="cpu")([short, long_read])
+    got = port(reads)
+    want = jax_aligner(jopt, jfmi, platform="cpu")(jreads)
     key = [[(r.rb, r.re, r.qb, r.qe, r.score, r.sub) for r in regs]
            for regs in (list(got[0]), list(got[1]))]
     assert key == [[(r.rb, r.re, r.qb, r.qe, r.score, r.sub)
@@ -176,24 +205,33 @@ def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index, index,
 def test_no_jax_import():
     code = ("import sys, tpubwa_torch, tpubwa_torch.cli, "
             "tpubwa_torch.device.pipeline, "
-            "tpubwa_torch.scripts.exp_int16_kernel; "
+            "tpubwa_torch.scripts.exp_int16_kernel, "
+            "tpubwa_torch.scripts.exp_kernel_real; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'tpubwa.device' not in sys.modules")
+            "assert 'tpubwa' not in sys.modules, 'tpubwa imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
 
 def test_cuda_without_a_card_raises(setup, monkeypatch):
-    _, fmi = setup
+    """cuda is the default, and no value resolves to the CPU unless the
+    caller names it: there is no 'auto'."""
+    _, fmi, _ = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tp.make_device_aligner(MemOpt(), fmi, device="cuda")
-    assert tp.resolve_device("auto") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tp.make_device_aligner(MemOpt(), fmi)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tp.resolve_device()
+    with pytest.raises(RuntimeError):
+        tp.resolve_device("auto")
+    assert tp.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_missing_paths_raise_not_implemented(setup, monkeypatch):
-    codes, fmi = setup
-    reads = _reads([("r", "".join("ACGT"[c] for c in codes[300:400]))])
+    codes, fmi, _ = setup
+    reads, _ = _reads([("r", "".join("ACGT"[c] for c in codes[300:400]))])
     aligner = tp.make_device_aligner(MemOpt(), fmi, device="cpu")
     arr, lens = aligner._pack(reads, 32)
     with pytest.raises(NotImplementedError, match="item 5"):

@@ -231,7 +231,7 @@ def scalar_fused(job, mat, o_del, e_del, o_ins, e_ins, zdrop,
     """Scalar oracle: the upstream trial loops with ref.ksw.ksw_extend.
     job = (qlenL, qL, tlenL, tL, qlenR, qR, tlenR, tR, w, h0, pen5,
     pen3).  Returns np.int64 [16]."""
-    from tpubwa.ref.ksw import ksw_extend
+    from ..ref.ksw import ksw_extend
     (qlenL, qL, tlenL, tL, qlenR, qR, tlenR, tR, w0, h0,
      pen5, pen3) = job
     out = np.zeros(16, np.int64)

@@ -81,14 +81,15 @@ def _check(q, t, params):
 
 
 def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
-                       zdrop):
+                       zdrop, stats=None):
     """q int32 [N, W]; t int32 [N, tmax]; params int32 [N, >=5] with
     lanes (qlen, tlen, h0, w, end_bonus), h0 > 0.  Returns int32
     [N, 6]: (score, qle, tle, gtle, gscore, max_off).
 
     The row step mirrors extend_pallas.py:_extend_kernel lane for lane:
     the shifted eh arrays of upstream (eh_h[j] = H(i-1, j-1)), band
-    masks as lane predicates, per-job scalars as [N, 1] columns."""
+    masks as lane predicates, per-job scalars as [N, 1] columns.  A
+    ``stats`` dict gets ``cells``, the band cells of the active rows."""
     _check(q, t, params)
     dev = q.device
     N, NL = q.shape
@@ -137,6 +138,10 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
         beg_i = torch.maximum(beg, i - ww)
         end_i = torch.minimum(torch.minimum(end, i + ww + 1), qlen)
         closed = beg_i >= end_i
+        if stats is not None:
+            # band cells: what a kernel's inner loop visits on this row
+            stats["cells"] = stats.get("cells", 0) + int(torch.where(
+                act & ~closed, end_i - beg_i, 0).sum())
         h1_first = torch.where(
             beg_i == 0, torch.clamp_min(h0 - (o_del + e_del * (i + 1)), 0),
             0)

@@ -18,7 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from tpubwa.index.fmindex import FMIndex, pack_bwt_words
+from ..index.fmindex import FMIndex, pack_bwt_words
 
 
 def _fits_i32(seq_len: int) -> bool:

@@ -11,13 +11,12 @@ Stage plan per chunk of reads:
   E. region post                   (native planner)
 
 The regions equal tpubwa's DeviceAligner and the scalar host path
-(tests/test_torch_pipeline.py), so pairing, MAPQ and SAM are the shared
-host code.
+(tests/test_torch_pipeline.py), so pairing, MAPQ and SAM are the host
+code (the port's copy of tpubwa's, in ``tpubwa_torch/host``).
 """
 
 from __future__ import annotations
 
-import logging
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Sequence
@@ -25,34 +24,24 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from tpubwa.host.native_emit import FlatRegs, plan_batch_native
-from tpubwa.host.native_smem import sa_positions_native
-from tpubwa.host.pipeline import align1_core
-from tpubwa.host.regions import AlnReg
-from tpubwa.index.fmindex import FMIndex
-from tpubwa.io.fastq import Read
-from tpubwa.opts import MemOpt
-from tpubwa.utils import serial_pipeline
-
+from ..host.native_emit import FlatRegs, plan_batch_native
+from ..host.native_smem import sa_positions_native
+from ..host.pipeline import align1_core
+from ..host.regions import AlnReg
+from ..index.fmindex import FMIndex
+from ..io.fastq import Read
+from ..opts import MemOpt
+from ..utils import serial_pipeline
 from .extend_fused import extend_seed_desc_np
 from .extend_kernel import LANES, _mat_ab
 from .occ import DeviceIndex
 from .smem import collect_intv_device
 
-log = logging.getLogger("tpubwa")
 
-
-def resolve_device(device) -> torch.device:
-    """'cuda' never falls back; 'cpu' runs the plain versions; 'auto'
-    takes 'cuda' when torch sees a card, else 'cpu', and logs which."""
-    if isinstance(device, torch.device):
-        name = device.type
-    else:
-        name = str(device)
-    if name == "auto":
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-        log.info("[tpubwa_torch] device auto -> %s", name)
-        return torch.device(name)
+def resolve_device(device="cuda") -> torch.device:
+    """'cuda' (the default) raises when torch sees no card: nothing
+    falls back to the CPU.  'cpu' runs the plain versions, and only
+    when the caller asks for it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch sees no "
@@ -75,7 +64,7 @@ class ExtendStats:
 class DeviceAligner:
     """Host seeding/SA/planning; extension waves on ``device``."""
 
-    def __init__(self, opt: MemOpt, fmi: FMIndex, device="auto"):
+    def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda"):
         self.opt = opt
         self.fmi = fmi
         self.mat = opt.scoring_matrix()
@@ -162,7 +151,7 @@ class DeviceAligner:
         if planned is None:
             raise NotImplementedError(
                 "the native planner is unavailable (TPUBWA_NO_NATIVE_PLAN "
-                "or no tpubwa/native build); the Python planner with "
+                "or no tpubwa_torch/native build); the Python planner with "
                 "WaveExtender is ROADMAP Queue 1 item 6")
         regs_flat, n_waves, n_jobs = planned
         ext.n_waves += n_waves
@@ -208,5 +197,5 @@ class DeviceAligner:
 
 
 def make_device_aligner(opt: MemOpt, fmi: FMIndex,
-                        device="auto") -> DeviceAligner:
+                        device="cuda") -> DeviceAligner:
     return DeviceAligner(opt, fmi, device=device)

@@ -2,7 +2,7 @@
 tpubwa/device/smem.py:collect_intv_device.
 
 This slice has mode ``host`` only: the native C++ seeder
-(tpubwa/host/native_smem.py) runs the full 3-round mem_collect_intv
+(tpubwa_torch/host/native_smem.py) runs the full 3-round mem_collect_intv
 protocol on the host, and the chunk's reads go up to the device once
 for the descriptor extension.  The GPU seeding machine (modes
 ``megaq``/``hybrid``) is ROADMAP Queue 1 item 5.
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpubwa.host.native_smem import smem_collect_batch_native
+from ..host.native_smem import smem_collect_batch_native
 
 _GPU_SEEDING = ("seed mode {!r} needs the GPU seeding machine "
                 "(ROADMAP Queue 1 item 5); tpubwa_torch seeds in mode "
@@ -41,7 +41,8 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     rows6 = smem_collect_batch_native(opt, fmi, reads, lens)
     if rows6 is None:
         raise NotImplementedError(
-            "the native seeder (tpubwa/native/smem.cpp) is unavailable; "
+            "the native seeder (tpubwa_torch/native/smem.cpp) is "
+            "unavailable; "
             "seeding without it needs the GPU seeding machine (ROADMAP "
             "Queue 1 item 5)")
     return _package_rows(rows6[:, :5], rows6[:, 5], reads, didx.device)

@@ -100,14 +100,15 @@ def check_int16(q, t, params, a, b, o_del, e_del, o_ins, e_ins):
 
 
 def extend_batch16_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
-                         zdrop):
+                         zdrop, stats=None):
     """``extend_batch``'s contract (q int32 [N, W], t int32 [N, tmax],
     params int32 [N, >=5] lanes (qlen, tlen, h0, w, end_bonus); returns
     int32 [N, 6] (score, qle, tle, gtle, gscore, max_off)), computed on
     int16 DP rows as _extend_kernel16 computes it (:48-178): eh_h, eh_e,
     the score profile and the F scan in int16, the masks, the row max,
     its argmax, h_open and the per-job scalars in int32.  Inside the
-    int16 domain (``check_int16``) it equals K1."""
+    int16 domain (``check_int16``) it equals K1.  A ``stats`` dict gets
+    ``cells``, the band cells of the active rows."""
     _check(q, t, params)
     check_int16(q, t, params, a, b, o_del, e_del, o_ins, e_ins)
     dev = q.device
@@ -159,6 +160,10 @@ def extend_batch16_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
         beg_i = torch.maximum(beg, i - ww)
         end_i = torch.minimum(torch.minimum(end, i + ww + 1), qlen)
         closed = beg_i >= end_i
+        if stats is not None:
+            # band cells: what a kernel's inner loop visits on this row
+            stats["cells"] = stats.get("cells", 0) + int(torch.where(
+                act & ~closed, end_i - beg_i, 0).sum())
         h1_first = torch.where(
             beg_i == 0, torch.clamp_min(h0 - (o_del + e_del * (i + 1)), 0),
             0)
