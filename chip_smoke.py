@@ -30,6 +30,18 @@ Phases, one output line each (a failing phase raises, exit != 0):
      (tpubwa_torch.scripts.exp_kernel_real.main at 512, 16,384 and
      131,072 jobs, and its equality fuzz against K1), whose K1-real
      launches are counted;
+ 3d. every K1-floor ablation (scan, pk, hopen, trim, trees, scan+trees)
+     == extend_batch_plain with the same ablation, exactly, on phase
+     3's main shape, the floor script's 512 jobs and z-drop jobs (each
+     must differ from K1 on one job at least), and the floor entry
+     with no ablation == K1's entry; then the ported floor experiment
+     (tpubwa_torch.scripts.exp_kernel_floor.main at 512 and 131,072
+     jobs), whose K1-floor launches are counted;
+ 3e. compute-sanitizer's memcheck and initcheck over every
+     instantiation of the three sources (K1 and its 15 floor
+     ablations, K1-i16, K1-real's 10) on 256 jobs, in a child process:
+     any error it reports fails; a tool that is missing or cannot run
+     the child is printed as such, never as a pass;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
      the snapshots (tpubwa's own output), @PG stripped;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
@@ -44,8 +56,8 @@ moves, address arithmetic and the loop counter left out), over the
 card's integer rate; or its bytes over HBM bandwidth, whichever is
 larger), a JSON line of the kernels (launches on each kernel's path: K1
 in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
-that of 3c; errors, times, bounds) and, last, {"ok": true, "device":
-{...}}.
+that of 3c, K1-floor in that of 3d; errors, times, bounds) and, last,
+{"ok": true, "device": {...}}.
 
 Everything it builds or caches (kernels, the native host libraries, the
 benchmark index) goes under build/ in the checkout.  It imports nothing
@@ -567,6 +579,173 @@ def phase_kernel_real(torch, np):
     return main_case, max_err, launches
 
 
+FLOOR_SPECS = (("scan",), ("pk",), ("hopen",), ("trim",), ("trees",),
+               ("scan", "trees"))
+
+
+def phase_kernel_floor(torch, np):
+    """Every K1-floor ablation's kernel against its plain version on the
+    card, tolerance 0, at phase 3's main shape (make_jobs W 128, tmax
+    256, N 8,192), on the floor script's 512 jobs and on 256 z-drop
+    jobs; each must differ from K1 on at least one of these jobs, and
+    the floor entry with no ablation must equal K1's entry.  Then the
+    ported experiment, with the counts set to 0 just before it and read
+    just after.  The row of the kernels line is the -scan
+    instantiation's at the main shape."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.scripts import exp_kernel_floor as xf
+    from tpubwa_torch.scripts import exp_kernel_real as xr
+    pen = (*xr.SCORING, xr.ZDROP)
+    rng = np.random.default_rng(0xF100)
+    sets = {"make_jobs": make_jobs(rng, 8192, 128, 256),
+            "script": xf.floor_jobs(512),
+            "zdrop": xr.zdrop_jobs(rng, 256)}
+    differs = {"+".join(s): 0 for s in FLOOR_SPECS}
+    cases = {}
+    max_err = 0
+    main_case = None
+    for name, arrays in sets.items():
+        q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                   for x in arrays)
+        k1 = ek.extend_batch(q, t, p, *pen)
+        if not torch.equal(ek._extend_floor_cuda(q, t, p, *pen, 0), k1):
+            raise AssertionError(f"floor entry, no ablation != K1 on {name}")
+        for spec in FLOOR_SPECS:
+            label = "+".join(spec)
+            stats = {}
+            got = ek.extend_batch(q, t, p, *pen, ablate=spec)
+            want, plain_ms = timed_once(torch, lambda: ek.extend_batch_plain(
+                q, t, p, *pen, stats=stats, ablate=spec))
+            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                bad = (got != want).any(1).nonzero()[:3, 0].tolist()
+                raise AssertionError(
+                    f"K1-floor {label} != plain on {name} jobs: rows {bad}: "
+                    f"{got[bad].tolist()} vs {want[bad].tolist()}")
+            differs[label] += int((got != k1).any(1).sum())
+            if name != "make_jobs":
+                continue
+            mask = ek.ablate_mask(spec)
+            case = {"ms": round(cuda_ms(lambda s=spec: ek.extend_batch(
+                        q, t, p, *pen, ablate=s), 20), 4),
+                    "alone_ms": round(cuda_ms(lambda m=mask: (
+                        ek._extend_floor_cuda(q, t, p, *pen, m)), 20), 4),
+                    "plain_ms": round(plain_ms, 3), "cells": stats["cells"]}
+            cases[label] = case
+            if spec == ("scan",):
+                main_case = dict(case, bytes=4 * (
+                    q.numel() + t.numel() + p.numel() + got.numel()))
+        if name == "make_jobs":
+            cases["K1"] = {"alone_ms": round(cuda_ms(
+                lambda: ek._extend_cuda(q, t, p, *pen), 20), 4)}
+    vacuous = [k for k, v in differs.items() if v == 0]
+    if vacuous:
+        raise AssertionError(f"{vacuous} equal K1 on every job: their "
+                             "comparison with the plain version is vacuous")
+    ek.extend_batch.launches = 0
+    ek.extend_batch.floor_launches = 0
+    res = xf.main(["--device", DEV, "--jobs", "512,131072"])
+    launches = ek.extend_batch.floor_launches
+    if launches <= 0 or ek.extend_batch.launches <= 0:
+        raise AssertionError(f"the floor experiment launched {launches} "
+                             f"K1-floor and {ek.extend_batch.launches} K1 "
+                             "kernels")
+    print("[3d K1-floor kernel==plain, no ablation==K1] " + json.dumps(
+        {"tolerance": 0, "jobs": {k: len(v[0]) for k, v in sets.items()},
+         "specs": cases, "differs_from_k1": differs, "max_abs_err": max_err,
+         "experiment": {"timing": res["timing"], "floor_launches": launches,
+                        "k1_launches": ek.extend_batch.launches}}),
+        flush=True)
+    return main_case, max_err, launches
+
+
+# the child of phase 3e: every instantiation once on 256 jobs, each
+# followed by a synchronise, so that a fault shows at its kernel
+_SANITIZED = """
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+from chip_smoke import make_jobs
+from tpubwa_torch.device import extend_kernel as ek
+from tpubwa_torch.scripts import exp_int16_kernel as x16
+from tpubwa_torch.scripts import exp_kernel_real as xr
+q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+           for x in make_jobs(np.random.default_rng(3), 256, 128, 256))
+torch.cuda.synchronize()
+print("inputs on the card", flush=True)
+pen = (*xr.SCORING, xr.ZDROP)
+runs = [lambda: ek._extend_cuda(q, t, p, *pen)]
+runs += [lambda m=m: ek._extend_floor_cuda(q, t, p, *pen, m)
+         for m in range(1, 16)]
+runs += [lambda: x16._extend16_cuda(q, t, p, *pen)]
+runs += [lambda v=v: xr._extend_real_cuda(q, t, p, v)
+         for v in xr.VARIANTS if v != "rollred-fused"]
+for run in runs:
+    run()
+    torch.cuda.synchronize()
+print("sanitized", len(runs), "instantiations")
+"""
+SANITIZED_RUNS = 27
+
+
+def _sanitizer():
+    """(compute-sanitizer's path or None, the paths searched): PATH, then
+    beside nvcc, then the toolkit's compute-sanitizer/ folder."""
+    from tpubwa_torch.device import _build
+    paths = [shutil.which("compute-sanitizer") or "PATH"]
+    try:
+        cuda = os.path.dirname(os.path.dirname(_build._nvcc()))
+    except RuntimeError:
+        cuda = "/usr/local/cuda"
+    paths += [os.path.join(cuda, "bin", "compute-sanitizer"),
+              os.path.join(cuda, "compute-sanitizer", "compute-sanitizer")]
+    for path in paths:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path, paths
+    return None, paths
+
+
+def phase_sanitizer():
+    """compute-sanitizer memcheck and initcheck over every instantiation
+    (the child _SANITIZED).  Raises if the tool reports an error once
+    the child's inputs are on the card (every kernel of ours runs after
+    that), or if the child then fails.  A tool that is missing, or that
+    fails before that point (on torch's own setup, before any kernel of
+    ours), is printed as such: it checked nothing, and is no pass."""
+    tool, searched = _sanitizer()
+    if tool is None:
+        print(f"[sanitizer] not found: {', '.join(searched)}", flush=True)
+        return {"found": False, "searched": searched}
+    res = {"tool": tool}
+    for kind in ("memcheck", "initcheck"):
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(
+                [tool, "--tool", kind, sys.executable, "-c",
+                 _SANITIZED.format(root=ROOT)], cwd=ROOT, capture_output=True,
+                text=True, timeout=300)
+            out, rc = run.stdout + run.stderr, run.returncode
+        except subprocess.TimeoutExpired as e:
+            out, rc = f"timed out after {e.timeout} s", None
+        summary = re.findall(r"ERROR SUMMARY: (\d+) errors?", out)
+        errors = int(summary[-1]) if summary else None
+        started = "inputs on the card" in out
+        ran = f"sanitized {SANITIZED_RUNS} instantiations" in out
+        if started and (errors or not ran):
+            raise AssertionError(f"compute-sanitizer {kind}: {errors} errors"
+                                 f", child rc {rc}\n{out[-3000:]}")
+        res[kind] = {"errors": errors, "checked_all": ran and errors == 0,
+                     "rc": rc, "seconds": round(time.perf_counter() - t0, 1)}
+        if not res[kind]["checked_all"]:
+            # the tool's own first reports: why it checked nothing
+            res[kind]["did_not_check"] = [
+                l.strip("= ") for l in out.splitlines()
+                if l.startswith("=========") and "Host Frame" not in l
+                and l.strip("= ")][:4] or out[-300:]
+    print("[3e sanitizer] " + json.dumps(res), flush=True)
+    return res
+
+
 def card_rates(torch):
     """The card's SMs, top SM clock and integer rates (lane instructions
     per second): the INT32 pipe's SMs x 64 x clock, and the SM's issue
@@ -944,6 +1123,8 @@ def main() -> int:
     main_case, max_err = phase_kernel(torch, np)
     case16, err16, launches16 = phase_kernel16(torch, np)
     case_real, err_real, launches_real = phase_kernel_real(torch, np)
+    case_floor, err_floor, launches_floor = phase_kernel_floor(torch, np)
+    phase_sanitizer()
     phase_golden(torch)
     launches = phase_main_path(torch, np)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
@@ -952,17 +1133,24 @@ def main() -> int:
         raise AssertionError(f"imported {bad[:5]}")
     from tpubwa_torch.device import _build
     rates = card_rates(torch)
-    kernels, sass = [], {}
+    kernels, sass, disasm = [], {}, {}
+    # each row's loop is one instantiation: K1 is extend_kernel<0>, the
+    # floor row its -scan instantiation extend_kernel<1>
     for (name, src, replaces, n, err, case, function) in (
             ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
-             launches, max_err, main_case, r"extend_kernel"),
+             launches, max_err, main_case, r"extend_kernelILi0EE"),
             ("ksw_extend16", "extend16", "scripts/exp_int16_kernel.py:48",
              launches16, err16, case16, r"extend16_kernel"),
             ("extend_real", "extend_real",
              "scripts/exp_kernel_real.py:87", launches_real, err_real,
-             case_real, r"extend_real_kernelI(Lb1E){7}Li1E")):
-        loop = sass_loops(_run([_cuobjdump(), "-sass",
-                                _build.build_info[src]["so"]]), function)
+             case_real, r"extend_real_kernelI(Lb1E){7}Li1E"),
+            ("ksw_extend_floor", "extend",
+             "tpubwa/device/extend_pallas.py:224", launches_floor,
+             err_floor, case_floor, r"extend_kernelILi1EE")):
+        if src not in disasm:
+            disasm[src] = _run([_cuobjdump(), "-sass",
+                                _build.build_info[src]["so"]])
+        loop = sass_loops(disasm[src], function)
         bound_ms, bound_by, parts = bound(case, loop, rates)
         sass[name] = dict(loop, cells=case["cells"], bytes=case["bytes"],
                           **{k: round(v, 6) for k, v in parts.items()})

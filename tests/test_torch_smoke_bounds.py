@@ -2,6 +2,8 @@
 a kernel's integer work per DP cell, and the bound built from it.  The
 disassembly is written out here in cuobjdump's format (the card's
 machine runs cuobjdump on the kernels it builds)."""
+import re
+
 import pytest
 
 import chip_smoke as c
@@ -100,3 +102,28 @@ def test_bound_takes_the_larger_limit():
     assert parts["all_sass_int32_ms"] == pytest.approx(23e9 / 64e12 * 1e3)
     ms, by, _ = c.bound(dict(case, bytes=1e12), loop, rates)
     assert by == "bytes" and ms == pytest.approx(1e12 / c.HBM_BYTES_S * 1e3)
+
+
+def _two_instantiations():
+    """SASS with K1's template instantiated twice, as cuobjdump names
+    them: extend_kernel<0> (the loop above) and extend_kernel<1>, whose
+    loop lacks one VIMNMX per cell."""
+    k0 = SASS.replace("_Z6kernelPiS_",
+                      "_ZN12_GLOBAL__N_113extend_kernelILi0EEEvPKiS2_")
+    k1 = k0.replace("ILi0EE", "ILi1EE").replace(
+        "        /*00c0*/                   VIMNMX R14, R14, R13, !PT ;\n",
+        "        /*00c0*/                   NOP ;\n")
+    return k0 + k1
+
+
+@pytest.mark.parametrize("pattern,alu", [(r"extend_kernelILi0EE", 3.0),
+                                         (r"extend_kernelILi1EE", 2.5)])
+def test_sass_loops_pins_one_template_instantiation(pattern, alu):
+    loop = c.sass_loops(_two_instantiations(), pattern)
+    assert re.search(pattern, loop["function"])
+    assert loop["alu_per_cell"] == alu
+
+
+def test_sass_loops_bare_name_of_a_template_raises():
+    with pytest.raises(AssertionError, match="2 functions match"):
+        c.sass_loops(_two_instantiations(), r"extend_kernel")

@@ -13,6 +13,12 @@ Two versions of one function, bit-identical by test:
 ``extend_batch`` routes by the tensors' device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.  Nothing
 falls back from one to the other.
+
+Both also take the JAX kernel's timing-only arguments (K1-floor,
+driven by ``tpubwa_torch/scripts/exp_kernel_floor.py``): ``ablate``, a
+subset of ``ABLATE``, which makes the result wrong on purpose, and
+``trees``, one of ``TREES``, the TPU's row-reduction layouts, which all
+compute the same result.
 """
 
 from __future__ import annotations
@@ -28,6 +34,12 @@ LANES = 512          # widest DP row -> qlen <= LANES - 1 (510 bp reads)
 CHUNK = 512          # jobs per kernel launch in the JAX package
 NEG = -(1 << 29)
 I32 = torch.int32
+# extend_pallas.py:_extend_kernel's `ablate` names (:224-233,
+# :271-286) as the bits of csrc/extend.cu's ablation mask ("trees"
+# ablates pk, hopen and trim), and its `trees` layouts (:105-159)
+ABLATE_BITS = {"scan": 1, "pk": 2, "hopen": 4, "trim": 8, "trees": 14}
+ABLATE = tuple(ABLATE_BITS)
+TREES = ("split", "stacked", "mxu", "scanred", "mxuscan")
 
 
 def chunk_for(width: int) -> int:
@@ -80,8 +92,23 @@ def _check(q, t, params):
                          "query tile's lanes")
 
 
+def ablate_mask(ablate=(), trees=None) -> int:
+    """csrc/extend.cu's ablation mask for ``ablate`` (0: K1).  Raises
+    ValueError on a name outside ``ABLATE`` or a ``trees`` outside
+    ``TREES`` (the JAX kernel ignores unknown names)."""
+    bad = [x for x in ablate if x not in ABLATE]
+    if bad:
+        raise ValueError(f"unknown ablate {bad}; names of {ABLATE}")
+    if trees is not None and trees not in TREES:
+        raise ValueError(f"unknown trees {trees!r}; one of {TREES}")
+    mask = 0
+    for x in ablate:
+        mask |= ABLATE_BITS[x]
+    return mask
+
+
 def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
-                       zdrop, stats=None):
+                       zdrop, stats=None, ablate=(), trees=None):
     """q int32 [N, W]; t int32 [N, tmax]; params int32 [N, >=5] with
     lanes (qlen, tlen, h0, w, end_bonus), h0 > 0.  Returns int32
     [N, 6]: (score, qle, tle, gtle, gscore, max_off).
@@ -89,9 +116,17 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
     The row step mirrors extend_pallas.py:_extend_kernel lane for lane:
     the shifted eh arrays of upstream (eh_h[j] = H(i-1, j-1)), band
     masks as lane predicates, per-job scalars as [N, 1] columns.  A
-    ``stats`` dict gets ``cells``, the band cells of the active rows."""
+    ``stats`` dict gets ``cells``, the band cells of the active rows.
+    ``ablate`` and ``trees`` as in ``ablate_mask``: an ablated reduction
+    reads lane 0 of its input, as the JAX kernel's does."""
+    mask = ablate_mask(ablate, trees)
     _check(q, t, params)
     dev = q.device
+
+    def red(x, op, bit):
+        # one of the row step's full-row reductions, or its lane 0
+        return x[:, 0:1] if mask & bit else op(x, dim=1, keepdim=True)
+
     N, NL = q.shape
     tmax = t.shape[1]
     oe_del = o_del + e_del
@@ -154,13 +189,16 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
         M = torch.where(in_band, M, NEG)
         E = torch.where(in_band, eh_e, NEG)
         he = torch.maximum(M, E)
-        # F(j) = max_{u < j} (t_ins[u] - (j-1-u) e_ins): a running max
-        # of t_ins[u] + u e_ins, read one lane to the right
-        t_ins = torch.where(in_band, torch.clamp_min(M - oe_ins, 0),
-                            NEG)
-        pm = torch.cummax(t_ins + lane * e_ins, dim=1).values
-        pm1 = torch.roll(pm, 1, dims=1)
-        F = torch.where(lane >= 1, pm1 - (lane - 1) * e_ins, NEG)
+        if mask & ABLATE_BITS["scan"]:
+            F = torch.full((N, NL), NEG, dtype=I32, device=dev)
+        else:
+            # F(j) = max_{u < j} (t_ins[u] - (j-1-u) e_ins): a running
+            # max of t_ins[u] + u e_ins, read one lane to the right
+            t_ins = torch.where(in_band, torch.clamp_min(M - oe_ins, 0),
+                                NEG)
+            pm = torch.cummax(t_ins + lane * e_ins, dim=1).values
+            pm1 = torch.roll(pm, 1, dims=1)
+            F = torch.where(lane >= 1, pm1 - (lane - 1) * e_ins, NEG)
         F = torch.where(lane == beg_i, 0, F)
         H = torch.maximum(he, F)
         H = torch.where(in_band, torch.clamp_min(H, 0), 0)
@@ -179,15 +217,15 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
         eh_e = torch.where(cl & (lane == end_i), 0, eh_e)
         # row max and its LAST argmax in one packed max over H*NL+lane
         # (upstream's `mj = m > h1 ? mj : j`); H < 2^22 keeps it in i32
-        pk = torch.where(in_band, H * NL + lane, NEG).amax(
-            dim=1, keepdim=True)
-        h_open = torch.where(lane == end_i - 1, H, 0).amax(
-            dim=1, keepdim=True)
+        pk = red(torch.where(in_band, H * NL + lane, NEG), torch.amax,
+                 ABLATE_BITS["pk"])
+        h_open = red(torch.where(lane == end_i - 1, H, 0), torch.amax,
+                     ABLATE_BITS["hopen"])
         nz = (eh_h != 0) | (eh_e != 0)
-        first_nz = torch.where(in_band & nz, lane, NL + 2).amin(
-            dim=1, keepdim=True)
-        last_nz = torch.where((in_band | (lane == end_i)) & nz, lane,
-                              NEG).amax(dim=1, keepdim=True)
+        first_nz = red(torch.where(in_band & nz, lane, NL + 2), torch.amin,
+                       ABLATE_BITS["trim"])
+        last_nz = red(torch.where((in_band | (lane == end_i)) & nz, lane,
+                                  NEG), torch.amax, ABLATE_BITS["trim"])
         m = torch.clamp_min(pk >> sh_nl, 0)
         mj = pk & (NL - 1)
         h_last = torch.where(closed, h1_first, h_open)
@@ -225,10 +263,15 @@ _SIGNATURES = {
     # (q, t, params, out, eh, n, W, tmax, pstride, a, b, o_del, e_del,
     #  o_ins, e_ins, zdrop, device, stream) -> cudaError_t
     "tpubwa_extend_batch": (_CI, [_VP] * 5 + [_CI] * 12 + [_VP]),
+    # the same, then ablate_mask
+    "tpubwa_extend_floor": (_CI, [_VP] * 5 + [_CI] * 12 + [_VP, _CI]),
 }
 
 
-def _extend_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
+def _launch(entry, q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
+            *mask):
+    """(out, launched): one call of the C entry ``entry`` of
+    csrc/extend.cu; nothing is launched for N == 0."""
     lib = _build.load("extend", _SIGNATURES)
     N, W = q.shape
     q = q.contiguous()
@@ -236,37 +279,64 @@ def _extend_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
     params = params.contiguous()
     out = torch.empty((N, 6), dtype=I32, device=q.device)
     if N == 0:
-        return out
+        return out, False
     # eh scratch, job-minor ([W+2, N] of (h, e) pairs): a warp's jobs at
     # the same query column read neighbouring addresses
     eh = torch.empty((W + 2, N, 2), dtype=I32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.tpubwa_extend_batch(
+    rc = getattr(lib, entry)(
         q.data_ptr(), t.data_ptr(), params.data_ptr(), out.data_ptr(),
         eh.data_ptr(), N, W, t.shape[1], params.shape[1], a, b, o_del,
-        e_del, o_ins, e_ins, zdrop, q.device.index, stream)
+        e_del, o_ins, e_ins, zdrop, q.device.index, stream, *mask)
     if rc != 0:
-        raise RuntimeError(f"extend kernel launch failed: cudaError {rc}")
-    extend_batch.launches += 1
+        raise RuntimeError(f"extend kernel launch failed ({entry}"
+                           f"{tuple(mask)}): cudaError {rc}")
+    return out, True
+
+
+def _extend_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
+    out, launched = _launch("tpubwa_extend_batch", q, t, params, a, b,
+                            o_del, e_del, o_ins, e_ins, zdrop)
+    extend_batch.launches += launched
     return out
 
 
-def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
+def _extend_floor_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
+                       zdrop, mask):
+    """K1-floor's entry with ablation mask ``mask`` (0 is K1's
+    instantiation, through the floor entry)."""
+    out, launched = _launch("tpubwa_extend_floor", q, t, params, a, b,
+                            o_del, e_del, o_ins, e_ins, zdrop, mask)
+    extend_batch.floor_launches += launched
+    return out
+
+
+def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
+                 ablate=(), trees=None):
     """The extend_batch_pallas contract (extend_pallas.py:341-376):
     q int32 [N, W]; t int32 [N, tmax]; params int32 [N, >=5] lanes
     (qlen, tlen, h0, w, end_bonus), h0 > 0, qlen < W.  Returns int32
-    [N, 6] (score, qle, tle, gtle, gscore, max_off).
+    [N, 6] (score, qle, tle, gtle, gscore, max_off).  ``ablate`` and
+    ``trees`` as in ``ablate_mask`` (timing only: never on the main
+    path).
 
     CPU tensors run ``extend_batch_plain``; CUDA tensors launch the
-    hand-written kernel (``extend_batch.launches`` counts launches)."""
+    hand-written kernel: K1 with no ablation (``extend_batch.launches``
+    counts its launches), else its K1-floor instantiation
+    (``extend_batch.floor_launches``)."""
+    mask = ablate_mask(ablate, trees)
     _check(q, t, params)
     if q.device.type == "cpu":
         return extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins,
-                                  e_ins, zdrop)
+                                  e_ins, zdrop, ablate=ablate, trees=trees)
     if q.device.type != "cuda":
         raise ValueError(f"no extend kernel for device {q.device}")
+    if mask:
+        return _extend_floor_cuda(q, t, params, a, b, o_del, e_del, o_ins,
+                                  e_ins, zdrop, mask)
     return _extend_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
                         zdrop)
 
 
 extend_batch.launches = 0
+extend_batch.floor_launches = 0
