@@ -38,10 +38,19 @@ Phases, one output line each (a failing phase raises, exit != 0):
      (tpubwa_torch.scripts.exp_kernel_floor.main at 512 and 131,072
      jobs), whose K1-floor launches are counted;
  3e. compute-sanitizer's memcheck and initcheck over every
-     instantiation of the three sources (K1 and its 15 floor
-     ablations, K1-i16, K1-real's 10) on 256 jobs, in a child process:
-     any error it reports fails; a tool that is missing or cannot run
-     the child is printed as such, never as a pass;
+     instantiation of the four sources (K1 and its 15 floor
+     ablations, K1-i16, K1-real's 10, K1-bd's 9) on 256 jobs, in a
+     child process: any error it reports fails; a tool that is missing
+     or cannot run the child is printed as such, never as a pass;
+ 3f. every K1-bd variant's kernel == extend_bd_plain, exactly, on
+     phase 3's main shape, the breakdown script's 512 jobs, jobs that
+     die at rows of their own (alone and beside a survivor), 64 jobs
+     whose tlen exceeds N (tdot's row cap) and a 252-row tile (each
+     variant must differ from baseline on one job at least; a dying
+     job alone must differ from its result in the launch); then the
+     ported breakdown experiment
+     (tpubwa_torch.scripts.exp_kernel_breakdown.main at 512 and
+     131,072 jobs), whose K1-bd launches are counted;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
      the snapshots (tpubwa's own output), @PG stripped;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
@@ -56,7 +65,8 @@ moves, address arithmetic and the loop counter left out), over the
 card's integer rate; or its bytes over HBM bandwidth, whichever is
 larger), a JSON line of the kernels (launches on each kernel's path: K1
 in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
-that of 3c, K1-floor in that of 3d; errors, times, bounds) and, last,
+that of 3c, K1-floor in that of 3d, K1-bd in that of 3f; errors, times,
+bounds) and, last,
 {"ok": true, "device": {...}}.
 
 Everything it builds or caches (kernels, the native host libraries, the
@@ -252,9 +262,10 @@ def phase_build():
     from tpubwa_torch.device import _build
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.scripts import exp_int16_kernel as x16
+    from tpubwa_torch.scripts import exp_kernel_breakdown as xb
     from tpubwa_torch.scripts import exp_kernel_real as xr
     kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES,
-               "extend_real": xr._SIGNATURES}
+               "extend_real": xr._SIGNATURES, "extend_bd": xb._SIGNATURES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         futures = [ex.submit(_build.load, name, sigs)
@@ -659,6 +670,88 @@ def phase_kernel_floor(torch, np):
     return main_case, max_err, launches
 
 
+def phase_kernel_bd(torch, np):
+    """Every K1-bd variant's kernel against its plain version on the
+    card, tolerance 0, on six launches: phase 3's main shape (make_jobs
+    W 128, tmax 256, N 8,192), the script's 512 jobs, 64 jobs that each
+    die at a row of their own, the same beside a job that survives, 64
+    of the script's jobs (tlen 200 > N: tdot's row cap), and 256 jobs on
+    a 252-row tile (t8-slice's clip, unroll2's extra row).  Each variant
+    must differ from baseline on one job at least, and a dying job's
+    kernel result launched alone must differ from its result in the
+    launch (the coupling).  Then the ported experiment at 512 and
+    131,072 jobs, with the count set to 0 just before it and read just
+    after.  The row of the kernels line is baseline's at the main
+    shape."""
+    from tpubwa_torch.scripts import exp_kernel_breakdown as xb
+    rng = np.random.default_rng(0xBD)
+    dying = xb.dying_jobs(rng, 64)
+    sets = {"make_jobs": make_jobs(rng, 8192, 128, 256),
+            "script": xb.bd_jobs(512),
+            "dying": dying,
+            "dying+survivor": tuple(np.concatenate([a, b]) for a, b in
+                                    zip(dying, xb.bd_jobs(1))),
+            "tdot_cap": xb.bd_jobs(64),
+            "clip252": xb.clip_jobs(rng, 256)}
+    differs = {v: 0 for v in xb.VARIANTS[1:]}
+    cases, max_err, main_case = {}, 0, None
+    for name, arrays in sets.items():
+        q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                   for x in arrays)
+        base = None
+        for v in xb.VARIANTS:
+            stats = {}
+            got = xb.extend_bd(q, t, p, v)
+            want, plain_ms = timed_once(torch, lambda: xb.extend_bd_plain(
+                q, t, p, v, stats=stats))
+            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                bad = (got != want).any(1).nonzero()[:3, 0].tolist()
+                raise AssertionError(
+                    f"K1-bd {v} != plain on {name} jobs: rows {bad}: "
+                    f"{got[bad, :4].tolist()} vs {want[bad, :4].tolist()}")
+            if v == "baseline":
+                base = got
+            else:
+                differs[v] += int((got[:, :4] != base[:, :4]).any(1).sum())
+            if name != "make_jobs":
+                continue
+            case = {"ms": round(cuda_ms(
+                        lambda v=v: xb.extend_bd(q, t, p, v), 20), 4),
+                    "alone_ms": round(cuda_ms(
+                        lambda v=v: xb._extend_bd_cuda(q, t, p, v), 20), 4),
+                    "plain_ms": round(plain_ms, 3), "cells": stats["cells"]}
+            cases[v] = case
+            if v == "baseline":
+                main_case = dict(case, bytes=4 * (
+                    q.numel() + t.numel() + p.numel() + got.numel()))
+        if name == "dying":
+            # the coupling: alone, a dying job stops where it dies
+            coupled = [k for k in range(8)
+                       if not torch.equal(xb.extend_bd(
+                           q[k:k + 1], t[k:k + 1], p[k:k + 1])[0], base[k])]
+            if not coupled:
+                raise AssertionError("K1-bd: each of 8 dying jobs alone "
+                                     "equals its result in the launch")
+    vacuous = [v for v, k in differs.items() if k == 0]
+    if vacuous:
+        raise AssertionError(f"{vacuous} equal baseline on every job: their "
+                             "comparison with the plain version is vacuous")
+    xb.extend_bd.launches = 0
+    res = xb.main(["--device", DEV, "--jobs", "512,131072"])
+    launches = xb.extend_bd.launches
+    if launches <= 0:
+        raise AssertionError("the breakdown experiment launched no K1-bd "
+                             "kernel")
+    print("[3f K1-bd kernel==plain] " + json.dumps(
+        {"tolerance": 0, "jobs": {k: len(v[0]) for k, v in sets.items()},
+         "variants": cases, "differs_from_baseline": differs,
+         "coupled_dying_jobs": coupled, "max_abs_err": max_err,
+         "experiment": {"timing": res["timing"], "bd_launches": launches}}),
+        flush=True)
+    return main_case, max_err, launches
+
+
 # the child of phase 3e: every instantiation once on 256 jobs, each
 # followed by a synchronise, so that a fault shows at its kernel
 _SANITIZED = """
@@ -668,6 +761,7 @@ import numpy as np, torch
 from chip_smoke import make_jobs
 from tpubwa_torch.device import extend_kernel as ek
 from tpubwa_torch.scripts import exp_int16_kernel as x16
+from tpubwa_torch.scripts import exp_kernel_breakdown as xb
 from tpubwa_torch.scripts import exp_kernel_real as xr
 q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
            for x in make_jobs(np.random.default_rng(3), 256, 128, 256))
@@ -680,12 +774,13 @@ runs += [lambda m=m: ek._extend_floor_cuda(q, t, p, *pen, m)
 runs += [lambda: x16._extend16_cuda(q, t, p, *pen)]
 runs += [lambda v=v: xr._extend_real_cuda(q, t, p, v)
          for v in xr.VARIANTS if v != "rollred-fused"]
+runs += [lambda v=v: xb._extend_bd_cuda(q, t, p, v) for v in xb.VARIANTS]
 for run in runs:
     run()
     torch.cuda.synchronize()
 print("sanitized", len(runs), "instantiations")
 """
-SANITIZED_RUNS = 27
+SANITIZED_RUNS = 36
 
 
 def _sanitizer():
@@ -1125,6 +1220,7 @@ def main() -> int:
     case_real, err_real, launches_real = phase_kernel_real(torch, np)
     case_floor, err_floor, launches_floor = phase_kernel_floor(torch, np)
     phase_sanitizer()
+    case_bd, err_bd, launches_bd = phase_kernel_bd(torch, np)
     phase_golden(torch)
     launches = phase_main_path(torch, np)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
@@ -1135,7 +1231,8 @@ def main() -> int:
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
     # each row's loop is one instantiation: K1 is extend_kernel<0>, the
-    # floor row its -scan instantiation extend_kernel<1>
+    # floor row its -scan instantiation extend_kernel<1>, K1-bd's
+    # baseline the live pass extend_bd_live<kTable, no N cap, all on>
     for (name, src, replaces, n, err, case, function) in (
             ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
              launches, max_err, main_case, r"extend_kernelILi0EE"),
@@ -1146,7 +1243,10 @@ def main() -> int:
              case_real, r"extend_real_kernelI(Lb1E){7}Li1E"),
             ("ksw_extend_floor", "extend",
              "tpubwa/device/extend_pallas.py:224", launches_floor,
-             err_floor, case_floor, r"extend_kernelILi1EE")):
+             err_floor, case_floor, r"extend_kernelILi1EE"),
+            ("ksw_extend_bd", "extend_bd",
+             "scripts/exp_kernel_breakdown.py:54", launches_bd, err_bd,
+             case_bd, r"extend_bd_liveILi0ELb0ELb1ELb1ELb1ELb1EE")):
         if src not in disasm:
             disasm[src] = _run([_cuobjdump(), "-sass",
                                 _build.build_info[src]["so"]])

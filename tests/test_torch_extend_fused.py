@@ -47,7 +47,7 @@ def setup(fasta):
     jdidx = JaxDeviceIndex.from_fmindex(fmi)
     tdidx = DeviceIndex.from_numpy({
         "pac_words": np.asarray(jdidx.pac_words), "l_pac": jdidx.l_pac,
-        "seq_len": jdidx.seq_len})
+        "seq_len": jdidx.seq_len}, device="cpu")
     return fmi, jdidx, tdidx
 
 

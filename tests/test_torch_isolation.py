@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -12,6 +13,7 @@ import tpubwa.native
 from tpubwa_torch import native
 from tpubwa_torch.cli import main_index, main_mem
 from tpubwa_torch.device import pipeline as tp
+from tpubwa_torch.device.occ import DeviceIndex
 from tpubwa_torch.index import FMIndex
 from tpubwa_torch.opts import MemOpt
 
@@ -80,6 +82,18 @@ def test_default_device_raises_without_a_card(golden_index, monkeypatch):
         tp.DeviceAligner(MemOpt(), fmi)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_mem([golden_index, os.path.join(GOLD, "se.fq")])
+
+
+def test_device_index_from_numpy_defaults_to_cuda():
+    arrays = {"pac_words": np.zeros(4, np.uint32), "l_pac": 8,
+              "seq_len": 17}
+    assert DeviceIndex.from_numpy(arrays, device="cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        # this torch build has no CUDA: the default device cannot be had
+        with pytest.raises((AssertionError, RuntimeError)):
+            DeviceIndex.from_numpy(arrays)
+    else:
+        assert DeviceIndex.from_numpy(arrays).device.type == "cuda"
 
 
 def test_cli_device_choices_have_no_auto(golden_index, capsys):

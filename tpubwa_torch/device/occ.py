@@ -50,7 +50,7 @@ class DeviceIndex:
                                device)
 
     @classmethod
-    def from_numpy(cls, arrays: Mapping, device="cpu") -> "DeviceIndex":
+    def from_numpy(cls, arrays: Mapping, device="cuda") -> "DeviceIndex":
         """Carry a tpubwa DeviceIndex, fetched as numpy arrays
         (``pac_words`` uint32) and scalars (``l_pac``, ``seq_len``),
         into the port.  Other fields of the mapping are not used yet."""
