@@ -13,8 +13,13 @@ Phases, one output line each (a failing phase raises, exit != 0):
      nvcc per source, all started together), with ptxas's registers and
      spills for each;
   3. the extension kernel == extend_batch_plain on the card, exactly,
-     at the main path's shapes, and descriptor extension kernel ==
-     plain on adversarial descriptors, with CUDA-event times;
+     at the three tile shapes of the main path (W 128, 256, 512) and on
+     the strip-edge jobs (long gap runs, row-max ties 32 and 64 columns
+     apart, every band residue mod 32, closed bands); a tile too wide
+     for a block's shared memory must raise; and descriptor extension
+     kernel == plain on adversarial descriptors, with CUDA-event times
+     of a 4,096-row wave, of each of its four launches alone and of the
+     wave without the extension;
  3b. the int16 extension kernel == extend_batch16_plain == K1's kernel,
      exactly, at phase 3's shapes, with CUDA-event times for all three;
      then the ported int16 experiment
@@ -32,9 +37,10 @@ Phases, one output line each (a failing phase raises, exit != 0):
      launches are counted;
  3d. every K1-floor ablation (scan, pk, hopen, trim, trees, scan+trees)
      == extend_batch_plain with the same ablation, exactly, on phase
-     3's main shape, the floor script's 512 jobs and z-drop jobs (each
-     must differ from K1 on one job at least), and the floor entry
-     with no ablation == K1's entry; then the ported floor experiment
+     3's main shape, the floor script's 512 jobs, z-drop jobs and the
+     strip-edge jobs (each must differ from K1 on one job at least),
+     and the floor entry with no ablation == K1's entry; then the
+     ported floor experiment
      (tpubwa_torch.scripts.exp_kernel_floor.main at 512 and 131,072
      jobs), whose K1-floor launches are counted;
  3e. compute-sanitizer's memcheck and initcheck over every
@@ -57,13 +63,18 @@ Phases, one output line each (a failing phase raises, exit != 0):
      reads on the 64 Mbp repeat-realistic synthetic genome, through
      the port's process_batches with its aligner on cuda; the first 512
      pairs' SAM equals a run with device="cpu" and one through the
-     port's scalar host pipeline.
+     port's scalar host pipeline; then the four launches of the first
+     batch's first wave, each timed alone (the shape the main path
+     gives K1).
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
-instructions per cell of its inner loop in SASS (memory, control,
-moves, address arithmetic and the loop counter left out), over the
-card's integer rate; or its bytes over HBM bandwidth, whichever is
-larger), a JSON line of the kernels (launches on each kernel's path: K1
+instructions per cell, over the card's integer rate; or its bytes over
+HBM bandwidth, whichever is larger.  For K1 and K1-floor the
+instructions per cell are constants of the recurrence, RECURRENCE_OPS,
+so the bound does not move with the kernel's design; for the other
+three they are read from the inner loop in SASS, with memory, control,
+moves, address arithmetic and the loop counter left out), a JSON line
+of the kernels (launches on each kernel's path: K1
 in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
 that of 3c, K1-floor in that of 3d, K1-bd in that of 3f; errors, times,
 bounds) and, last,
@@ -89,6 +100,18 @@ PAIRS = 8192            # pairs per batch in phase 5 (2 batches)
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 (NVIDIA's data sheet)
 INT32_LANES = 64        # INT32 lanes per SM per clock on Hopper
 SCHED_LANES = 128       # 4 schedulers x 32 lanes per SM per clock
+# Integer instructions per band cell of the ksw_extend recurrence (score,
+# M, H, E, F, the running max and argmax), as constants: ALU-only ops and
+# all issued integer ops, the least any kernel of this repo has needed
+# for them (its one-thread-per-job band loop in SASS, without memory,
+# control, moves, address arithmetic and the loop counter).  K1's and
+# K1-floor's bounds use these, so that the bound is that of the work and
+# does not follow the kernel's design.  K1-floor's row is its -scan
+# instantiation: no F term.
+RECURRENCE_OPS = {
+    "ksw_extend": {"alu_per_cell": 13.25, "int_per_cell": 15.25},
+    "ksw_extend_floor": {"alu_per_cell": 11.25, "int_per_cell": 13.25},
+}
 
 
 def _run(cmd):
@@ -238,6 +261,25 @@ def materialize(bnt, reads, d):
             int(d[7]), int(d[8]), int(d[9]), int(d[10]))
 
 
+def launch_facts(torch, q, t, p, pen, cells=True):
+    """One K1 launch of a path, timed again on its own inputs: N, W,
+    tmax, the jobs that have a target, K1 through the wrapper and alone
+    (the C entry, without the wrapper's checks), and the band cells the
+    plain version counts (``cells``: it takes a host sync a row)."""
+    from tpubwa_torch.device import extend_kernel as ek
+    facts = {"N": q.shape[0], "W": q.shape[1], "tmax": t.shape[1],
+             "live_jobs": int((p[:, 1] > 0).sum()),
+             "ms": round(cuda_ms(lambda: ek.extend_batch(q, t, p, *pen), 10),
+                         4),
+             "alone_ms": round(cuda_ms(
+                 lambda: ek._extend_cuda(q, t, p, *pen), 10), 4)}
+    if cells:
+        stats = {}
+        ek.extend_batch_plain(q, t, p, *pen, stats=stats)
+        facts["cells"] = stats.get("cells", 0)
+    return facts
+
+
 def phase_toolchain(torch):
     from tpubwa_torch.device import _build
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -287,6 +329,31 @@ def phase_build():
         flush=True)
 
 
+def strip_edge_sets(np):
+    """[(W, tmax, names, (q, t, p))]: the strip-edge jobs
+    (exp_kernel_floor.strip_edge_jobs) of each tile shape as one launch,
+    with the set each job belongs to."""
+    from tpubwa_torch.scripts import exp_kernel_floor as xf
+    out = []
+    for W, tmax in xf.STRIP_SHAPES:
+        sets = xf.strip_edge_jobs(W, tmax)
+        names = [name for name, s in sets.items() for _ in s[0]]
+        out.append((W, tmax, names, tuple(
+            np.concatenate([s[k] for s in sets.values()]) for k in range(3))))
+    return out
+
+
+def held_to_plain(torch, what, got, want, names=None):
+    """Raise unless ``got`` equals ``want`` exactly; returns the largest
+    absolute difference (0)."""
+    if not torch.equal(got, want):
+        bad = (got != want).any(1).nonzero()[:3, 0].tolist()
+        where = f" ({[names[k] for k in bad]})" if names else ""
+        raise AssertionError(f"{what}: rows {bad}{where}: "
+                             f"{got[bad].tolist()} vs {want[bad].tolist()}")
+    return int((got.long() - want.long()).abs().max()) if len(got) else 0
+
+
 def phase_kernel(torch, np):
     from tpubwa_torch.opts import MemOpt
     from tpubwa_torch.device import extend_kernel as ek
@@ -296,7 +363,7 @@ def phase_kernel(torch, np):
     cases = []
     max_err = 0
     main_shape = None
-    for W, tmax in ((128, 256), (256, 512)):
+    for W, tmax in ((128, 256), (256, 512), (512, 512)):
         for n in (512, 8192):
             for zdrop in (0, 100):
                 q, t, p = (torch.from_numpy(x).to(DEV)
@@ -310,13 +377,9 @@ def phase_kernel(torch, np):
                 want, plain_ms = timed_once(
                     torch, lambda: ek.extend_batch_plain(
                         q, t, p, *pen, zdrop, stats=stats))
-                err = int((got.long() - want.long()).abs().max())
-                if not torch.equal(got, want):
-                    bad = (got != want).any(1).nonzero()[:3, 0].tolist()
-                    raise AssertionError(
-                        f"kernel != plain at W={W} tmax={tmax} n={n} "
-                        f"zdrop={zdrop}: rows {bad}: "
-                        f"{got[bad].tolist()} vs {want[bad].tolist()}")
+                err = held_to_plain(
+                    torch, f"kernel != plain at W={W} tmax={tmax} n={n} "
+                    f"zdrop={zdrop}", got, want)
                 ms = cuda_ms(kern, 20)
                 max_err = max(max_err, err)
                 case = {"W": W, "tmax": tmax, "n": n, "zdrop": zdrop,
@@ -328,9 +391,36 @@ def phase_kernel(torch, np):
                 cases.append(case)
                 if (W, tmax, n, zdrop) == (128, 256, 8192, 100):
                     main_shape = case
+    edges = []
+    for W, tmax, names, arrays in strip_edge_sets(np):
+        q, t, p = (torch.from_numpy(x).to(DEV) for x in arrays)
+        for zdrop in (0, 100):
+            stats = {}
+            max_err = max(max_err, held_to_plain(
+                torch, f"kernel != plain on the strip-edge jobs at W={W} "
+                f"zdrop={zdrop}", ek.extend_batch(q, t, p, *pen, zdrop),
+                ek.extend_batch_plain(q, t, p, *pen, zdrop, stats=stats),
+                names))
+        edges.append({"W": W, "tmax": tmax, "n": len(names), "equal": True,
+                      "cells": stats["cells"]})
+    # a tile whose block cannot fit the card's shared memory is refused
+    # in the wrapper, and the next launch runs
+    wide = 1 << 15
+    try:
+        ek.extend_batch(torch.full((2, wide), 4, dtype=torch.int32,
+                                   device=DEV), t[:2], p[:2], *pen, 100)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"a {wide}-column tile was launched")
+    held_to_plain(torch, "kernel != plain after a refused launch",
+                  ek.extend_batch(q, t, p, *pen, 100),
+                  ek.extend_batch_plain(q, t, p, *pen, 100), names)
+    occupancy = {W: ek.occupancy(W) for W in (128, 256, 512)}
     desc = phase_desc(torch, np)
     print("[3 kernel==plain] " + json.dumps(
-        {"tolerance": 0, "cases": cases, "desc": desc,
+        {"tolerance": 0, "cases": cases, "strip_edges": edges,
+         "refused": refused, "occupancy": occupancy, "desc": desc,
          "max_abs_err": max_err}),
         flush=True)
     return main_shape, max_err
@@ -427,7 +517,8 @@ def phase_desc(torch, np):
     from tpubwa_torch.sim import make_bench_bnt
     from tpubwa_torch.device.extend_fused import (extend_seed_desc_np,
                                                   scalar_fused)
-    from tpubwa_torch.device.extend_kernel import extend_batch_plain
+    from tpubwa_torch.device.extend_kernel import (extend_batch,
+                                                   extend_batch_plain)
     from tpubwa_torch.device.occ import DeviceIndex
     rng = np.random.default_rng(11)
     fmi = FMIndex.build(make_bench_bnt(400_000, rng, realistic=True))
@@ -483,9 +574,28 @@ def phase_desc(torch, np):
     ms = cuda_ms(lambda: extend_seed_desc_np(didx, qd, wave, *args), 10)
     plain_ms = cuda_ms(lambda: extend_seed_desc_np(
         didx, qd, wave, *args, extend=extend_batch_plain), 3)
+    # where the wave's time goes: its four launches, each timed alone on
+    # its own inputs, and the wave with a stand-in for the extension
+    # (host sort, copy in, tile gather, the passes' glue, copy out)
+    seen = []
+
+    def keep(q, t, p, *pen):
+        seen.append((q, t, p, pen))
+        return extend_batch(q, t, p, *pen)
+
+    def no_extend(q, t, p, *pen):
+        return torch.zeros((q.shape[0], 6), dtype=torch.int32,
+                           device=q.device)
+
+    extend_seed_desc_np(didx, qd, wave, *args, extend=keep)
+    launches = [launch_facts(torch, *x) for x in seen]
+    rest_ms = cuda_ms(lambda: extend_seed_desc_np(
+        didx, qd, wave, *args, extend=no_extend), 10)
     return {"n": n, "equal": True, "oracle_equal": n_oracle,
             "band_retries": retried, "wave4096_ms": round(ms, 3),
-            "wave4096_plain_ms": round(plain_ms, 3)}
+            "wave4096_plain_ms": round(plain_ms, 3),
+            "wave4096_without_extension_ms": round(rest_ms, 3),
+            "wave4096_launches": launches}
 
 
 def phase_kernel_real(torch, np):
@@ -597,8 +707,9 @@ FLOOR_SPECS = (("scan",), ("pk",), ("hopen",), ("trim",), ("trees",),
 def phase_kernel_floor(torch, np):
     """Every K1-floor ablation's kernel against its plain version on the
     card, tolerance 0, at phase 3's main shape (make_jobs W 128, tmax
-    256, N 8,192), on the floor script's 512 jobs and on 256 z-drop
-    jobs; each must differ from K1 on at least one of these jobs, and
+    256, N 8,192), on the floor script's 512 jobs, on 256 z-drop jobs
+    and on the strip-edge jobs of the three tile shapes; each must
+    differ from K1 on at least one of these jobs, and
     the floor entry with no ablation must equal K1's entry.  Then the
     ported experiment, with the counts set to 0 just before it and read
     just after.  The row of the kernels line is the -scan
@@ -611,6 +722,10 @@ def phase_kernel_floor(torch, np):
     sets = {"make_jobs": make_jobs(rng, 8192, 128, 256),
             "script": xf.floor_jobs(512),
             "zdrop": xr.zdrop_jobs(rng, 256)}
+    edge_names = {}
+    for W, _, names, arrays in strip_edge_sets(np):
+        sets[f"strip_edges_{W}"] = arrays
+        edge_names[f"strip_edges_{W}"] = names
     differs = {"+".join(s): 0 for s in FLOOR_SPECS}
     cases = {}
     max_err = 0
@@ -627,12 +742,9 @@ def phase_kernel_floor(torch, np):
             got = ek.extend_batch(q, t, p, *pen, ablate=spec)
             want, plain_ms = timed_once(torch, lambda: ek.extend_batch_plain(
                 q, t, p, *pen, stats=stats, ablate=spec))
-            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
-            if not torch.equal(got, want):
-                bad = (got != want).any(1).nonzero()[:3, 0].tolist()
-                raise AssertionError(
-                    f"K1-floor {label} != plain on {name} jobs: rows {bad}: "
-                    f"{got[bad].tolist()} vs {want[bad].tolist()}")
+            max_err = max(max_err, held_to_plain(
+                torch, f"K1-floor {label} != plain on {name} jobs", got,
+                want, edge_names.get(name)))
             differs[label] += int((got != k1).any(1).sum())
             if name != "make_jobs":
                 continue
@@ -863,17 +975,21 @@ def _cuobjdump():
 _CONTROL = {"BRA", "BSSY", "BSYNC", "NOP", "EXIT", "WARPSYNC", "BAR", "RET",
             "CALL", "BREAK", "YIELD", "BMOV"}
 _MOVES = {"MOV", "S2R", "CS2R"}
+_WARP = {"SHFL", "REDUX", "VOTE", "MATCH"}
 _GUARD = re.compile(r"^@(!?)(U?P\w+)\s+")
 
 
 def sass_class(op):
     """The class of one SASS instruction: ``memory`` (loads, stores,
     atomics), ``control`` (branches, barriers, NOP), ``move``,
-    ``uniform`` (the per-warp uniform datapath, U*), ``int_fma`` (IMAD
+    ``uniform`` (the per-warp uniform datapath, U*), ``warp`` (shuffles,
+    warp reductions and votes), ``int_fma`` (IMAD
     and VIADD, which may issue on the FMA pipe) or ``int_alu`` (every
     other integer op: compares, selects, min/max, logic, adds)."""
     mnem = _GUARD.sub("", op.strip()).split()[0]
     base = mnem.split(".")[0]
+    if base in _WARP:
+        return "warp"
     if base.startswith(("LD", "ST", "ATOM", "RED")):
         return "memory"
     if base in _CONTROL:
@@ -998,20 +1114,13 @@ def loop_control(body, pred):
     return out
 
 
-def sass_loops(text, function):
-    """The inner band loop of one kernel in ``cuobjdump -sass`` output.
-
-    Takes the one function whose mangled name matches the regex
-    ``function`` and finds its loops (a backward branch to an earlier
-    address).  The inner band loop is an innermost loop that both stores
-    and loads global memory: it writes each cell's (h, e) scratch once,
-    and reads it and the query code, so its stores count its cells.
-    Returns, per cell, all its instructions (``sass``) and its integer
-    work (``int_alu`` + ``int_fma``): every instruction except memory,
-    control, moves, the uniform datapath, 64-bit address arithmetic and
-    the loop's own counter and exit compare.  Where the compiler
-    unrolled the loop and kept a remainder, the candidate with the least
-    integer work per cell is taken (a bound wants the least work)."""
+def sass_function(text, function, operand_predicates=False):
+    """(name, instructions, loops) of the one function in ``cuobjdump
+    -sass`` output whose mangled name matches the regex ``function``:
+    its (address, instruction) pairs and its loops (a backward branch to
+    an earlier address) as (first address, branch address, predicate).
+    ``operand_predicates`` also takes a branch with a second predicate
+    as its first operand (``@!P3 BRA P4, 0x1b90``)."""
     funcs, cur, labels, pending = {}, None, {}, []
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -1038,14 +1147,77 @@ def sass_loops(text, function):
     ins = funcs[names[0]]
     loops = []
     for addr, op in ins:
-        m = re.search(r"^(?:@(!?P\w+)\s+)?BRA\S*\s+(?:`\((\.L_x_\d+)\)"
-                      r"|(0x[0-9a-f]+))", op.strip())
+        m = re.search(r"^(?:@(!?P\w+)\s+)?BRA\S*\s+"
+                      + (r"(?:!?U?P\w+,\s*)?" if operand_predicates else "")
+                      + r"(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", op.strip())
         if not m:
             continue
         target = (labels[names[0]].get(m.group(2)) if m.group(2)
                   else int(m.group(3), 16))
         if target is not None and target <= addr:
             loops.append((target, addr, m.group(1)))
+    return names[0], ins, loops
+
+
+def sass_strip_loop(text, function):
+    """What one strip of a row costs a warp-per-job kernel, as
+    information beside its bound (it is not part of it): the smallest
+    loop of the function that both stores to shared memory and shuffles,
+    with its issued instructions, its warp operations (shuffles, warp
+    reductions, votes), its shared loads and stores and the loops nested
+    in it (each counted for one trip).  None if the function has no such
+    loop."""
+    name, ins, loops = sass_function(text, function,
+                                     operand_predicates=True)
+    found = []
+    for lo, hi, _ in loops:
+        body = [op for a, op in ins if lo <= a <= hi]
+        ops = [_GUARD.sub("", op.strip()).split(".")[0].split()[0]
+               for op in body]
+        if "STS" in ops and "SHFL" in ops:
+            found.append((len(body), lo, hi, body, ops))
+    if not found:
+        return None
+    _, lo, hi, body, ops = min(found)
+    return {"function": name, "loops": len(loops),
+            "instructions": sum(op != "NOP" for op in ops),
+            "nested_loops": sum((a, b) != (lo, hi) and lo <= a and b <= hi
+                                for a, b, _ in loops),
+            **{k.lower(): ops.count(k)
+               for k in ("SHFL", "REDUX", "VOTE", "LDS", "STS")}}
+
+
+def ptxas_usage(report, function):
+    """{"registers", "spill_bytes"} of the one function in a ``ptxas
+    -v`` report whose mangled name matches the regex ``function``."""
+    found = re.findall(
+        r"Function properties for (\S+)\s+\d+ bytes stack frame, (\d+) bytes "
+        r"spill stores, (\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) "
+        r"registers", report)
+    found = [f for f in found if re.search(function, f[0])]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} functions match {function!r} in "
+                             "the ptxas report")
+    _, stores, loads, regs = found[0]
+    return {"registers": int(regs), "spill_bytes": int(stores) + int(loads)}
+
+
+def sass_loops(text, function):
+    """The inner band loop of a one-thread-per-job kernel in ``cuobjdump
+    -sass`` output.
+
+    Takes the one function whose mangled name matches the regex
+    ``function`` and finds its loops (a backward branch to an earlier
+    address).  The inner band loop is an innermost loop that both stores
+    and loads global memory: it writes each cell's (h, e) scratch once,
+    and reads it and the query code, so its stores count its cells.
+    Returns, per cell, all its instructions (``sass``) and its integer
+    work (``int_alu`` + ``int_fma``): every instruction except memory,
+    control, moves, the uniform datapath, 64-bit address arithmetic and
+    the loop's own counter and exit compare.  Where the compiler
+    unrolled the loop and kept a remainder, the candidate with the least
+    integer work per cell is taken (a bound wants the least work)."""
+    name, ins, loops = sass_function(text, function)
     inner = [lp for lp in loops
              if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
                         for o in loops)]
@@ -1072,31 +1244,33 @@ def sass_loops(text, function):
                       "int_per_cell": work / stores,
                       "alu_per_cell": counts.get("int_alu", 0) / stores})
     if not found:
-        raise AssertionError(f"{names[0]}: no inner band loop among "
+        raise AssertionError(f"{name}: no inner band loop among "
                              f"{len(loops)} loops")
     best = min(found, key=lambda f: f["int_per_cell"])
-    return dict(best, function=names[0], loops=len(loops),
+    return dict(best, function=name, loops=len(loops),
                 inner_candidates=len(found))
 
 
 def bound(case, loop, rates):
     """(bound_ms, bound_by, parts): the larger of the bytes the call must
     move (each input read once, the output written once) over HBM
-    bandwidth, and its band cells times the inner loop's integer work
-    per cell over the card's integer rate.  That rate is the lesser
-    pair of limits: the INT32 pipe's 64 lanes per SM for the ALU-only
-    ops, and the SM's issue rate (4 x 32 lanes) for all of them, IMAD
-    and VIADD included (they may go to the FMA pipe)."""
+    bandwidth, and its band cells times the integer work per cell
+    (``loop``: RECURRENCE_OPS' constants, or a band loop read by
+    ``sass_loops``) over the card's integer rate.  That rate is the
+    lesser pair of limits: the INT32 pipe's 64 lanes per SM for the
+    ALU-only ops, and the SM's issue rate (4 x 32 lanes) for all of
+    them, IMAD and VIADD included (they may go to the FMA pipe)."""
     t_bytes = case["bytes"] / HBM_BYTES_S * 1e3
     t_alu = case["cells"] * loop["alu_per_cell"] / rates["int32_per_s"] * 1e3
     t_issue = (case["cells"] * loop["int_per_cell"] / rates["issue_per_s"]
                * 1e3)
     t_ops = max(t_alu, t_issue)
-    parts = {"bytes_ms": t_bytes, "int_alu_ms": t_alu, "issue_ms": t_issue,
-             # the former figure: every SASS instruction of the loop over
-             # the INT32 pipe (memory, branches and addresses included)
-             "all_sass_int32_ms": case["cells"] * loop["sass_per_cell"]
-             / rates["int32_per_s"] * 1e3}
+    parts = {"bytes_ms": t_bytes, "int_alu_ms": t_alu, "issue_ms": t_issue}
+    if "sass_per_cell" in loop:
+        # the former figure: every SASS instruction of the loop over
+        # the INT32 pipe (memory, branches and addresses included)
+        parts["all_sass_int32_ms"] = (case["cells"] * loop["sass_per_cell"]
+                                      / rates["int32_per_s"] * 1e3)
     return ((t_bytes, "bytes", parts) if t_bytes > t_ops
             else (t_ops, "operations", parts))
 
@@ -1193,6 +1367,28 @@ def phase_main_path(torch, np):
     for name in ("cpu", "scalar"):
         if sam[DEV] != sam[name]:
             raise AssertionError(f"first 512 pairs: {DEV} SAM != {name}")
+    # what the main path gives K1: the first batch again, untimed, with
+    # the four launches of its first wave kept and timed alone
+    from tpubwa_torch.device import pipeline as dp
+    from tpubwa_torch.device.extend_kernel import extend_batch
+    seen = []
+
+    def keep(q, t, p, *pen):
+        if len(seen) < 4:
+            seen.append((q, t, p, pen))
+        return extend_batch(q, t, p, *pen)
+
+    def wave(*a):
+        return desc_np(*a, extend=keep)
+
+    desc_np, dp.extend_seed_desc_np = dp.extend_seed_desc_np, wave
+    try:
+        for _ in process_batches(opt, fmi, iter(batches[:1]), 0,
+                                 align_fn=aligner):
+            pass
+    finally:
+        dp.extend_seed_desc_np = desc_np
+    first_wave = [launch_facts(torch, *x) for x in seen]
     print("[5 main path] " + json.dumps({
         "genome": f"{GENOME_MB} Mbp repeat-realistic "
                   f"(tpubwa_torch.sim.bench_index({GENOME_MB}, realistic=True))",
@@ -1201,6 +1397,7 @@ def phase_main_path(torch, np):
         "sam_lines": n_lines, "mapped": n_mapped,
         "n_waves": n_waves, "n_jobs": n_jobs,
         "kernel_launches": launches,
+        "first_wave_launches": first_wave,
         "cpu_and_scalar_equal_pairs": len(first) // 2}), flush=True)
     return launches
 
@@ -1230,9 +1427,12 @@ def main() -> int:
     from tpubwa_torch.device import _build
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
-    # each row's loop is one instantiation: K1 is extend_kernel<0>, the
-    # floor row its -scan instantiation extend_kernel<1>, K1-bd's
-    # baseline the live pass extend_bd_live<kTable, no N cap, all on>
+    # each row is one instantiation: K1 is extend_kernel<0>, the floor
+    # row its -scan instantiation extend_kernel<1>, K1-bd's baseline the
+    # live pass extend_bd_live<kTable, no N cap, all on>.  K1's and
+    # K1-floor's work per cell are RECURRENCE_OPS' constants, with the
+    # kernel's own strip loop, registers and occupancy beside them as
+    # information; the other three read their band loop's SASS
     for (name, src, replaces, n, err, case, function) in (
             ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
              launches, max_err, main_case, r"extend_kernelILi0EE"),
@@ -1250,7 +1450,13 @@ def main() -> int:
         if src not in disasm:
             disasm[src] = _run([_cuobjdump(), "-sass",
                                 _build.build_info[src]["so"]])
-        loop = sass_loops(disasm[src], function)
+        if name in RECURRENCE_OPS:
+            loop = dict(RECURRENCE_OPS[name], ops_from="RECURRENCE_OPS",
+                        strip_loop=sass_strip_loop(disasm[src], function),
+                        **ptxas_usage(_build.build_info[src]["ptxas"],
+                                      function))
+        else:
+            loop = sass_loops(disasm[src], function)
         bound_ms, bound_by, parts = bound(case, loop, rates)
         sass[name] = dict(loop, cells=case["cells"], bytes=case["bytes"],
                           **{k: round(v, 6) for k, v in parts.items()})

@@ -12,6 +12,7 @@ from tpubwa.device import extend_pallas as jx
 from tpubwa.opts import MemOpt
 from tpubwa.ref.ksw import ksw_extend
 from tpubwa_torch.device import extend_kernel as tk
+from tpubwa_torch.scripts import exp_kernel_floor as xf
 from test_device_extend import _mk_jobs
 
 
@@ -134,3 +135,154 @@ def test_wrapper_routes_cpu_to_plain_and_checks_inputs():
         bad[2, 0] = bad_qlen
         with pytest.raises(ValueError, match="qlen"):
             tk.extend_batch(q, t, bad, 1, 4, 6, 1, 6, 1, 100)
+
+
+@pytest.mark.parametrize("W", [128, 256, 512])
+def test_a_score_past_the_packed_row_max_raises(W):
+    """The row max travels as (H << sh) | column, 2^sh >= W, in int32.
+    No H exceeds h0 + a * qlen: the largest such sum that fits runs, and
+    is right (the plain version and the oracle agree on a job whose
+    score reaches it); one more raises, in both versions."""
+    hmax = (1 << 31) // W - 1
+    a, qlen = 2, W - 1
+    rng = np.random.default_rng(W)
+    seq = rng.integers(0, 4, qlen).astype(np.int32)
+    job = {"q": seq, "t": seq, "h0": hmax - a * qlen, "w": 10,
+           "end_bonus": 0}
+    q, t, p = (torch.from_numpy(x) for x in _pack([job], W, W))
+    got = tk.extend_batch(q, t, p, a, 4, 6, 1, 6, 1, 100)
+    opt = MemOpt(a=a)
+    mat = opt.scoring_matrix().astype(np.int32)
+    assert got[0, 0] == hmax and got[0, 1] == qlen
+    assert got.tolist() == _oracle([job], mat, opt, 100).tolist()
+    p[0, 2] += 1
+    for fn in (tk.extend_batch, tk.extend_batch_plain):
+        with pytest.raises(ValueError, match=f"exceed {hmax} at W {W}"):
+            fn(q, t, p, a, 4, 6, 1, 6, 1, 100)
+    # a shorter query leaves the same h0 inside
+    p[0, 0] -= 1
+    tk.extend_batch(q, t, p, a, 4, 6, 1, 6, 1, 100)
+
+
+# ---- the strip-edge jobs (exp_kernel_floor.strip_edge_jobs) ----
+
+STRIP_SETS = ("ins_run", "del_run", "tie32", "tie64", "residues", "closed",
+              "qlen_edges")
+_strip_cache = {}
+
+
+def _strip(W, tmax):
+    """The strip-edge sets of one tile shape with the plain version's,
+    the Pallas kernel's (interpret mode, one call a shape) and the
+    tracer's results for each job."""
+    if (W, tmax) not in _strip_cache:
+        sets = xf.strip_edge_jobs(W, tmax)
+        q, t, p5 = (np.concatenate([s[k] for s in sets.values()])
+                    for k in range(3))
+        p = np.zeros((len(q), 128), np.int32)
+        p[:, :5] = p5
+        pen = (*xf.SCORING, xf.ZDROP)
+        plain = tk.extend_batch_plain(
+            torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(p),
+            *pen).numpy()
+        pallas = np.asarray(jx.extend_batch_pallas(
+            jnp.asarray(q), jnp.asarray(t), jnp.asarray(p), *pen, tmax,
+            interpret=True))[:, :6]
+        traces = [xf.band_trace(q[k], t[k], p[k], *pen)
+                  for k in range(len(q))]
+        rows, lo = {}, 0
+        for name, s in sets.items():
+            rows[name] = slice(lo, lo + len(s[0]))
+            lo += len(s[0])
+        _strip_cache[W, tmax] = (sets, rows, plain, pallas, traces)
+    return _strip_cache[W, tmax]
+
+
+def test_strip_edge_jobs_name_their_sets():
+    for W, tmax in xf.STRIP_SHAPES:
+        sets = xf.strip_edge_jobs(W, tmax)
+        assert tuple(sets) == STRIP_SETS
+        for q, t, p in sets.values():
+            assert q.shape[1] == W and t.shape[1] == tmax
+            assert q.dtype == t.dtype == p.dtype == np.int32
+            tk._check(*(torch.from_numpy(x) for x in (q, t, p)))
+        # the same jobs on every call: the card runs what the tests hold
+        again = xf.strip_edge_jobs(W, tmax)
+        assert all((a == b).all() for name in sets
+                   for a, b in zip(sets[name], again[name]))
+
+
+@pytest.mark.parametrize("W,tmax", xf.STRIP_SHAPES)
+@pytest.mark.parametrize("name", STRIP_SETS)
+def test_strip_edges_plain_equals_pallas_oracle_and_trace(W, tmax, name):
+    sets, rows, plain, pallas, traces = _strip(W, tmax)
+    q, t, p = sets[name]
+    got = plain[rows[name]]
+    assert got.tolist() == pallas[rows[name]].tolist()
+    assert got.tolist() == [out for out, _ in traces[rows[name]]]
+    opt = MemOpt()
+    assert (opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins,
+            opt.e_ins) == xf.SCORING
+    mat = opt.scoring_matrix().astype(np.int32)
+    jobs = [{"q": q[k, :p[k, 0]], "t": t[k, :p[k, 1]], "h0": int(p[k, 2]),
+             "w": int(p[k, 3]), "end_bonus": int(p[k, 4])}
+            for k in range(len(q))]
+    assert got.tolist() == _oracle(jobs, mat, opt, xf.ZDROP).tolist()
+
+
+@pytest.mark.parametrize("W,tmax", xf.STRIP_SHAPES)
+def test_strip_edges_have_what_they_are_built_for(W, tmax):
+    sets, rows, plain, _, traces = _strip(W, tmax)
+    facts = {name: [f for _, f in traces[rows[name]]] for name in sets}
+    out = {name: plain[rows[name]] for name in sets}
+    # F wins a cell 33 and more columns from where it opened, in every
+    # job, and two strip edges away in some
+    runs = [f["f_run"] for f in facts["ins_run"]]
+    assert min(runs) >= 33 and max(runs) >= 64
+    if W > 128:   # the tile has room for a tail that makes the run pay
+        assert (out["ins_run"][:, 1] - out["ins_run"][:, 2]).tolist() == [
+            33, 33, 47, 47, 64, 64, 70, 70]
+    assert (out["del_run"][:, 2] - out["del_run"][:, 1]).tolist() == [
+        33, 33, 47, 47, 64, 64, 70, 70]
+    assert {int(w) for w in sets["del_run"][2][:, 3]} == {100, 200}
+    for d in (32, 64):
+        name = f"tie{d}"
+        assert all(d in f["tie_gaps"] for f in facts[name])
+        for k, tlen in enumerate(sets[name][2][:, 1]):
+            if tlen > d + 7:    # the later column of the tie is the result
+                assert out[name][k, 1] - out[name][k, 2] == d
+        assert any(tlen > d + 7 for tlen in sets[name][2][:, 1]) or W == 128
+    res = facts["residues"]
+    begs = {b % 32 for f in res for b in f["beg"]}
+    ends = {e % 32 for f in res for e in f["end"]}
+    widths = {(e - b) % 32 for f in res for b, e in zip(f["beg"], f["end"])}
+    assert begs == ends == widths == set(range(32))
+    assert all(f["closed"] for f in facts["closed"])
+    qlens = sets["qlen_edges"][2][:, 0].tolist()
+    assert 1 in qlens and W - 1 in qlens
+    widest = max(e - b for f in facts["qlen_edges"]
+                 for b, e in zip(f["beg"], f["end"]))
+    assert widest == min(W - 1, 401)    # up to 13 strips a row
+
+
+@pytest.mark.parametrize("zdrop", [0, 100])
+def test_band_trace_equals_plain_on_make_jobs(zdrop):
+    """The tracer that shows what the strip-edge sets have is itself held
+    to the plain version: SNPs, small indels, N codes, empty sides."""
+    from chip_smoke import make_jobs
+    q, t, p = make_jobs(np.random.default_rng(9 + zdrop), 48, 128, 256)
+    pen = (*xf.SCORING, zdrop)
+    want = tk.extend_batch_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (q, t, p)),
+        *pen).numpy()
+    cells = 0
+    for k in range(len(q)):
+        out, facts = xf.band_trace(q[k], t[k], p[k], *pen)
+        assert out == want[k].tolist(), k
+        cells += sum(e - b for b, e in zip(facts["beg"], facts["end"]))
+    # its open rows are the rows whose band cells the plain version counts
+    stats = {}
+    tk.extend_batch_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (q, t, p)),
+        *pen, stats=stats)
+    assert cells == stats["cells"] > 0

@@ -5,6 +5,7 @@ jobs.  Tolerance 0: every output is an exact integer.  The sets hold
 launches whose jobs' results depend on each other: jobs that die at
 different rows, alone and beside a job that survives."""
 import functools
+import math
 import os
 
 import numpy as np
@@ -189,7 +190,10 @@ def test_main_times_every_variant_on_cpu(capsys):
     assert out.count("delta vs base") == len(xb.VARIANTS) - 1
     (row,) = res["timing"]
     assert row["N"] == 6 and set(row["ms"]) == set(xb.VARIANTS)
-    assert all(ms > 0 for ms in row["ms"].values())
+    # a CPU time here is the difference of two host-clock windows (2
+    # launches less 1), which noise can turn negative: a run without a
+    # card can promise a finite time for each variant, and the cells
+    assert all(math.isfinite(ms) for ms in row["ms"].values())
     assert row["cells"]["baseline"] > row["cells"]["no-transpose"] > 0
 
 

@@ -91,6 +91,106 @@ def test_sass_loops_needs_one_function_and_a_band_loop():
         c.sass_loops(no_store, r"kernel")
 
 
+# a warp-per-job kernel: a row loop around a strip loop (shared loads and
+# stores, shuffles, a warp reduction, a vote) around a scan loop of
+# shuffles; no loop stores to global memory
+WARP_SASS = """
+        Function : _ZN12_GLOBAL__N_113extend_kernelILi0EEEvPKiS2_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   LDG.E.CONSTANT R10, desc[UR4][R2.64] ;
+.L_x_2:
+        /*0020*/                   LDS.64 R8, [R4] ;
+        /*0030*/                   VIMNMX R12, R8, R9, !PT ;
+.L_x_3:
+        /*0040*/                   SHFL.UP PT, R13, R12, R6, RZ ;
+        /*0050*/               @P1 VIMNMX R12, R12, R13, !PT ;
+        /*0060*/                   ISETP.LT.AND P2, PT, R6, R7, PT ;
+        /*0070*/              @!P2 BRA P6, 0x40 ;
+        /*0080*/                   SHFL.IDX PT, R14, R12, 0x1f, 0x1f ;
+        /*0090*/                   REDUX.MAX.S32 UR6, R12 ;
+        /*00a0*/                   VOTE.ANY R15, PT, P3 ;
+        /*00b0*/                   NOP ;
+        /*00c0*/                   STS.64 [R4], R12 ;
+        /*00d0*/               @P4 BRA `(.L_x_2) ;
+        /*00e0*/                   WARPSYNC.ALL ;
+        /*00f0*/               @P5 BRA `(.L_x_1) ;
+        /*0100*/                   STG.E desc[UR4][R16.64], R12 ;
+        /*0110*/                   EXIT ;
+"""
+
+
+def test_sass_class_knows_the_warp_operations():
+    for op in ("SHFL.UP PT, R13, R12, R6, RZ", "REDUX.MAX.S32 UR6, R12",
+               "VOTE.ANY R15, PT, P3"):
+        assert c.sass_class(op) == "warp"
+    assert c.sass_class("LDS.64 R8, [R4]") == "memory"
+
+
+def test_strip_loop_of_a_warp_per_job_kernel():
+    info = c.sass_strip_loop(WARP_SASS, r"extend_kernelILi0EE")
+    assert info == {
+        "function": "_ZN12_GLOBAL__N_113extend_kernelILi0EEEvPKiS2_",
+        "loops": 3, "instructions": 11, "nested_loops": 1, "shfl": 2,
+        "redux": 1, "vote": 1, "lds": 1, "sts": 1}
+    # a one-thread-per-job kernel has no such loop: information, no error
+    assert c.sass_strip_loop(SASS, r"kernel") is None
+    # the scan loop's back branch carries a second predicate as an
+    # operand; the band-loop analysis of the other rows does not take it
+    assert len(c.sass_function(WARP_SASS, r"extend_kernel")[2]) == 2
+
+
+def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
+    """K1's and K1-floor's rows take their work per cell from
+    RECURRENCE_OPS, so a kernel whose loops keep the row in shared memory
+    bounds all the same; a row that reads its band loop still raises."""
+    with pytest.raises(AssertionError, match="no inner band loop"):
+        c.sass_loops(WARP_SASS, r"extend_kernelILi0EE")
+    rates = {"int32_per_s": 132 * 64 * 1980e6,
+             "issue_per_s": 132 * 128 * 1980e6}
+    ms, by, parts = c.bound({"cells": 11_384_096, "bytes": 12_779_520},
+                            c.RECURRENCE_OPS["ksw_extend"], rates)
+    assert by == "operations" and "all_sass_int32_ms" not in parts
+
+
+# the band cells of the main shape (make_jobs W 128, tmax 256, N 8,192,
+# zdrop 100) as the plain versions count them, and the bounds they give
+# at an H100's rates (132 SMs, 1,980 MHz)
+@pytest.mark.parametrize("name,cells,want_ms", [
+    ("ksw_extend", 11_384_096, 0.009018),
+    ("ksw_extend_floor", 7_826_210, 0.005264),
+])
+def test_recurrence_constants_give_the_recorded_bounds(name, cells, want_ms):
+    rates = {"int32_per_s": 132 * c.INT32_LANES * 1980e6,
+             "issue_per_s": 132 * c.SCHED_LANES * 1980e6}
+    case = {"cells": cells, "bytes": 4 * (8192 * (128 + 256 + 5 + 6))}
+    ms, by, parts = c.bound(case, c.RECURRENCE_OPS[name], rates)
+    assert by == "operations" and round(ms, 6) == want_ms
+    assert ms == parts["int_alu_ms"] > max(parts["issue_ms"],
+                                           parts["bytes_ms"])
+
+
+PTXAS = """
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113extend_kernelILi1EEEvPKi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113extend_kernelILi1EEEvPKi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, 0 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113extend_kernelILi0EEEvPKi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113extend_kernelILi0EEEvPKi
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 0 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_of_one_instantiation():
+    assert c.ptxas_usage(PTXAS, r"extend_kernelILi0EE") == {
+        "registers": 40, "spill_bytes": 8}
+    assert c.ptxas_usage(PTXAS, r"extend_kernelILi1EE") == {
+        "registers": 38, "spill_bytes": 0}
+    with pytest.raises(AssertionError, match="2 functions match"):
+        c.ptxas_usage(PTXAS, r"extend_kernel")
+
+
 def test_bound_takes_the_larger_limit():
     rates = {"int32_per_s": 64e12, "issue_per_s": 128e12}
     loop = {"alu_per_cell": 12.0, "int_per_cell": 14.0, "sass_per_cell": 23.0}

@@ -7,8 +7,9 @@ Two versions of one function, bit-identical by test:
   step per target row.  The DP rows are [N, W] int32 tensors (one query
   cell per lane), so the F-gap running max is ``torch.cummax`` along
   the lanes (the TPU kernel's log-shift scan).
-* the hand-written CUDA kernel in ``csrc/extend.cu`` (one thread per
-  job), reached through ``extend_batch`` for CUDA tensors.
+* the hand-written CUDA kernel in ``csrc/extend.cu`` (a warp per job,
+  its lanes along the live band in strips of 32 columns, the row in
+  shared memory), reached through ``extend_batch`` for CUDA tensors.
 
 ``extend_batch`` routes by the tensors' device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.  Nothing
@@ -71,7 +72,11 @@ def _mat_ab(mat):
     return (a, b) if ok else None
 
 
-def _check(q, t, params):
+def _check(q, t, params, a=None):
+    """Raise unless the call lies in the domain of both versions.  With
+    ``a``, the match score, also unless the packed row max fits: no H
+    exceeds h0 + a * qlen (the experiments' kernels pass none and state
+    their own domains)."""
     if q.dim() != 2 or t.dim() != 2 or params.dim() != 2:
         raise ValueError("q, t and params must be 2-D")
     n = q.shape[0]
@@ -84,12 +89,26 @@ def _check(q, t, params):
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    # the kernel indexes the query tile and its W + 2 scratch columns by
-    # qlen: one out-of-range job would write past them
+    if not n:
+        return
+    # the kernel indexes the query tile and the W + 2 columns of its row
+    # by qlen: one out-of-range job would write past them
+    W = q.shape[1]
     qlen = params[:, 0]
-    if n and not bool(((qlen >= 0) & (qlen < q.shape[1])).all()):
-        raise ValueError(f"qlen must lie in [0, {q.shape[1] - 1}], the "
-                         "query tile's lanes")
+    ok = lanes = (qlen >= 0) & (qlen < W)
+    if a is not None:
+        # the row max is packed as (H << sh) | column, 2^sh >= W, in
+        # int32: a larger H would give a wrong argmax, silently
+        hmax = (1 << 31 - max(W - 1, 1).bit_length()) - 1
+        # (no overflow where lanes holds)
+        ok = lanes & (params[:, 2] <= hmax - a * qlen)
+    if bool(ok.all()):
+        return
+    if not bool(lanes.all()):
+        raise ValueError(f"qlen must lie in [0, {W - 1}], the query "
+                         "tile's lanes")
+    raise ValueError(f"h0 + a * qlen must not exceed {hmax} at W {W} "
+                     "(the packed row max and its column)")
 
 
 def ablate_mask(ablate=(), trees=None) -> int:
@@ -120,7 +139,7 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
     ``ablate`` and ``trees`` as in ``ablate_mask``: an ablated reduction
     reads lane 0 of its input, as the JAX kernel's does."""
     mask = ablate_mask(ablate, trees)
-    _check(q, t, params)
+    _check(q, t, params, a)
     dev = q.device
 
     def red(x, op, bit):
@@ -260,18 +279,38 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (q, t, params, out, eh, n, W, tmax, pstride, a, b, o_del, e_del,
+    # (q, t, params, out, n, W, tmax, pstride, a, b, o_del, e_del,
     #  o_ins, e_ins, zdrop, device, stream) -> cudaError_t
-    "tpubwa_extend_batch": (_CI, [_VP] * 5 + [_CI] * 12 + [_VP]),
+    "tpubwa_extend_batch": (_CI, [_VP] * 4 + [_CI] * 12 + [_VP]),
     # the same, then ablate_mask
-    "tpubwa_extend_floor": (_CI, [_VP] * 5 + [_CI] * 12 + [_VP, _CI]),
+    "tpubwa_extend_floor": (_CI, [_VP] * 4 + [_CI] * 12 + [_VP, _CI]),
+    # (W, ablate_mask, device, info int[3]) -> cudaError_t
+    "tpubwa_extend_occupancy": (_CI, [_CI] * 3 + [ctypes.POINTER(_CI)]),
 }
+
+
+def occupancy(W, mask=0, device=0):
+    """What one SM of CUDA device ``device`` holds of the kernel's
+    instantiation ``mask`` at tile width ``W``, as the CUDA runtime
+    counts it: {"warps_per_sm", "warps_per_block", "block_smem_bytes"}.
+    Builds the kernel; raises RuntimeError where a block does not fit."""
+    lib = _build.load("extend", _SIGNATURES)
+    info = (_CI * 3)()
+    rc = lib.tpubwa_extend_occupancy(W, mask, device, info)
+    if rc != 0:
+        raise RuntimeError(f"no occupancy for W {W}, mask {mask}: "
+                           f"cudaError {rc}")
+    return {"warps_per_sm": info[0], "warps_per_block": info[1],
+            "block_smem_bytes": info[2]}
 
 
 def _launch(entry, q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
             *mask):
     """(out, launched): one call of the C entry ``entry`` of
-    csrc/extend.cu; nothing is launched for N == 0."""
+    csrc/extend.cu; nothing is launched for N == 0.  The kernel keeps a
+    job's row in shared memory and needs no scratch; a W whose block
+    would not fit the card's shared memory is refused there, and
+    raises here."""
     lib = _build.load("extend", _SIGNATURES)
     N, W = q.shape
     q = q.contiguous()
@@ -280,17 +319,14 @@ def _launch(entry, q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
     out = torch.empty((N, 6), dtype=I32, device=q.device)
     if N == 0:
         return out, False
-    # eh scratch, job-minor ([W+2, N] of (h, e) pairs): a warp's jobs at
-    # the same query column read neighbouring addresses
-    eh = torch.empty((W + 2, N, 2), dtype=I32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = getattr(lib, entry)(
-        q.data_ptr(), t.data_ptr(), params.data_ptr(), out.data_ptr(),
-        eh.data_ptr(), N, W, t.shape[1], params.shape[1], a, b, o_del,
-        e_del, o_ins, e_ins, zdrop, q.device.index, stream, *mask)
+        q.data_ptr(), t.data_ptr(), params.data_ptr(), out.data_ptr(), N,
+        W, t.shape[1], params.shape[1], a, b, o_del, e_del, o_ins, e_ins,
+        zdrop, q.device.index, stream, *mask)
     if rc != 0:
         raise RuntimeError(f"extend kernel launch failed ({entry}"
-                           f"{tuple(mask)}): cudaError {rc}")
+                           f"{tuple(mask)}, W {W}): cudaError {rc}")
     return out, True
 
 
@@ -316,7 +352,9 @@ def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
     """The extend_batch_pallas contract (extend_pallas.py:341-376):
     q int32 [N, W]; t int32 [N, tmax]; params int32 [N, >=5] lanes
     (qlen, tlen, h0, w, end_bonus), h0 > 0, qlen < W.  Returns int32
-    [N, 6] (score, qle, tle, gtle, gscore, max_off).  ``ablate`` and
+    [N, 6] (score, qle, tle, gtle, gscore, max_off).  Codes are 0-3 for
+    bases and 4 (any larger value) for N; h0 + a * qlen stays below
+    2^31 / W (the packed row max), or the call raises.  ``ablate`` and
     ``trees`` as in ``ablate_mask`` (timing only: never on the main
     path).
 
@@ -325,7 +363,7 @@ def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
     counts its launches), else its K1-floor instantiation
     (``extend_batch.floor_launches``)."""
     mask = ablate_mask(ablate, trees)
-    _check(q, t, params)
+    _check(q, t, params, a)
     if q.device.type == "cpu":
         return extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins,
                                   e_ins, zdrop, ablate=ablate, trees=trees)
