@@ -26,12 +26,16 @@ Phases, one output line each (a failing phase raises, exit != 0):
      (tpubwa_torch.scripts.exp_int16_kernel.main: int32 against int16
      timing, and its 1,920-job equality fuzz, which must find 0
      mismatches), whose int16 kernel launches are counted;
- 3c. every K1-real variant's kernel == extend_real_plain, exactly, at
-     phase 3's main shape, on the script's jobs and on jobs built for
-     z-drop and the band write-back (each no-* variant must differ from
-     full on one job at least); the four exact variants == K1's kernel;
-     full and -u4 == plain on the experiment's 131,072 jobs; then the
-     ported real-kernel experiment
+ 3c. every K1-real variant's kernel (an instantiation of extend.cu's
+     template) == extend_real_plain, exactly, each launch synchronised,
+     at phase 3's main shape, on the script's jobs, on jobs built for
+     z-drop and the band write-back and on the W 128 strip-edge jobs
+     (each no-* variant must differ from full on one job at least); the
+     four exact variants == K1's kernel, no-zdrop == K1 with zdrop 0,
+     no-scan == K1-floor's -scan; full, -u2 and -u4 == plain on the
+     experiment's 131,072 jobs; every variant and K1 timed alone in
+     interleaved passes, with full's time over K1's; then the ported
+     real-kernel experiment
      (tpubwa_torch.scripts.exp_kernel_real.main at 512, 16,384 and
      131,072 jobs, and its equality fuzz against K1), whose K1-real
      launches are counted;
@@ -44,10 +48,11 @@ Phases, one output line each (a failing phase raises, exit != 0):
      (tpubwa_torch.scripts.exp_kernel_floor.main at 512 and 131,072
      jobs), whose K1-floor launches are counted;
  3e. compute-sanitizer's memcheck and initcheck over every
-     instantiation of the four sources (K1 and its 15 floor
-     ablations, K1-i16, K1-real's 10, K1-bd's 9) on 256 jobs, in a
-     child process: any error it reports fails; a tool that is missing
-     or cannot run the child is printed as such, never as a pass;
+     instantiation of the three sources (K1 and its 15 floor
+     ablations, K1-i16, K1-real's 10 variants, K1-bd's 9) on 256 jobs,
+     in a child process: any error it reports fails; a tool that is
+     missing or cannot run the child is printed as such, never as a
+     pass;
  3f. every K1-bd variant's kernel == extend_bd_plain, exactly, on
      phase 3's main shape, the breakdown script's 512 jobs, jobs that
      die at rows of their own (alone and beside a survivor), 64 jobs
@@ -69,11 +74,12 @@ Phases, one output line each (a failing phase raises, exit != 0):
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
-HBM bandwidth, whichever is larger.  For K1 and K1-floor the
-instructions per cell are constants of the recurrence, RECURRENCE_OPS,
-so the bound does not move with the kernel's design; for the other
-three they are read from the inner loop in SASS, with memory, control,
-moves, address arithmetic and the loop counter left out), a JSON line
+HBM bandwidth, whichever is larger.  For the rows of extend.cu (K1,
+K1-real and K1-floor) the instructions per cell are constants of the
+recurrence, RECURRENCE_OPS, so the bound does not move with the
+kernel's design; for the other two they are read from the inner loop
+in SASS, with memory, control, moves, address arithmetic and the loop
+counter left out), a JSON line
 of the kernels (launches on each kernel's path: K1
 in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
 that of 3c, K1-floor in that of 3d, K1-bd in that of 3f; errors, times,
@@ -104,12 +110,16 @@ SCHED_LANES = 128       # 4 schedulers x 32 lanes per SM per clock
 # M, H, E, F, the running max and argmax), as constants: ALU-only ops and
 # all issued integer ops, the least any kernel of this repo has needed
 # for them (its one-thread-per-job band loop in SASS, without memory,
-# control, moves, address arithmetic and the loop counter).  K1's and
-# K1-floor's bounds use these, so that the bound is that of the work and
-# does not follow the kernel's design.  K1-floor's row is its -scan
-# instantiation: no F term.
+# control, moves, address arithmetic and the loop counter).  K1's,
+# K1-real's and K1-floor's bounds use these, so that the bound is that
+# of the work and does not follow the kernel's design.  K1-floor's row
+# is its -scan instantiation: no F term.  K1-real's row is the same
+# recurrence under its script's fixed scoring, which folds into
+# immediates: one op a cell fewer, read in SASS from the one-thread-per-
+# job band loop that ran K1-real's full with that scoring compiled in.
 RECURRENCE_OPS = {
     "ksw_extend": {"alu_per_cell": 13.25, "int_per_cell": 15.25},
+    "ksw_extend_real": {"alu_per_cell": 12.25, "int_per_cell": 14.25},
     "ksw_extend_floor": {"alu_per_cell": 11.25, "int_per_cell": 13.25},
 }
 
@@ -305,9 +315,8 @@ def phase_build():
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.scripts import exp_int16_kernel as x16
     from tpubwa_torch.scripts import exp_kernel_breakdown as xb
-    from tpubwa_torch.scripts import exp_kernel_real as xr
     kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES,
-               "extend_real": xr._SIGNATURES, "extend_bd": xb._SIGNATURES}
+               "extend_bd": xb._SIGNATURES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         futures = [ex.submit(_build.load, name, sigs)
@@ -599,22 +608,35 @@ def phase_desc(torch, np):
 
 
 def phase_kernel_real(torch, np):
-    """Every K1-real variant's kernel against its plain version on the
-    card, tolerance 0, at phase 3's main shape (make_jobs W 128, tmax
-    256, N 8,192), on 512 of the script's jobs, and on 256 jobs each
-    built so that only z-drop, or only the band write-back, separates
-    no-zdrop and no-wbmask from full; each no-* kernel must differ from
-    full's on at least one of these jobs.  The four exact variants
-    against K1's kernel; full and -u4 against the plain version on the
-    experiment's own 131,072 jobs.  Then the ported experiment, with
-    the counts set to 0 just before it and read just after."""
+    """Every K1-real variant's kernel (an instantiation of csrc/extend.cu's
+    extend_kernel) against its plain version on the card, tolerance 0,
+    each launch followed by a synchronise, at phase 3's main shape
+    (make_jobs W 128, tmax 256, N 8,192), on 512 of the script's jobs,
+    on 256 jobs each built so that only z-drop, or only the band
+    write-back, separates no-zdrop and no-wbmask from full, and on the
+    strip-edge jobs at W 128; each no-* kernel must differ from full's
+    on at least one of these jobs.  The four exact variants against
+    K1's kernel, no-zdrop against K1 with zdrop 0 and no-scan against
+    K1-floor's -scan; full, -u2 and -u4 against the plain version on the
+    experiment's own 131,072 jobs.  At the main shape every variant and
+    K1 are timed alone in 4 interleaved passes of 16-launch chains, as
+    the floor experiment times its rows (``full_over_k1``: full's
+    minimum over K1's), with the zero fill of K1-real's [N, 128] output
+    that K1's call does not make (``out_fill_ms``).  Then the ported
+    experiment, with the counts set to 0 just before it and read just
+    after."""
     from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.scripts import exp_kernel_floor as xf
     from tpubwa_torch.scripts import exp_kernel_real as xr
+    pen = (*xr.SCORING, xr.ZDROP)
     rng = np.random.default_rng(0x4EA1)
+    edges = xf.strip_edge_jobs(128, 256)
     sets = {"make_jobs": make_jobs(rng, 8192, 128, 256),
             "script": xr.script_jobs(rng, 512),
             "zdrop": xr.zdrop_jobs(rng, 256),
-            "wbmask": xr.wbmask_jobs(rng, 256)}
+            "wbmask": xr.wbmask_jobs(rng, 256),
+            "strip_edges_128": tuple(np.concatenate(
+                [s[k] for s in edges.values()]) for k in range(3))}
     variants = {v: {} for v in xr.VARIANTS}
     differs = {v: 0 for v in xr.VARIANTS if v.startswith("no-")}
     max_err = 0
@@ -630,16 +652,23 @@ def phase_kernel_real(torch, np):
     for name, arrays in sets.items():
         q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
                    for x in arrays)
-        k1 = ek.extend_batch(q, t, p, *xr.SCORING, xr.ZDROP)
+        k1 = ek.extend_batch(q, t, p, *pen)
+        # what the variants that share an instantiation must equal
+        refs = {v: [("K1", k1)] for v in xr.TIMED}
+        refs["no-zdrop"] = [("K1 zdrop 0", ek.extend_batch(
+            q, t, p, *xr.SCORING, 0))]
+        refs["no-scan"] = [("K1-floor -scan", ek.extend_batch(
+            q, t, p, *pen, ablate=("scan",)))]
         full = None
         for v in xr.VARIANTS:
             stats = {}
             got = xr.extend_real(q, t, p, v)
+            # a fault shows at its kernel
+            torch.cuda.synchronize()
             want, plain_ms = timed_once(
                 torch, lambda: xr.extend_real_plain(q, t, p, v, stats=stats))
             max_err = max(max_err, int((got.long() - want.long()).abs().max()))
-            held(name, v, got, [("plain", want)]
-                 + ([("K1", k1)] if v in xr.TIMED else []))
+            held(name, v, got, [("plain", want)] + refs.get(v, []))
             if v == "full":
                 full = got
             elif v in differs:
@@ -648,18 +677,28 @@ def phase_kernel_real(torch, np):
                 continue
             case = {"ms": round(cuda_ms(
                         lambda v=v: xr.extend_real(q, t, p, v), 20), 4),
-                    "alone_ms": round(cuda_ms(
-                        lambda v=v: xr._extend_real_cuda(q, t, p, v), 20), 4),
                     "plain_ms": round(plain_ms, 3),
                     "cells": stats["cells"]}
             variants[v] = case
             if v == "full":
-                # K1 alone on the same inputs: the yardstick of the row
                 main_case = dict(case, bytes=4 * (
-                    q.numel() + t.numel() + p.numel() + got.numel()),
-                    k1_alone_ms=round(cuda_ms(lambda: ek._extend_cuda(
-                        q, t, p, *xr.SCORING, xr.ZDROP), 20), 4))
-                case["k1_alone_ms"] = main_case["k1_alone_ms"]
+                    q.numel() + t.numel() + p.numel() + got.numel()))
+        if name == "make_jobs":
+            # each variant alone, and K1 alone on the same inputs: the
+            # yardstick of the row.  A K1-real call also zeroes its
+            # [N, 128] output (K1's is an uninitialised [N, 6]); that
+            # fill is timed alone beside them
+            alone = xf.interleaved_min(dict(
+                {"K1": lambda: ek._extend_cuda(q, t, p, *pen),
+                 "fill": lambda: torch.zeros((len(q), xr.OUT_LANES),
+                                             dtype=torch.int32, device=DEV)},
+                **{v: lambda v=v: xr._extend_real_cuda(q, t, p, v)
+                   for v in xr.VARIANTS}), 16, 4, torch.device(DEV))
+            for v in xr.VARIANTS:
+                variants[v]["alone_ms"] = round(alone[v], 4)
+            main_case["k1_alone_ms"] = round(alone["K1"], 4)
+            full_over_k1 = round(alone["full"] / alone["K1"], 4)
+            fill_ms = round(alone["fill"], 4)
     vacuous = [v for v, k in differs.items() if k == 0]
     if vacuous:
         raise AssertionError(f"{vacuous} equal full on every job: their "
@@ -668,8 +707,9 @@ def phase_kernel_real(torch, np):
     n_big, big = xr.experiment_jobs(sizes)[-1]
     q, t, p = (torch.from_numpy(x).to(DEV) for x in big)
     large = {}
-    for v in ("full", "rollred-fused-u4"):
+    for v in ("full", "rollred-fused-u2", "rollred-fused-u4"):
         got = xr.extend_real(q, t, p, v)
+        torch.cuda.synchronize()
         want, plain_ms = timed_once(
             torch, lambda: xr.extend_real_plain(q, t, p, v))
         max_err = max(max_err, int((got.long() - want.long()).abs().max()))
@@ -690,7 +730,9 @@ def phase_kernel_real(torch, np):
         raise AssertionError(f"K1-real fuzz: {res}")
     print("[3c K1-real kernel==plain, exact variants==K1] " + json.dumps(
         {"tolerance": 0, "jobs": {k: len(v[0]) for k, v in sets.items()},
-         "variants": variants, "differs_from_full": differs,
+         "variants": variants, "k1_alone_ms": main_case["k1_alone_ms"],
+         "full_over_k1": full_over_k1, "out_fill_ms": fill_ms,
+         "differs_from_full": differs,
          f"experiment_{n_big}_jobs": large, "max_abs_err": max_err,
          "experiment": {"timing": [{k: round(v, 4) for k, v in r.items()}
                                    for r in res["timing"]],
@@ -1427,31 +1469,35 @@ def main() -> int:
     from tpubwa_torch.device import _build
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
-    # each row is one instantiation: K1 is extend_kernel<0>, the floor
-    # row its -scan instantiation extend_kernel<1>, K1-bd's baseline the
-    # live pass extend_bd_live<kTable, no N cap, all on>.  K1's and
-    # K1-floor's work per cell are RECURRENCE_OPS' constants, with the
-    # kernel's own strip loop, registers and occupancy beside them as
-    # information; the other three read their band loop's SASS
-    for (name, src, replaces, n, err, case, function) in (
+    # each row is one instantiation: K1 and K1-real's full are
+    # extend_kernel<0>, the floor row its -scan instantiation
+    # extend_kernel<1>, K1-bd's baseline the live pass extend_bd_live<
+    # kTable, no N cap, all on>.  The rows of csrc/extend.cu take their
+    # work per cell from RECURRENCE_OPS (``ops``), with the kernel's own
+    # strip loop and registers beside it as information; the other two
+    # read their band loop's SASS
+    for (name, src, replaces, n, err, case, function, ops) in (
             ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
-             launches, max_err, main_case, r"extend_kernelILi0EE"),
+             launches, max_err, main_case, r"extend_kernelILi0EE",
+             "ksw_extend"),
             ("ksw_extend16", "extend16", "scripts/exp_int16_kernel.py:48",
-             launches16, err16, case16, r"extend16_kernel"),
-            ("extend_real", "extend_real",
-             "scripts/exp_kernel_real.py:87", launches_real, err_real,
-             case_real, r"extend_real_kernelI(Lb1E){7}Li1E"),
+             launches16, err16, case16, r"extend16_kernel", None),
+            ("extend_real", "extend", "scripts/exp_kernel_real.py:87",
+             launches_real, err_real, case_real, r"extend_kernelILi0EE",
+             "ksw_extend_real"),
             ("ksw_extend_floor", "extend",
              "tpubwa/device/extend_pallas.py:224", launches_floor,
-             err_floor, case_floor, r"extend_kernelILi1EE"),
+             err_floor, case_floor, r"extend_kernelILi1EE",
+             "ksw_extend_floor"),
             ("ksw_extend_bd", "extend_bd",
              "scripts/exp_kernel_breakdown.py:54", launches_bd, err_bd,
-             case_bd, r"extend_bd_liveILi0ELb0ELb1ELb1ELb1ELb1EE")):
+             case_bd, r"extend_bd_liveILi0ELb0ELb1ELb1ELb1ELb1EE", None)):
         if src not in disasm:
             disasm[src] = _run([_cuobjdump(), "-sass",
                                 _build.build_info[src]["so"]])
-        if name in RECURRENCE_OPS:
-            loop = dict(RECURRENCE_OPS[name], ops_from="RECURRENCE_OPS",
+        if ops:
+            loop = dict(RECURRENCE_OPS[ops],
+                        ops_from=f"RECURRENCE_OPS[{ops!r}]",
                         strip_loop=sass_strip_loop(disasm[src], function),
                         **ptxas_usage(_build.build_info[src]["ptxas"],
                                       function))

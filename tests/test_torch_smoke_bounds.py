@@ -158,6 +158,7 @@ def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
 # at an H100's rates (132 SMs, 1,980 MHz)
 @pytest.mark.parametrize("name,cells,want_ms", [
     ("ksw_extend", 11_384_096, 0.009018),
+    ("ksw_extend_real", 12_317_898, 0.009021),
     ("ksw_extend_floor", 7_826_210, 0.005264),
 ])
 def test_recurrence_constants_give_the_recorded_bounds(name, cells, want_ms):

@@ -1,14 +1,14 @@
 // Batched banded Smith-Waterman seed extension (bwa ksw.c:ksw_extend2)
-// for Hopper (sm_90a), and its timing-only ablations (K1-floor).
+// for Hopper (sm_90a), and its timing-only ablations (K1-floor, K1-real).
 //
 // Replaces: tpubwa/device/extend_pallas.py:_extend_kernel, launched by
 // extend_batch_pallas.  Same contract at the Python wrapper
 // (tpubwa_torch/device/extend_kernel.py:extend_batch): q int32 [N, W],
 // t int32 [N, tmax], params int32 [N, pstride] with lanes (qlen, tlen,
-// h0, w, end_bonus); out int32 [N, 6] = (score, qle, tle, gtle, gscore,
-// max_off).  Codes are 0-3 for bases and anything above for N (query
-// codes are kept as bytes).  The score is match a / mismatch -b / N -1
-// arithmetic, with no profile table.
+// h0, w, end_bonus); out int32 [N, ostride], lanes 0-5 = (score, qle,
+// tle, gtle, gscore, max_off).  Codes are 0-3 for bases and anything
+// above for N (query codes are kept as bytes).  The score is match a /
+// mismatch -b / N -1 arithmetic, with no profile table.
 //
 // What bounds it on this card: operations, and under them latency.  A
 // job is a chain of dependent rows, each a chain of dependent steps, and
@@ -61,6 +61,32 @@
 // The JAX `trees` ablation is kPk | kHopen | kTrim.  These variants are
 // wrong on purpose: they exist to time K1 less one piece.
 //
+// K1-real (scripts/exp_kernel_real.py:build_kernel, body :87, launched
+// at :259): K1's body with one feature stripped per variant, under the
+// script's fixed scoring (:59), passed at run time, behind
+// tpubwa_extend_real.  Each variant is an instantiation, and each
+// stripped feature computes exactly what the JAX variant computes:
+//   full, rollred-fused  K1 itself (the roll trees and the packed argmax
+//                are TPU reduction layouts, not semantics);
+//   -u2, -u4     K1 with the row loop unrolled 2 / 4 times (kUnroll2,
+//                kUnroll4): the script unrolls its while_loop body to
+//                amortise its cond, rows past death are no-ops there;
+//   no-scan      kScan: the script's F = he - 1 never beats he;
+//   no-zdrop     K1 with zdrop 0 (the runtime argument, no instantiation);
+//   no-mj        kNoMj: the row max alone, mj = 0 (:163-167);
+//   no-gscore    kNoGscore: no boundary-lane broadcast, gscore and max_ie
+//                stay -1 (:184-192);
+//   no-offtrack  kNoOfftrack: max_off stays 0 (:197-200);
+//   no-trim      kNoTrim: no ballots, beg and end never move, so the band
+//                is w alone (:214-234; K1-floor's kTrim is another thing);
+//   no-wbmask    kNoWbmask: the write-back reaches every column
+//                (:181-183): the first lane's carry is 0, not h1; column
+//                end takes E decayed, max(E - e_del, 0), not 0; a full
+//                pass over the rest of the row, one lane a column, gives
+//                each column outside [beg, end] (0, max(E - e_del, 0)).
+//                Columns past qlen hold (0, 0) in the script and are
+//                never read, so the pass stops at qlen.
+//
 // With TPUBWA_WARP_HOST defined the file compiles as plain C++ against
 // warp_host.h, which runs a warp's lanes in lockstep on the host, so
 // that the tests can hold this code to the plain version, under the
@@ -88,6 +114,9 @@ constexpr int kNeg = -(1 << 29);
 constexpr int kSmemDefault = 48 * 1024;  // above it a kernel must opt in
 // ablation bits (tpubwa_torch/device/extend_kernel.py:ABLATE_BITS)
 constexpr int kScan = 1, kPk = 2, kHopen = 4, kTrim = 8;
+// K1-real's bits, above K1-floor's
+constexpr int kNoMj = 16, kNoGscore = 32, kNoOfftrack = 64, kNoTrim = 128,
+              kNoWbmask = 256, kUnroll2 = 512, kUnroll4 = 1024;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -103,7 +132,7 @@ template <int ABLATE>
 __global__ void __launch_bounds__(kWarps * 32)
 extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
               const int32_t* __restrict__ params, int32_t* __restrict__ out,
-              int n, int W, int tmax, int pstride, int sh,
+              int n, int W, int tmax, int pstride, int ostride, int sh,
               int a, int b, int o_del, int e_del, int o_ins, int e_ins,
               int zdrop) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -143,23 +172,35 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
         const int w = imin(w_in, imin(max_ins, max_del));
         const int rows = imin(tlen, tmax);
         int beg = 0, end = qlen, tcodes = 4;
-        for (int i = 0; i < rows; ++i) {
+        // target row i; false when the job dies on it
+        const auto step = [&](int i) -> bool {
             // lane k holds the target code of row (i & ~31) + k
             if ((i & 31) == 0) tcodes = i + lane < rows ? tj[i + lane] : 4;
-            beg = imax(beg, i - w);
-            end = imin(imin(end, i + w + 1), qlen);
+            if constexpr (ABLATE & kNoTrim) {
+                beg = imax(i - w, 0);
+                end = imin(i + w + 1, qlen);
+            } else {
+                beg = imax(beg, i - w);
+                end = imin(imin(end, i + w + 1), qlen);
+            }
             const int h1 = beg == 0 ? imax(h0 - (o_del + e_del * (i + 1)), 0)
                                     : 0;
             if (beg >= end) {
                 // band closed: take gscore and die (upstream also writes
                 // the boundary pair, which nothing reads again)
-                if (end == qlen && h1 >= gscore) { max_ie = i; gscore = h1; }
-                break;
+                if constexpr (!(ABLATE & kNoGscore)) {
+                    if (end == qlen && h1 >= gscore) {
+                        max_ie = i;
+                        gscore = h1;
+                    }
+                }
+                return false;
             }
             const int tb = __shfl_sync(kFull, tcodes, i & 31);
             // carried from strip to strip: the F scan's running max, and
-            // H(i, j0 - 1) for the first lane's write-back
-            int carry_f = kNeg, carry_h = h1;
+            // H(i, j0 - 1) for the first lane's write-back (no-wbmask
+            // rolls in the 0 left of the band)
+            int carry_f = kNeg, carry_h = (ABLATE & kNoWbmask) ? 0 : h1;
             int pk = -1, m0 = 0, hlast = 0, first_j0 = 0, last_j0 = 0;
             unsigned first_nz = 0, last_nz = 0;
             bool nz0 = false;
@@ -198,10 +239,16 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
                 int hp = __shfl_up_sync(kFull, h, 1);
                 if (lane == 0) hp = carry_h;
                 carry_h = __shfl_sync(kFull, h, 31);
-                const int en = in ? imax(e - e_del, imax(M - oe_del, 0)) : 0;
+                int en = in ? imax(e - e_del, imax(M - oe_del, 0)) : 0;
+                if constexpr (ABLATE & kNoWbmask) {
+                    // the boundary column's E decays too
+                    if (j == end) en = imax(row[j].y - e_del, 0);
+                }
                 if (j <= end) row[j] = make_int2(hp, en);
                 if constexpr (ABLATE & kPk) {
                     if (j0 == 0) m0 = __shfl_sync(kFull, h, 0);
+                } else if constexpr (ABLATE & kNoMj) {
+                    pk = imax(pk, __reduce_max_sync(kFull, in ? h : -1));
                 } else {
                     // last-wins argmax ties (upstream `mj = m > h1 ? mj : j`)
                     pk = imax(pk, __reduce_max_sync(
@@ -209,14 +256,14 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
                 }
                 // the boundary lane, in the row's last strip
                 const int lb = end - j0;
-                if constexpr (!(ABLATE & kHopen)) {
+                if constexpr (!(ABLATE & (kHopen | kNoGscore))) {
                     const int hb = __shfl_sync(kFull, hp, lb & 31);
                     if (lb < 32) hlast = hb;
                 }
                 if constexpr (ABLATE & kTrim) {
                     if (j0 == 0)
                         nz0 = __shfl_sync(kFull, (hp | en) != 0, 0);
-                } else {
+                } else if constexpr (!(ABLATE & kNoTrim)) {
                     // nonzero pairs just written: the first strip that
                     // has one below end, the last that has one at all
                     const unsigned nz = __ballot_sync(
@@ -230,22 +277,39 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
             if constexpr (ABLATE & kPk) {
                 mrow = m0;
                 mj = 0;
+            } else if constexpr (ABLATE & kNoMj) {
+                mrow = pk;
+                mj = 0;
             } else {
                 mrow = pk >> sh;
                 mj = pk & ((1 << sh) - 1);
             }
             // lane 0's h_open: a band of the one cell (i, 0) has its max there
             if constexpr (ABLATE & kHopen) hlast = end == 1 ? mrow : 0;
-            if (end == qlen && hlast >= gscore) { max_ie = i; gscore = hlast; }
-            if (mrow == 0) break;
+            if constexpr (!(ABLATE & kNoGscore)) {
+                if (end == qlen && hlast >= gscore) {
+                    max_ie = i;
+                    gscore = hlast;
+                }
+            }
+            if (mrow == 0) return false;
             if (mrow > best) {
                 best = mrow; max_i = i; max_j = mj;
-                max_off = imax(max_off, mj > i ? mj - i : i - mj);
+                if constexpr (!(ABLATE & kNoOfftrack))
+                    max_off = imax(max_off, mj > i ? mj - i : i - mj);
             } else if (zdrop > 0) {
                 // asymmetric: the longer gap side pays its extension
                 const int di = i - max_i, dj = mj - max_j;
                 const int dd = di > dj ? (di - dj) * e_del : (dj - di) * e_ins;
-                if (best - mrow - dd > zdrop) break;
+                if (best - mrow - dd > zdrop) return false;
+            }
+            if constexpr (ABLATE & kNoWbmask) {
+                // the rest of the row up to qlen, one lane a column: its
+                // columns are not the band's, and the band pass is done
+                __syncwarp();
+                for (int j = lane; j <= qlen; j += 32)
+                    if (j < beg || j > end)
+                        row[j] = make_int2(0, imax(row[j].y - e_del, 0));
             }
             if constexpr (ABLATE & kTrim) {
                 // the first and last nonzero columns as lane 0 sees them
@@ -255,7 +319,7 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
                     beg = end;
                     end = imin(end + 1, qlen);
                 }
-            } else {
+            } else if constexpr (!(ABLATE & kNoTrim)) {
                 // adaptive band trim to the first nonzero column of
                 // [beg, end) and the last of [beg, end]
                 beg = first_nz ? first_j0 + __ffs(first_nz) - 1 : end;
@@ -264,10 +328,21 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
             }
             // the next row's lanes read columns that other lanes wrote
             __syncwarp();
+            return true;
+        };
+        if constexpr (ABLATE & (kUnroll2 | kUnroll4)) {
+            // -u2 / -u4: the compiler unrolls the row loop (the host
+            // compiler ignores the pragma)
+#pragma unroll ((ABLATE & kUnroll4) ? 4 : 2)
+            for (int i = 0; i < rows; ++i)
+                if (!step(i)) break;
+        } else {
+            for (int i = 0; i < rows; ++i)
+                if (!step(i)) break;
         }
     }
     if (lane == 0) {
-        int32_t* o = out + (size_t)job * 6;
+        int32_t* o = out + (size_t)job * ostride;
         o[0] = best;
         o[1] = max_j + 1;
         o[2] = max_i + 1;
@@ -294,9 +369,9 @@ cudaError_t block_bytes(int W, size_t* bytes) {
 
 template <int ABLATE>
 cudaError_t launch(const void* q, const void* t, const void* params,
-                   void* out, int n, int W, int tmax, int pstride, int a,
-                   int b, int o_del, int e_del, int o_ins, int e_ins,
-                   int zdrop, cudaStream_t stream) {
+                   void* out, int n, int W, int tmax, int pstride,
+                   int ostride, int a, int b, int o_del, int e_del,
+                   int o_ins, int e_ins, int zdrop, cudaStream_t stream) {
     size_t bytes;
     cudaError_t err = block_bytes<ABLATE>(W, &bytes);
     if (err != cudaSuccess) return err;  // refused: no launch is made
@@ -306,7 +381,7 @@ cudaError_t launch(const void* q, const void* t, const void* params,
     TPUBWA_LAUNCH(extend_kernel<ABLATE>, blocks, kWarps * 32, bytes, stream,
                   (const int32_t*)q, (const int32_t*)t,
                   (const int32_t*)params, (int32_t*)out, n, W, tmax, pstride,
-                  sh, a, b, o_del, e_del, o_ins, e_ins, zdrop);
+                  ostride, sh, a, b, o_del, e_del, o_ins, e_ins, zdrop);
     return cudaGetLastError();
 }
 
@@ -336,6 +411,22 @@ constexpr Launch kFloor[16] = {
     launch<6>, launch<7>, launch<8>, launch<9>, launch<10>, launch<11>,
     launch<12>, launch<13>, launch<14>, launch<15>};
 
+// K1-real: the instantiation of each variant, in the order of
+// tpubwa_torch/scripts/exp_kernel_real.py:VARIANTS
+constexpr Launch kReal[] = {
+    launch<0>,              // full
+    launch<0>,              // rollred-fused
+    launch<kUnroll2>,       // rollred-fused-u2
+    launch<kUnroll4>,       // rollred-fused-u4
+    launch<kScan>,          // no-scan
+    launch<kNoMj>,          // no-mj
+    launch<kNoWbmask>,      // no-wbmask
+    launch<kNoGscore>,      // no-gscore
+    launch<kNoOfftrack>,    // no-offtrack
+    launch<0>,              // no-zdrop (the caller passes zdrop 0)
+    launch<kNoTrim>};       // no-trim
+constexpr int kRealVariants = sizeof(kReal) / sizeof(kReal[0]);
+
 }  // namespace
 
 // C entry point for ctypes.  Pointers are device pointers from
@@ -353,7 +444,7 @@ extern "C" int tpubwa_extend_batch(const void* q, const void* t,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n <= 0) return 0;
-    return (int)launch<0>(q, t, params, out, n, W, tmax, pstride, a, b,
+    return (int)launch<0>(q, t, params, out, n, W, tmax, pstride, 6, a, b,
                           o_del, e_del, o_ins, e_ins, zdrop,
                           (cudaStream_t)stream);
 }
@@ -373,8 +464,29 @@ extern "C" int tpubwa_extend_floor(const void* q, const void* t,
     if (err != cudaSuccess) return (int)err;
     if (n <= 0) return 0;
     return (int)kFloor[ablate_mask](q, t, params, out, n, W, tmax, pstride,
-                                    a, b, o_del, e_del, o_ins, e_ins, zdrop,
-                                    (cudaStream_t)stream);
+                                    6, a, b, o_del, e_del, o_ins, e_ins,
+                                    zdrop, (cudaStream_t)stream);
+}
+
+// K1-real: tpubwa_extend_batch with `variant`, the index of
+// exp_kernel_real.VARIANTS, choosing the instantiation; the caller passes
+// the script's scoring and z-drop.  out has ostride lanes a job, of which
+// the kernel writes lanes 0-5.  An unknown variant launches nothing and
+// returns cudaErrorInvalidValue.
+extern "C" int tpubwa_extend_real(int variant, const void* q, const void* t,
+                                  const void* params, void* out, int n,
+                                  int W, int tmax, int pstride, int ostride,
+                                  int a, int b, int o_del, int e_del,
+                                  int o_ins, int e_ins, int zdrop, int device,
+                                  void* stream) {
+    if (variant < 0 || variant >= kRealVariants)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return 0;
+    return (int)kReal[variant](q, t, params, out, n, W, tmax, pstride,
+                               ostride, a, b, o_del, e_del, o_ins, e_ins,
+                               zdrop, (cudaStream_t)stream);
 }
 
 #ifndef TPUBWA_WARP_HOST

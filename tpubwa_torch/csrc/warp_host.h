@@ -60,6 +60,7 @@ constexpr size_t kStack = 256 * 1024;
 enum Op { kNone, kShfl, kShflUp, kReduceMax, kBallot, kSync, kDone };
 
 inline bool reverse = false;  // run the lanes 31..0
+inline int launches = 0;      // kernel launches made
 
 struct Warp {
     ucontext_t sched, ctx[kLanes];
@@ -124,6 +125,7 @@ inline void run_warp(const std::function<void()>& kernel, unsigned warp) {
 inline void launch(int blocks, int threads, size_t bytes,
                    const std::function<void()>& kernel) {
     if (threads % kLanes) die("block size must be a multiple of 32");
+    ++launches;
     blockDim.x = threads;
     for (int b = 0; b < blocks; ++b) {
         // exactly the launch's bytes, so a read past them is caught

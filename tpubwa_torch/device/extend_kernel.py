@@ -286,6 +286,10 @@ _SIGNATURES = {
     "tpubwa_extend_floor": (_CI, [_VP] * 4 + [_CI] * 12 + [_VP, _CI]),
     # (W, ablate_mask, device, info int[3]) -> cudaError_t
     "tpubwa_extend_occupancy": (_CI, [_CI] * 3 + [ctypes.POINTER(_CI)]),
+    # K1-real (tpubwa_torch/scripts/exp_kernel_real.py): (variant, q, t,
+    # params, out, n, W, tmax, pstride, ostride, a, b, o_del, e_del, o_ins,
+    # e_ins, zdrop, device, stream)
+    "tpubwa_extend_real": (_CI, [_CI] + [_VP] * 4 + [_CI] * 13 + [_VP]),
 }
 
 

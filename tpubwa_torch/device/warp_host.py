@@ -6,7 +6,8 @@ reductions and ballots by a loop over the lanes' operands.  ``build``
 compiles ``csrc/extend_host.cpp`` with g++ under
 ``-fsanitize=address,undefined`` into ``build/host`` in the checkout
 (or ``$TPUBWA_TORCH_HOST_BUILD``), keyed by a hash of the sources;
-``extend_host`` runs it on one set of jobs.  This checks the kernel's
+``extend_host`` (K1 and K1-floor) and ``extend_real_host`` (K1-real) run
+it on one set of jobs.  This checks the kernel's
 logic, its memory accesses and that its warp operations are reached by
 all 32 lanes together, where there is no card; what the GPU's compiler
 makes of the source still shows only on a card.
@@ -53,19 +54,14 @@ def build() -> Path:
     return exe
 
 
-def extend_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
-                masks=(0,), reverse=False):
-    """``extend_batch``'s contract on numpy int32 arrays, through the
-    kernel's own C entries on the host: one int32 [N, 6] per ablation
-    mask of ``masks`` (0: K1's entry; -1: mask 0 through the floor
-    entry).  ``reverse`` runs each warp's lanes 31..0.  Raises
-    RuntimeError with the harness's report if a sanitizer or the
-    lockstep check stops it."""
+def _run(q, t, params, pen, masks, variants, reverse):
+    """The harness on one set of jobs: (one int32 [N, 6] per mask, one
+    int32 [N, 128] per K1-real variant index)."""
     exe = build()
     q, t, params = (np.ascontiguousarray(x, np.int32) for x in (q, t, params))
     n, W = q.shape
-    head = np.asarray([n, W, t.shape[1], params.shape[1], a, b, o_del, e_del,
-                       o_ins, e_ins, zdrop, int(reverse), len(masks), *masks],
+    head = np.asarray([n, W, t.shape[1], params.shape[1], *pen, int(reverse),
+                       len(masks), len(variants), *masks, *variants],
                       np.int32)
     with tempfile.TemporaryDirectory() as d:
         jobs, out = os.path.join(d, "jobs"), os.path.join(d, "out")
@@ -77,5 +73,28 @@ def extend_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
         if res.returncode != 0:
             raise RuntimeError(f"extend_host failed (rc {res.returncode}):\n"
                                f"{res.stderr[-4000:]}")
-        got = np.fromfile(out, np.int32).reshape(len(masks), n, 6)
-    return list(got)
+        got = np.fromfile(out, np.int32)
+    k = len(masks) * n * 6
+    return (list(got[:k].reshape(len(masks), n, 6)),
+            list(got[k:].reshape(len(variants), n, 128)))
+
+
+def extend_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
+                masks=(0,), reverse=False):
+    """``extend_batch``'s contract on numpy int32 arrays, through the
+    kernel's own C entries on the host: one int32 [N, 6] per ablation
+    mask of ``masks`` (0: K1's entry; -1: mask 0 through the floor
+    entry).  ``reverse`` runs each warp's lanes 31..0.  Raises
+    RuntimeError with the harness's report if a sanitizer or the
+    lockstep check stops it."""
+    return _run(q, t, params, (a, b, o_del, e_del, o_ins, e_ins, zdrop),
+                masks, (), reverse)[0]
+
+
+def extend_real_host(q, t, params, variants, scoring, reverse=False):
+    """K1-real's C entry (``tpubwa_extend_real``) on the host: one int32
+    [N, 128] per index of ``exp_kernel_real.VARIANTS`` in ``variants``,
+    each launched with ``scoring`` (a, b, o_del, e_del, o_ins, e_ins,
+    zdrop), lanes 0-5 from the kernel and lanes 6-127 as it left them
+    (the harness fills them with -77 first).  Raises as ``extend_host``."""
+    return _run(q, t, params, scoring, (), variants, reverse)[1]

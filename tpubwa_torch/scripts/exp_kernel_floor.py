@@ -246,6 +246,18 @@ def make_variant(q, t, p, trees, ablate, device):
     return lambda: _extend_cuda(q, t, p, *SCORING, ZDROP)
 
 
+def interleaved_min(fns, reps, passes, device):
+    """{name: ms}: each of ``fns`` timed in ``passes`` interleaved passes
+    as the marginal time per launch in a chain, (t(reps launches) -
+    t(1 launch)) / (reps - 1), keeping its minimum."""
+    best = {}
+    for _ in range(passes):
+        for name, fn in fns.items():
+            ms = time_launch(fn, 1, reps, 1, device)
+            best[name] = min(ms, best.get(name, ms))
+    return best
+
+
 def time_variants(specs, jobs, reps, passes, device, log):
     """Check every variant against its plain version (which counts its
     band cells), then time them in ``passes`` interleaved passes;
@@ -265,11 +277,8 @@ def time_variants(specs, jobs, reps, passes, device, log):
             raise AssertionError(f"{label}: kernel != plain on {bad} jobs")
         timers.append((label, ablate, make_variant(q, t, p, trees, ablate,
                                                    device)))
-    best = {}
-    for _ in range(passes):
-        for label, _, fn in timers:
-            ms = time_launch(fn, 1, reps, 1, device)
-            best[label] = min(ms, best.get(label, ms))
+    best = interleaved_min({label: fn for label, _, fn in timers}, reps,
+                           passes, device)
     n = len(q)
     for label, ablate, _ in timers:
         ms = best[label]

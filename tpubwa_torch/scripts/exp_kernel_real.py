@@ -13,8 +13,10 @@ on purpose).  Two versions of each, equal by test:
   the JAX body lane for lane (the NEG sentinel, ``torch.cummax`` for
   the F scan's prefix max, the packed argmax of the fused variants, the
   rollred trim range), the way ``extend_batch_plain`` mirrors K1.
-* the hand-written CUDA kernel in ``csrc/extend_real.cu`` (one thread
-  per job, a template instantiation per variant), reached through
+* the hand-written CUDA kernel: K1's own template in ``csrc/extend.cu``
+  (a warp per job over the live band, the row in shared memory), one
+  instantiation per stripped feature and K1's itself for the exact
+  variants, behind the C entry ``tpubwa_extend_real``, reached through
   ``extend_real`` for CUDA tensors.
 
 Both hold every call to the domain of ``check_real``, where the JAX
@@ -39,15 +41,14 @@ Run it on a card:
 from __future__ import annotations
 
 import argparse
-import ctypes
 import time
 
 import numpy as np
 import torch
 
 from ..device import _build
-from ..device.extend_kernel import (_check, _extend_cuda, extend_batch,
-                                    extend_batch_plain)
+from ..device.extend_kernel import (_SIGNATURES, _check, _extend_cuda,
+                                    extend_batch, extend_batch_plain)
 from .exp_int16_kernel import QL, TL, TMAX, fuzz_jobs, script_jobs
 
 I32 = torch.int32
@@ -88,7 +89,10 @@ def check_real(q, t, params):
     * NL a power of two: the fused variants pack the row max and its
       lane as H * NL + lane and read the lane back with a mask (:153-159);
     * h0 + a * qlen <= (2^31 - NL) / NL: every H is at most
-      h0 + a * qlen, so the packed H * NL + lane stays in int32."""
+      h0 + a * qlen, so the packed H * NL + lane stays in int32.  For a
+      power of two NL this is the limit of K1's own packed (H << sh) | j
+      (``extend_kernel._check`` with ``a``), which the CUDA kernel, K1's
+      template, shares."""
     _check(q, t, params)
     n, nl = q.shape
     if nl & (nl - 1):
@@ -258,16 +262,19 @@ def extend_real_plain(q, t, params, variant="full", stats=None):
     return out
 
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # (variant, q, t, params, out, eh, n, NL, tmax, pstride, ostride,
-    #  device, stream) -> cudaError_t
-    "tpubwa_extend_real": (_CI, [_CI] + [_VP] * 5 + [_CI] * 6 + [_VP]),
-}
+def launch_scoring(variant):
+    """(a, b, o_del, e_del, o_ins, e_ins, zdrop) that ``variant``'s
+    launch of csrc/extend.cu takes: the script's scoring, and its z-drop
+    but for no-zdrop, which is K1 at zdrop 0."""
+    return (*SCORING, 0 if variant == "no-zdrop" else ZDROP)
 
 
 def _extend_real_cuda(q, t, params, variant):
-    lib = _build.load("extend_real", _SIGNATURES)
+    """One launch of ``variant``'s instantiation of csrc/extend.cu's
+    kernel, without the wrapper's input checks.  The kernel keeps a
+    job's row in shared memory and needs no scratch; it writes lanes
+    0-5 of each job's 128-lane output row, which starts zeroed."""
+    lib = _build.load("extend", _SIGNATURES)
     N, nl = q.shape
     q = q.contiguous()
     t = t.contiguous()
@@ -275,13 +282,12 @@ def _extend_real_cuda(q, t, params, variant):
     out = torch.zeros((N, OUT_LANES), dtype=I32, device=q.device)
     if N == 0:
         return out
-    # (h, e) scratch, job-minor ([NL, N] pairs) as K1's
-    eh = torch.empty((nl, N, 2), dtype=I32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.tpubwa_extend_real(
         VARIANTS.index(variant), q.data_ptr(), t.data_ptr(),
-        params.data_ptr(), out.data_ptr(), eh.data_ptr(), N, nl,
-        t.shape[1], params.shape[1], OUT_LANES, q.device.index, stream)
+        params.data_ptr(), out.data_ptr(), N, nl, t.shape[1],
+        params.shape[1], OUT_LANES, *launch_scoring(variant), q.device.index,
+        stream)
     if rc != 0:
         raise RuntimeError(f"extend_real kernel ({variant}) launch failed: "
                            f"cudaError {rc}")
