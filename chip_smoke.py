@@ -20,12 +20,20 @@ Phases, one output line each (a failing phase raises, exit != 0):
      kernel == plain on adversarial descriptors, with CUDA-event times
      of a 4,096-row wave, of each of its four launches alone and of the
      wave without the extension;
- 3b. the int16 extension kernel == extend_batch16_plain == K1's kernel,
-     exactly, at phase 3's shapes, with CUDA-event times for all three;
-     then the ported int16 experiment
-     (tpubwa_torch.scripts.exp_int16_kernel.main: int32 against int16
-     timing, and its 1,920-job equality fuzz, which must find 0
-     mismatches), whose int16 kernel launches are counted;
+ 3b. the int16 extension kernel (a warp per job, two columns a lane in
+     16-bit halves) == extend_batch16_plain == K1's kernel, exactly,
+     each launch synchronised, at phase 3's three tile shapes, on the
+     64-column strip-edge jobs (every band residue mod 64, odd beg,
+     row-max ties 64 and 128 columns apart, F runs across 64-column
+     edges), on jobs at both edges of the int16 domain (h0 and gap
+     open) and on jobs whose band's cap moves beg to 1; a tile too wide
+     for a block's shared memory must raise; at the main shape its time
+     and K1's through the wrappers and alone in interleaved passes
+     (i16_over_k1), with the rows, cells a row and strips of 32 and 64
+     a row; then the ported int16
+     experiment (tpubwa_torch.scripts.exp_int16_kernel.main: int32
+     against int16 timing, and its 1,920-job equality fuzz, which must
+     find 0 mismatches), whose int16 kernel launches are counted;
  3c. every K1-real variant's kernel (an instantiation of extend.cu's
      template) == extend_real_plain, exactly, each launch synchronised,
      at phase 3's main shape, on the script's jobs, on jobs built for
@@ -74,12 +82,12 @@ Phases, one output line each (a failing phase raises, exit != 0):
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
-HBM bandwidth, whichever is larger.  For the rows of extend.cu (K1,
-K1-real and K1-floor) the instructions per cell are constants of the
-recurrence, RECURRENCE_OPS, so the bound does not move with the
-kernel's design; for the other two they are read from the inner loop
-in SASS, with memory, control, moves, address arithmetic and the loop
-counter left out), a JSON line
+HBM bandwidth, whichever is larger.  For the warp-per-job kernels (K1,
+K1-real, K1-floor and K1-i16) the instructions per cell are constants of
+the recurrence, RECURRENCE_OPS, so the bound does not move with the
+kernel's design; for K1-bd they are read from the inner loop in SASS,
+with memory, control, moves, address arithmetic and the loop counter
+left out), a JSON line
 of the kernels (launches on each kernel's path: K1
 in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
 that of 3c, K1-floor in that of 3d, K1-bd in that of 3f; errors, times,
@@ -117,10 +125,15 @@ SCHED_LANES = 128       # 4 schedulers x 32 lanes per SM per clock
 # recurrence under its script's fixed scoring, which folds into
 # immediates: one op a cell fewer, read in SASS from the one-thread-per-
 # job band loop that ran K1-real's full with that scoring compiled in.
+# K1-i16's row is K1's recurrence on int16 cells, two to every 32-bit
+# operation: Hopper's 16x2 instructions (VIADDMNMX.S16x2, VIMNMX.S16x2,
+# VIADD.16x2) compute both halves of a register at once, so the least
+# work a cell needs in int16 is half K1's.
 RECURRENCE_OPS = {
     "ksw_extend": {"alu_per_cell": 13.25, "int_per_cell": 15.25},
     "ksw_extend_real": {"alu_per_cell": 12.25, "int_per_cell": 14.25},
     "ksw_extend_floor": {"alu_per_cell": 11.25, "int_per_cell": 13.25},
+    "ksw_extend16": {"alu_per_cell": 6.625, "int_per_cell": 7.625},
 }
 
 
@@ -435,65 +448,148 @@ def phase_kernel(torch, np):
     return main_shape, max_err
 
 
+def int16_edge_jobs(rng, n=48, W=128, tmax=256):
+    """(q, t, p, pen_h0, pen_gap): make_jobs whose every third job sits
+    on the int16 domain's h0 bound, h0 + a (qlen + 1) + W e_ins = 32,767
+    under pen_h0 (the default scoring), and the same jobs with h0 at most
+    60 under pen_gap, whose o_del + e_del = 24,576 meets the gap bound
+    max(b, 8192) + o_del + e_del = 32,768 (exp_int16_kernel.check_int16).
+    A sum that wraps in 16 bits shows on these jobs first."""
+    from tpubwa_torch.opts import MemOpt
+    o = MemOpt()
+    pen = (o.a, o.b, o.o_del, o.e_del, o.o_ins, o.e_ins)
+    q, t, p = make_jobs(rng, n, W, tmax)
+    edge = p.copy()
+    edge[::3, 2] = 32767 - o.a * (p[::3, 0] + 1) - W * o.e_ins
+    gap = (o.a, o.b, 32768 - 8192 - o.e_del, o.e_del, o.o_ins, o.e_ins)
+    return q, t, edge, p, pen, gap
+
+
+# capped_band_jobs' scoring: an insertion opens for e_ins alone
+CAP_SCORING = (2, 6, 6, 2, 0, 1)
+
+
+def capped_band_jobs(rng, n):
+    """n jobs under narrow bands (w 1-3), each target the query behind
+    w + 1 random bases, so the best path runs just outside the band's
+    left edge.  The band's cap moves beg to 1 at row w + 1 while column
+    0 still holds (h1, E) from row w: under CAP_SCORING a kernel that
+    let that stale pair into the band's F gap would differ from the
+    plain version (K1-i16 reads the column below an odd beg as 0)."""
+    import numpy as np
+    q = np.full((n, 128), 4, np.int32)
+    t = np.full((n, 128), 4, np.int32)
+    p = np.zeros((n, 5), np.int32)
+    for k in range(n):
+        w = int(rng.integers(1, 4))
+        ql, tl = int(rng.integers(2, 24)), int(rng.integers(w + 2, w + 30))
+        q[k, :ql] = rng.integers(0, 4, ql)
+        t[k, :tl] = rng.integers(0, 4, tl)
+        m = max(0, min(ql, tl - w - 1))
+        t[k, w + 1:w + 1 + m] = q[k, :m]
+        p[k] = (ql, tl, int(rng.integers(10, 80)), w, 5)
+    return q, t, p
+
+
 def phase_kernel16(torch, np):
-    """The int16 kernel against its plain version and K1's kernel on
-    phase 3's job shapes (all inside the int16 domain: h0 < 60,
-    qlen < 256), then the ported experiment with the counts set to 0
-    just before it and read just after."""
+    """The int16 kernel (csrc/extend16.cu) against its plain version and
+    K1's kernel, exactly, each launch synchronised before anything is
+    timed: make_jobs at the three tile shapes of the main path (W 128,
+    256, 512; 512 and 8,192 jobs; zdrop 0 and 100), the 64-column
+    strip-edge jobs of each shape (exp_kernel_floor.strip_edge_jobs at
+    strip 64: every band residue mod 64, odd beg, ties 64 and 128 apart,
+    F runs across 64-column edges), the int16 domain-edge jobs
+    (int16_edge_jobs) and 256 capped_band_jobs; a tile too wide for a
+    block's shared memory must raise.  Then, at the main shape
+    (make_jobs W 128, tmax 256, N 8,192, zdrop 100), both kernels
+    through their wrappers (mean of 20 calls) and alone in 4 interleaved
+    passes of 16-launch chains (``i16_over_k1``), beside the rows, cells
+    a row and strips of 32 and 64 a row that the plain version counts.
+    Then the ported experiment with the counts set to 0 just before it
+    and read just after."""
     from tpubwa_torch.opts import MemOpt
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.scripts import exp_int16_kernel as x16
+    from tpubwa_torch.scripts import exp_kernel_floor as xf
     o = MemOpt()
     pen = (o.a, o.b, o.o_del, o.e_del, o.o_ins, o.e_ins)
     rng = np.random.default_rng(0x16)
-    cases = []
-    max_err = 0
-    main_shape = None
-    for W, tmax in ((128, 256), (256, 512)):
+    sets = []      # (name, arrays, scoring, zdrops)
+    # one draw a case, in the order phase 3b has always drawn them, so
+    # that W 128 and 256 hold the jobs of earlier runs
+    for W, tmax in xf.STRIP_SHAPES:
         for n in (512, 8192):
             for zdrop in (0, 100):
-                q, t, p = (torch.from_numpy(x).to(DEV)
-                           for x in make_jobs(rng, n, W, tmax))
+                sets.append((f"make_jobs W{W} n{n}",
+                             make_jobs(rng, n, W, tmax), pen, (zdrop,)))
+    for W, tmax in xf.STRIP_SHAPES:
+        edges = xf.strip_edge_jobs(W, tmax, strip=64)
+        sets.append((f"strip_edges64 W{W}", tuple(np.concatenate(
+            [s[k] for s in edges.values()]) for k in range(3)), xf.SCORING,
+            (0, 100)))
+    q, t, edge, p, pen_h0, pen_gap = int16_edge_jobs(rng)
+    sets += [("int16 h0 edge", (q, t, edge), pen_h0, (0, 100)),
+             ("int16 gap edge", (q, t, p), pen_gap, (0, 100)),
+             ("capped band", capped_band_jobs(rng, 256), CAP_SCORING,
+              (0, 100))]
+    checked = []
+    max_err = 0
+    for name, arrays, scoring, zdrops in sets:
+        q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                   for x in arrays)
+        for zdrop in zdrops:
+            got = x16.extend_batch16(q, t, p, *scoring, zdrop)
+            # a fault shows at its kernel
+            torch.cuda.synchronize()
+            stats = {}
+            want, plain_ms = timed_once(
+                torch, lambda: x16.extend_batch16_plain(
+                    q, t, p, *scoring, zdrop, stats=stats))
+            ref = ek.extend_batch(q, t, p, *scoring, zdrop)
+            for other, x in (("plain", want), ("K1", ref)):
+                max_err = max(max_err, held_to_plain(
+                    torch, f"int16 kernel != {other} on {name} zdrop="
+                    f"{zdrop}", got, x))
+            checked.append({"set": name, "n": len(q), "zdrop": zdrop,
+                            "equal": True, "cells": stats["cells"]})
+            if (name, zdrop) == ("make_jobs W128 n8192", 100):
+                main = (q, t, p, got, plain_ms, stats)
+    q, t, p, got, plain_ms, stats = main
+    # a tile whose block cannot fit the card's shared memory (W 4,096:
+    # 263,168 bytes) is refused in the wrapper with its cudaError, and
+    # the next launch runs
+    try:
+        x16.extend_batch16(torch.full((2, 4096), 4, dtype=torch.int32,
+                                      device=DEV), t[:2], p[:2], *pen, 100)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a 4096-column int16 tile was launched")
+    held_to_plain(torch, "int16 kernel != plain after a refused launch",
+                  x16.extend_batch16(q, t, p, *pen, 100), got)
 
-                def kern():
-                    return x16.extend_batch16(q, t, p, *pen, zdrop)
+    def kern():
+        return x16.extend_batch16(q, t, p, *pen, 100)
 
-                def k1():
-                    return ek.extend_batch(q, t, p, *pen, zdrop)
+    def k1():
+        return ek.extend_batch(q, t, p, *pen, 100)
 
-                stats = {}
-
-                def kern_alone():   # no input checks, no host sync
-                    return x16._extend16_cuda(q, t, p, *pen, zdrop)
-
-                def k1_alone():
-                    return ek._extend_cuda(q, t, p, *pen, zdrop)
-                got, ref = kern(), k1()
-                want, plain_ms = timed_once(
-                    torch, lambda: x16.extend_batch16_plain(
-                        q, t, p, *pen, zdrop, stats=stats))
-                err = max(int((got.long() - x.long()).abs().max())
-                          for x in (want, ref))
-                for other, x in (("plain", want), ("K1", ref)):
-                    if not torch.equal(got, x):
-                        bad = (got != x).any(1).nonzero()[:3, 0].tolist()
-                        raise AssertionError(
-                            f"int16 kernel != {other} at W={W} "
-                            f"tmax={tmax} n={n} zdrop={zdrop}: rows {bad}: "
-                            f"{got[bad].tolist()} vs {x[bad].tolist()}")
-                case = {"W": W, "tmax": tmax, "n": n, "zdrop": zdrop,
-                        "equal": True, "ms": round(cuda_ms(kern, 20), 4),
-                        "k1_ms": round(cuda_ms(k1, 20), 4),
-                        "kernel_alone_ms": round(cuda_ms(kern_alone, 20), 4),
-                        "k1_alone_ms": round(cuda_ms(k1_alone, 20), 4),
-                        "plain_ms": round(plain_ms, 3),
-                        "cells": stats["cells"],
-                        "bytes": 4 * (q.numel() + t.numel() + p.numel()
-                                      + got.numel())}
-                max_err = max(max_err, err)
-                cases.append(case)
-                if (W, tmax, n, zdrop) == (128, 256, 8192, 100):
-                    main_shape = case
+    alone = xf.interleaved_min(
+        {"K1": lambda: ek._extend_cuda(q, t, p, *pen, 100),
+         "i16": lambda: x16._extend16_cuda(q, t, p, *pen, 100)},
+        16, 4, torch.device(DEV))
+    rows = stats["rows"]
+    main_shape = {
+        "W": 128, "tmax": 256, "n": len(q), "zdrop": 100,
+        "ms": round(cuda_ms(kern, 20), 4), "k1_ms": round(cuda_ms(k1, 20), 4),
+        "kernel_alone_ms": round(alone["i16"], 4),
+        "k1_alone_ms": round(alone["K1"], 4),
+        "i16_over_k1": round(alone["i16"] / alone["K1"], 4),
+        "plain_ms": round(plain_ms, 3), "cells": stats["cells"],
+        "rows": rows, "cells_per_row": round(stats["cells"] / rows, 3),
+        "strips32_per_row": round(stats["strips32"] / rows, 4),
+        "strips64_per_row": round(stats["strips64"] / rows, 4),
+        "bytes": 4 * (q.numel() + t.numel() + p.numel() + got.numel())}
     ek.extend_batch.launches = 0
     x16.extend_batch16.launches = 0
     res = x16.main(["--device", DEV, "--jobs", "512,1024,16384,131072"])
@@ -506,7 +602,8 @@ def phase_kernel16(torch, np):
     if res["fuzz_mismatches"] != 0 or res["fuzz_jobs"] != 1920:
         raise AssertionError(f"int16 fuzz: {res}")
     print("[3b int16 kernel==plain==K1] " + json.dumps(
-        {"tolerance": 0, "cases": cases, "max_abs_err": max_err,
+        {"tolerance": 0, "checked": checked, "main_shape": main_shape,
+         "refused": refused, "max_abs_err": max_err,
          "experiment": {"timing": [{k: round(v, 4) for k, v in r.items()}
                                    for r in res["timing"]],
                         "fuzz_jobs": res["fuzz_jobs"],
@@ -1206,9 +1303,10 @@ def sass_strip_loop(text, function):
     information beside its bound (it is not part of it): the smallest
     loop of the function that both stores to shared memory and shuffles,
     with its issued instructions, its warp operations (shuffles, warp
-    reductions, votes), its shared loads and stores and the loops nested
-    in it (each counted for one trip).  None if the function has no such
-    loop."""
+    reductions, votes), its shared loads and stores, the loops nested in
+    it (each counted for one trip) and the count of each opcode in it
+    (``VIADDMNMX.S16x2``: 3, which shows a 16x2 operation as one
+    instruction).  None if the function has no such loop."""
     name, ins, loops = sass_function(text, function,
                                      operand_predicates=True)
     found = []
@@ -1221,12 +1319,15 @@ def sass_strip_loop(text, function):
     if not found:
         return None
     _, lo, hi, body, ops = min(found)
+    mnems = [_GUARD.sub("", op.strip()).split()[0] for op in body]
     return {"function": name, "loops": len(loops),
             "instructions": sum(op != "NOP" for op in ops),
             "nested_loops": sum((a, b) != (lo, hi) and lo <= a and b <= hi
                                 for a, b, _ in loops),
             **{k.lower(): ops.count(k)
-               for k in ("SHFL", "REDUX", "VOTE", "LDS", "STS")}}
+               for k in ("SHFL", "REDUX", "VOTE", "LDS", "STS")},
+            "opcodes": {m: mnems.count(m) for m in sorted(set(mnems))
+                        if m != "NOP"}}
 
 
 def ptxas_usage(report, function):
@@ -1472,16 +1573,17 @@ def main() -> int:
     # each row is one instantiation: K1 and K1-real's full are
     # extend_kernel<0>, the floor row its -scan instantiation
     # extend_kernel<1>, K1-bd's baseline the live pass extend_bd_live<
-    # kTable, no N cap, all on>.  The rows of csrc/extend.cu take their
-    # work per cell from RECURRENCE_OPS (``ops``), with the kernel's own
-    # strip loop and registers beside it as information; the other two
-    # read their band loop's SASS
+    # kTable, no N cap, all on>.  The warp-per-job rows take their work
+    # per cell from RECURRENCE_OPS (``ops``), with the kernel's own
+    # strip loop (its opcodes among it) and registers beside it as
+    # information; K1-bd reads its band loop's SASS
     for (name, src, replaces, n, err, case, function, ops) in (
             ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
              launches, max_err, main_case, r"extend_kernelILi0EE",
              "ksw_extend"),
             ("ksw_extend16", "extend16", "scripts/exp_int16_kernel.py:48",
-             launches16, err16, case16, r"extend16_kernel", None),
+             launches16, err16, case16, r"extend16_kernel",
+             "ksw_extend16"),
             ("extend_real", "extend", "scripts/exp_kernel_real.py:87",
              launches_real, err_real, case_real, r"extend_kernelILi0EE",
              "ksw_extend_real"),

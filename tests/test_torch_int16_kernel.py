@@ -187,3 +187,25 @@ def test_script_jobs_match_the_jax_script_layout():
         assert (q[i, :x16.QL] == tpl[i:i + x16.QL]).all()
         assert (q[i, x16.QL:] == 4).all() and (t[i, x16.TL:] == 4).all()
         assert p[i, :5].tolist() == [x16.QL, x16.TL, 60, 100, 5]
+
+
+def test_plain16_counts_rows_and_strips_as_the_row_loop_runs():
+    """The plain version's ``stats`` against upstream's row loop run a
+    row at a time (exp_kernel_floor.band_trace): open rows, band cells,
+    and the strips of 32 columns from beg and of 64 from beg & ~1 that
+    cover [beg, end] on each."""
+    from tpubwa_torch.scripts import exp_kernel_floor as xf
+    rng = np.random.default_rng(12)
+    q, t, p = _pack(_mk_jobs(rng, 12, None) + _edge_jobs(rng), 256, 256)
+    stats = {}
+    x16.extend_batch16_plain(torch.from_numpy(q), torch.from_numpy(t),
+                             torch.from_numpy(p), *PEN, 100, stats=stats)
+    want = {"rows": 0, "cells": 0, "strips32": 0, "strips64": 0}
+    for k in range(len(q)):
+        _, f = xf.band_trace(q[k], t[k], p[k], *PEN, 100)
+        for b, e in zip(f["beg"], f["end"]):
+            want["rows"] += 1
+            want["cells"] += e - b
+            want["strips32"] += (e - b) // 32 + 1
+            want["strips64"] += (e - (b & ~1)) // 64 + 1
+    assert stats == want and want["strips64"] < want["strips32"]

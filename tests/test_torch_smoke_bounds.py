@@ -132,12 +132,26 @@ def test_strip_loop_of_a_warp_per_job_kernel():
     assert info == {
         "function": "_ZN12_GLOBAL__N_113extend_kernelILi0EEEvPKiS2_",
         "loops": 3, "instructions": 11, "nested_loops": 1, "shfl": 2,
-        "redux": 1, "vote": 1, "lds": 1, "sts": 1}
+        "redux": 1, "vote": 1, "lds": 1, "sts": 1,
+        "opcodes": {"BRA": 2, "ISETP.LT.AND": 1, "LDS.64": 1,
+                    "REDUX.MAX.S32": 1, "SHFL.IDX": 1, "SHFL.UP": 1,
+                    "STS.64": 1, "VIMNMX": 2, "VOTE.ANY": 1}}
     # a one-thread-per-job kernel has no such loop: information, no error
     assert c.sass_strip_loop(SASS, r"kernel") is None
     # the scan loop's back branch carries a second predicate as an
     # operand; the band-loop analysis of the other rows does not take it
     assert len(c.sass_function(WARP_SASS, r"extend_kernel")[2]) == 2
+
+
+def test_strip_loop_opcodes_count_each_instruction():
+    """The opcodes show K1-i16's 16x2 operations as single instructions;
+    guards are not part of an opcode, NOPs are not counted."""
+    info = c.sass_strip_loop(WARP_SASS, r"extend_kernelILi0EE")
+    assert sum(info["opcodes"].values()) == info["instructions"]
+    guarded = WARP_SASS.replace("VIMNMX R12, R8, R9, !PT",
+                                "VIADDMNMX.S16x2 R12, R8, R9, R10, !PT")
+    ops = c.sass_strip_loop(guarded, r"extend_kernelILi0EE")["opcodes"]
+    assert ops["VIADDMNMX.S16x2"] == 1 and ops["VIMNMX"] == 1
 
 
 def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
@@ -160,6 +174,7 @@ def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
     ("ksw_extend", 11_384_096, 0.009018),
     ("ksw_extend_real", 12_317_898, 0.009021),
     ("ksw_extend_floor", 7_826_210, 0.005264),
+    ("ksw_extend16", 11_504_743, 0.004557),
 ])
 def test_recurrence_constants_give_the_recorded_bounds(name, cells, want_ms):
     rates = {"int32_per_s": 132 * c.INT32_LANES * 1980e6,

@@ -1,13 +1,14 @@
 // A host stand-in for the CUDA device runtime, for tests: enough of it
-// to compile a warp-per-job kernel (csrc/extend.cu with
-// TPUBWA_WARP_HOST defined) as plain C++ and run it on a machine with no
-// card, under -fsanitize=address,undefined.
+// to compile a warp-per-job kernel (csrc/extend.cu or csrc/extend16.cu
+// with TPUBWA_WARP_HOST defined) as plain C++ and run it on a machine
+// with no card, under -fsanitize=address,undefined.
 //
 // A launch runs its blocks and warps one after another.  The 32 lanes
 // of a warp are 32 fibers (ucontext) that run the kernel in lockstep: a
 // lane runs until it reaches a warp operation (__shfl_sync,
-// __shfl_up_sync, __reduce_max_sync, __ballot_sync, __syncwarp), leaves
-// its operand in an exchange array and yields; when all 32 have
+// __shfl_up_sync, __reduce_max_sync, __reduce_min_sync, __ballot_sync,
+// __syncwarp), leaves its operand in an exchange array and yields; when
+// all 32 have
 // arrived the operation is computed by a loop over that array and the
 // lanes go on.  Every lane must reach the same operation, or leave the
 // kernel, in the same round: anything else is a divergent full-mask
@@ -17,7 +18,10 @@
 // sanitizer's and a read of a pair never written shows in the result.
 // Lanes run in order 0..31, or 31..0 with warp_host::reverse set: a
 // kernel whose result changes with the order is missing a __syncwarp.
-// There is no __syncthreads: warps of a block never meet.
+// There is no __syncthreads: warps of a block never meet.  The 16x2
+// SIMD and DPX intrinsics that csrc/extend16.cu uses are written from
+// their documented meaning: each 16-bit half is a signed value, sums
+// wrap modulo 2^16 (none saturates), max and min compare signed halves.
 
 #pragma once
 
@@ -31,6 +35,7 @@
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
@@ -57,7 +62,8 @@ namespace warp_host {
 
 constexpr int kLanes = 32;
 constexpr size_t kStack = 256 * 1024;
-enum Op { kNone, kShfl, kShflUp, kReduceMax, kBallot, kSync, kDone };
+enum Op { kNone, kShfl, kShflUp, kReduceMax, kReduceMin, kBallot, kSync,
+          kDone };
 
 inline bool reverse = false;  // run the lanes 31..0
 inline int launches = 0;      // kernel launches made
@@ -168,6 +174,14 @@ inline int __reduce_max_sync(unsigned mask, int v) {
     return m;
 }
 
+inline int __reduce_min_sync(unsigned mask, int v) {
+    warp_host::full(mask);
+    const int* buf = warp_host::arrive(warp_host::kReduceMin, v);
+    int m = buf[0];
+    for (int l = 1; l < warp_host::kLanes; ++l) m = buf[l] < m ? buf[l] : m;
+    return m;
+}
+
 inline unsigned __ballot_sync(unsigned mask, bool pred) {
     warp_host::full(mask);
     const int* buf = warp_host::arrive(warp_host::kBallot, pred);
@@ -179,3 +193,80 @@ inline unsigned __ballot_sync(unsigned mask, bool pred) {
 inline void __syncwarp() { warp_host::arrive(warp_host::kSync, 0); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+
+// unsigned operands, as the CUDA headers' overloads take them
+inline unsigned __shfl_sync(unsigned mask, unsigned v, int src) {
+    return (unsigned)__shfl_sync(mask, (int)v, src);
+}
+
+inline unsigned __shfl_up_sync(unsigned mask, unsigned v, unsigned d) {
+    return (unsigned)__shfl_up_sync(mask, (int)v, d);
+}
+
+namespace warp_host {
+
+// the signed value of the half of x at bit k (0 or 16)
+inline int half(unsigned x, int k) {
+    return (int)((x >> k & 0xffffu) ^ 0x8000u) - 0x8000;
+}
+
+// f on each pair of halves, the result's halves wrapped to 16 bits
+template <class F>
+unsigned per_half(unsigned a, unsigned b, unsigned c, F f) {
+    unsigned out = 0;
+    for (int k = 0; k < 32; k += 16)
+        out |= ((unsigned)f(half(a, k), half(b, k), half(c, k)) & 0xffffu)
+               << k;
+    return out;
+}
+
+inline int max2(int x, int y) { return x > y ? x : y; }
+inline int min2(int x, int y) { return x < y ? x : y; }
+inline int wrap16(int x) { return half((unsigned)x, 0); }
+
+}  // namespace warp_host
+
+inline unsigned __vadd2(unsigned a, unsigned b) {
+    return warp_host::per_half(a, b, 0, [](int x, int y, int) {
+        return warp_host::wrap16(x + y); });
+}
+
+inline unsigned __vmaxs2(unsigned a, unsigned b) {
+    return warp_host::per_half(a, b, 0, [](int x, int y, int) {
+        return warp_host::max2(x, y); });
+}
+
+// max(min(a, b), 0)
+inline unsigned __vimin_s16x2_relu(unsigned a, unsigned b) {
+    return warp_host::per_half(a, b, 0, [](int x, int y, int) {
+        return warp_host::max2(warp_host::min2(x, y), 0); });
+}
+
+// min(a + b, c), the sum wrapped to 16 bits
+inline unsigned __viaddmin_s16x2(unsigned a, unsigned b, unsigned c) {
+    return warp_host::per_half(a, b, c, [](int x, int y, int z) {
+        return warp_host::min2(warp_host::wrap16(x + y), z); });
+}
+
+// max(a + b, c), the sum wrapped to 16 bits
+inline unsigned __viaddmax_s16x2(unsigned a, unsigned b, unsigned c) {
+    return warp_host::per_half(a, b, c, [](int x, int y, int z) {
+        return warp_host::max2(warp_host::wrap16(x + y), z); });
+}
+
+// max(a + b, c, 0), the sum wrapped to 16 bits
+inline unsigned __viaddmax_s16x2_relu(unsigned a, unsigned b, unsigned c) {
+    return warp_host::per_half(a, b, c, [](int x, int y, int z) {
+        return warp_host::max2(warp_host::max2(warp_host::wrap16(x + y), z),
+                               0); });
+}
+
+// byte n of the result is byte (s >> 4n) & 7 of the eight bytes y:x
+// (x's bytes 0-3, y's 4-7)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const unsigned long long in = (unsigned long long)y << 32 | x;
+    unsigned out = 0;
+    for (int n = 0; n < 4; ++n)
+        out |= (unsigned)(in >> 8 * (s >> 4 * n & 7) & 0xffu) << 8 * n;
+    return out;
+}

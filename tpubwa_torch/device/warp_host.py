@@ -1,16 +1,18 @@
-"""csrc/extend.cu's kernels on the host, for tests.
+"""csrc/extend.cu's and csrc/extend16.cu's kernels on the host, for tests.
 
-The kernel source compiles as plain C++ against ``csrc/warp_host.h``,
-which runs a warp's 32 lanes in lockstep and computes its shuffles,
-reductions and ballots by a loop over the lanes' operands.  ``build``
-compiles ``csrc/extend_host.cpp`` with g++ under
-``-fsanitize=address,undefined`` into ``build/host`` in the checkout
-(or ``$TPUBWA_TORCH_HOST_BUILD``), keyed by a hash of the sources;
-``extend_host`` (K1 and K1-floor) and ``extend_real_host`` (K1-real) run
-it on one set of jobs.  This checks the kernel's
-logic, its memory accesses and that its warp operations are reached by
-all 32 lanes together, where there is no card; what the GPU's compiler
-makes of the source still shows only on a card.
+The kernel sources compile as plain C++ against ``csrc/warp_host.h``,
+which runs a warp's 32 lanes in lockstep, computes its shuffles,
+reductions and ballots by a loop over the lanes' operands, and has host
+versions of the 16x2 intrinsics.  ``build`` compiles one harness
+(``csrc/extend_host.cpp`` or ``csrc/extend16_host.cpp``) with g++ under
+``-fsanitize=address,undefined`` into ``build/host`` in the checkout (or
+``$TPUBWA_TORCH_HOST_BUILD``), keyed by a hash of its sources;
+``extend_host`` (K1 and K1-floor), ``extend_real_host`` (K1-real) and
+``extend16_host`` (K1-i16) run one on a set of jobs, and
+``intrinsics16_host`` runs the host intrinsics alone.  This checks the
+kernel's logic, its memory accesses and that its warp operations are
+reached by all 32 lanes together, where there is no card; what the GPU's
+compiler makes of the source still shows only on a card.
 """
 
 from __future__ import annotations
@@ -28,52 +30,71 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(os.environ.get(
     "TPUBWA_TORCH_HOST_BUILD",
     Path(__file__).resolve().parents[2] / "build" / "host"))
-SOURCES = ("extend_host.cpp", "extend.cu", "warp_host.h")
+# each harness: its entry and the sources it compiles
+SOURCES = {"extend_host": ("extend_host.cpp", "extend.cu", "warp_host.h"),
+           "extend16_host": ("extend16_host.cpp", "extend16.cu",
+                             "warp_host.h")}
 FLAGS = ["-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined"]
+# the intrinsics of extend16_host --ops, in its order
+INTRINSICS16 = ("__vadd2", "__vmaxs2", "__vimin_s16x2_relu",
+                "__viaddmin_s16x2", "__viaddmax_s16x2",
+                "__viaddmax_s16x2_relu", "__byte_perm")
 
 
-def build() -> Path:
-    """The harness executable, built on first use.  Raises RuntimeError
-    without g++ or when the build fails."""
+def build(name: str = "extend_host") -> Path:
+    """The harness executable ``name`` (a key of ``SOURCES``), built on
+    first use.  Raises RuntimeError without g++ or when the build
+    fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host harness needs it")
-    key = b"".join((CSRC / s).read_bytes() for s in SOURCES)
+    key = b"".join((CSRC / s).read_bytes() for s in SOURCES[name])
     key += " ".join(FLAGS).encode()
-    exe = BUILD / f"extend_host-{hashlib.sha256(key).hexdigest()[:16]}"
+    exe = BUILD / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}"
     if not exe.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = exe.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([gxx, *FLAGS, "-o", str(tmp),
-                              str(CSRC / "extend_host.cpp")],
+        entry = SOURCES[name][0]
+        res = subprocess.run([gxx, *FLAGS, "-o", str(tmp), str(CSRC / entry)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on extend_host.cpp:\n{res.stderr}")
+            raise RuntimeError(f"g++ failed on {entry}:\n{res.stderr}")
         os.replace(tmp, exe)
     return exe
+
+
+def _exec(name, arrays, args=()):
+    """Run harness ``name`` on the concatenated bytes of ``arrays``;
+    returns what it wrote.  Raises RuntimeError with its report if it
+    fails."""
+    exe = build(name)
+    with tempfile.TemporaryDirectory() as d:
+        inp, out = os.path.join(d, "in"), os.path.join(d, "out")
+        with open(inp, "wb") as fh:
+            for x in arrays:
+                fh.write(x.tobytes())
+        res = subprocess.run([str(exe), *args, inp, out], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{name} failed (rc {res.returncode}):\n"
+                               f"{res.stderr[-4000:]}")
+        return np.fromfile(out, np.int32)
+
+
+def _jobs(q, t, params):
+    return tuple(np.ascontiguousarray(x, np.int32) for x in (q, t, params))
 
 
 def _run(q, t, params, pen, masks, variants, reverse):
     """The harness on one set of jobs: (one int32 [N, 6] per mask, one
     int32 [N, 128] per K1-real variant index)."""
-    exe = build()
-    q, t, params = (np.ascontiguousarray(x, np.int32) for x in (q, t, params))
+    q, t, params = _jobs(q, t, params)
     n, W = q.shape
     head = np.asarray([n, W, t.shape[1], params.shape[1], *pen, int(reverse),
                        len(masks), len(variants), *masks, *variants],
                       np.int32)
-    with tempfile.TemporaryDirectory() as d:
-        jobs, out = os.path.join(d, "jobs"), os.path.join(d, "out")
-        with open(jobs, "wb") as fh:
-            for x in (head, q, t, params):
-                fh.write(x.tobytes())
-        res = subprocess.run([str(exe), jobs, out], capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"extend_host failed (rc {res.returncode}):\n"
-                               f"{res.stderr[-4000:]}")
-        got = np.fromfile(out, np.int32)
+    got = _exec("extend_host", (head, q, t, params))
     k = len(masks) * n * 6
     return (list(got[:k].reshape(len(masks), n, 6)),
             list(got[k:].reshape(len(variants), n, 128)))
@@ -98,3 +119,27 @@ def extend_real_host(q, t, params, variants, scoring, reverse=False):
     zdrop), lanes 0-5 from the kernel and lanes 6-127 as it left them
     (the harness fills them with -77 first).  Raises as ``extend_host``."""
     return _run(q, t, params, scoring, (), variants, reverse)[1]
+
+
+def extend16_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
+                  reverse=False):
+    """``extend_batch16``'s contract on numpy int32 arrays, through the
+    kernel's C entry (``tpubwa_extend_batch16``) on the host: int32
+    [N, 6].  ``reverse`` runs each warp's lanes 31..0.  Raises
+    RuntimeError with the harness's report if a sanitizer or the
+    lockstep check stops it, or if the entry refuses the launch."""
+    q, t, params = _jobs(q, t, params)
+    n, W = q.shape
+    head = np.asarray([n, W, t.shape[1], params.shape[1], a, b, o_del, e_del,
+                       o_ins, e_ins, zdrop, int(reverse)], np.int32)
+    return _exec("extend16_host", (head, q, t, params)).reshape(n, 6)
+
+
+def intrinsics16_host(a, b, c):
+    """{name: uint32 [n]}: each host intrinsic of ``INTRINSICS16`` on the
+    uint32 words ``a``, ``b``, ``c`` (a two-operand one takes a and b;
+    ``__byte_perm`` takes c as its selector)."""
+    a, b, c = (np.ascontiguousarray(x, np.uint32) for x in (a, b, c))
+    got = _exec("extend16_host", (np.asarray([len(a)], np.int32), a, b, c),
+                ("--ops",)).view(np.uint32)
+    return dict(zip(INTRINSICS16, got.reshape(len(INTRINSICS16), len(a))))

@@ -10,9 +10,13 @@ Two versions of the int16 extension, bit-identical by test:
   sentinel NEG16, the F scan as ``torch.cummax`` on int16, the row max,
   its argmax and ``h_open`` in int32), the way
   ``device/extend_kernel.extend_batch_plain`` mirrors K1.
-* the hand-written CUDA kernel in ``csrc/extend16.cu`` (one thread per
-  job, the (h, e) scratch stored as int16 pairs), reached through
-  ``extend_batch16`` for CUDA tensors.
+* the hand-written CUDA kernel in ``csrc/extend16.cu``, reached through
+  ``extend_batch16`` for CUDA tensors: K1's warp per job over the live
+  band with two columns a lane, packed as the 16-bit halves of 32-bit
+  registers and computed with Hopper's 16x2 max-plus (DPX)
+  instructions, the row and a query profile in shared memory, no global
+  scratch.  It is bounded by instruction issue, as K1 is, and packing
+  covers a row's band in strips of 64 columns, where K1 takes 32.
 
 Both are held to the int16 domain of the JAX kernel (``check_int16``):
 past it the JAX kernel's int16 arithmetic wraps, so nothing is defined
@@ -47,6 +51,9 @@ QL, TL, TMAX = 100, 200, 256
 SCORING = (1, 4, 6, 1, 6, 1)
 ZDROP = 100
 REPS = 20                    # timed calls per size, after one warm-up
+# the kernels alone: minimum of PASSES interleaved passes, each the
+# marginal time per launch in a chain of CHAIN launches
+PASSES, CHAIN = 4, 16
 FUZZ_TRIALS, FUZZ_JOBS = 30, 64
 
 
@@ -108,7 +115,10 @@ def extend_batch16_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
     the score profile and the F scan in int16, the masks, the row max,
     its argmax, h_open and the per-job scalars in int32.  Inside the
     int16 domain (``check_int16``) it equals K1.  A ``stats`` dict gets
-    ``cells``, the band cells of the active rows."""
+    ``cells``, the band cells of the active rows, ``rows``, the rows
+    whose band is open, and ``strips32`` / ``strips64``, the strips of 32
+    columns from beg and of 64 from beg & ~1 that cover [beg, end] on
+    those rows (what K1's and K1-i16's strip loops run)."""
     _check(q, t, params)
     check_int16(q, t, params, a, b, o_del, e_del, o_ins, e_ins)
     dev = q.device
@@ -161,9 +171,15 @@ def extend_batch16_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
         end_i = torch.minimum(torch.minimum(end, i + ww + 1), qlen)
         closed = beg_i >= end_i
         if stats is not None:
-            # band cells: what a kernel's inner loop visits on this row
-            stats["cells"] = stats.get("cells", 0) + int(torch.where(
-                act & ~closed, end_i - beg_i, 0).sum())
+            # band cells: what a kernel's inner loop visits on this row,
+            # and the strips a warp-per-job kernel takes for [beg, end]
+            open_ = act & ~closed
+            for key, x in (
+                    ("cells", end_i - beg_i), ("rows", 1),
+                    ("strips32", (end_i - beg_i) // 32 + 1),
+                    ("strips64", (end_i - (beg_i & ~1)) // 64 + 1)):
+                stats[key] = stats.get(key, 0) + int(
+                    torch.where(open_, x, 0).sum())
         h1_first = torch.where(
             beg_i == 0, torch.clamp_min(h0 - (o_del + e_del * (i + 1)), 0),
             0)
@@ -241,9 +257,9 @@ def extend_batch16_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (q, t, params, out, eh, n, W, tmax, pstride, a, b, o_del, e_del,
+    # (q, t, params, out, n, W, tmax, pstride, a, b, o_del, e_del,
     #  o_ins, e_ins, zdrop, device, stream) -> cudaError_t
-    "tpubwa_extend_batch16": (_CI, [_VP] * 5 + [_CI] * 12 + [_VP]),
+    "tpubwa_extend_batch16": (_CI, [_VP] * 4 + [_CI] * 12 + [_VP]),
 }
 
 
@@ -256,13 +272,11 @@ def _extend16_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
     out = torch.empty((N, 6), dtype=I32, device=q.device)
     if N == 0:
         return out
-    # (h, e) scratch as int16 pairs, job-minor ([W + 2, N] pairs) as K1's
-    eh = torch.empty((W + 2, N, 2), dtype=I16, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.tpubwa_extend_batch16(
-        q.data_ptr(), t.data_ptr(), params.data_ptr(), out.data_ptr(),
-        eh.data_ptr(), N, W, t.shape[1], params.shape[1], a, b, o_del,
-        e_del, o_ins, e_ins, zdrop, q.device.index, stream)
+        q.data_ptr(), t.data_ptr(), params.data_ptr(), out.data_ptr(), N, W,
+        t.shape[1], params.shape[1], a, b, o_del, e_del, o_ins, e_ins,
+        zdrop, q.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"extend16 kernel launch failed: cudaError {rc}")
     extend_batch16.launches += 1
@@ -347,10 +361,14 @@ def time_ms(fn, reps, device):
 def main(argv=None) -> dict:
     """Time K1 in int32 (``extend_batch``) against int16
     (``extend_batch16``) on the script's jobs at each ``--jobs`` size,
-    then run the equality fuzz between the two.  On a card each kernel
-    is also timed alone, without the wrappers' input checks (each reads
-    a flag back to the host).  Raises on any difference; returns the
+    through the wrappers as the JAX script times them (the mean of REPS
+    calls), then run the equality fuzz between the two.  On a card both
+    kernels are also timed alone, without the wrappers' input checks
+    (each reads a flag back to the host), in PASSES interleaved passes
+    (``exp_kernel_floor.interleaved_min``: single timing windows read
+    one binary up to 1.3x apart).  Raises on any difference; returns the
     numbers it printed."""
+    from .exp_kernel_floor import interleaved_min
     ap = argparse.ArgumentParser(
         prog="python -m tpubwa_torch.scripts.exp_int16_kernel",
         description="int16 against int32 banded-SW extension (K1)")
@@ -376,8 +394,7 @@ def main(argv=None) -> dict:
         q, t, p = (torch.from_numpy(x).to(dev) for x in script_jobs(rng, n))
         row = {"N": n}
         outs = {}
-        for name, fn, bare in (("i32", extend_batch, _extend_cuda),
-                               ("i16", extend_batch16, _extend16_cuda)):
+        for name, fn in (("i32", extend_batch), ("i16", extend_batch16)):
             def call(fn=fn):
                 return fn(q, t, p, *SCORING, ZDROP)
             outs[name] = call()
@@ -387,10 +404,14 @@ def main(argv=None) -> dict:
                   f"first-row {outs[name][0].tolist()}", flush=True)
             row[f"{name}_ms"] = ms
             row[f"{name}_gcups"] = gcups
-            if dev.type == "cuda":
-                # the inputs were checked by the call above
-                ms = time_ms(lambda bare=bare: bare(q, t, p, *SCORING,
-                                                    ZDROP), REPS, dev)
+        if dev.type == "cuda":
+            # the inputs were checked by the calls above
+            alone = interleaved_min(
+                {name: lambda bare=bare: bare(q, t, p, *SCORING, ZDROP)
+                 for name, bare in (("i32", _extend_cuda),
+                                    ("i16", _extend16_cuda))},
+                CHAIN, PASSES, dev)
+            for name, ms in alone.items():
                 print(f"N={n} {name} kernel alone: {ms:.4f} ms = "
                       f"{n * QL * TL / (ms * 1e-3) / 1e9:.2f} GCUPS",
                       flush=True)

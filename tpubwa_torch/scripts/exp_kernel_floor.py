@@ -77,30 +77,37 @@ def floor_jobs(n):
 STRIP_SHAPES = ((128, 256), (256, 512), (512, 512))
 
 
-def strip_edge_jobs(W, tmax):
+def strip_edge_jobs(W, tmax, strip=32):
     """{set: (q [n, W], t [n, tmax], params [n, 5])}: jobs for the edges
-    of a kernel that walks the live band in strips of 32 columns, at one
-    tile shape; ``make_jobs`` draws indels of at most 3 and rarely
-    builds these.  Scoring is ``SCORING``.  ``band_trace`` shows what
-    each set is for:
+    of a kernel that walks the live band in strips of ``strip`` columns
+    (32: K1's, from beg; 64: K1-i16's, from beg & ~1), at one tile shape;
+    ``make_jobs`` draws indels of at most 3 and rarely builds these.
+    Scoring is ``SCORING``.  With s = ``strip``, ``band_trace`` shows
+    what each set is for:
 
-    * ``ins_run``: 33-70 bases inserted into the query under w 100 and
-      200, so the F gap is the winning term in cells 33 and more columns
-      from where it opened, across strip edges;
-    * ``del_run``: 33-70 bases deleted from it, a tail that makes the
+    * ``ins_run``: 33-70 bases (65-100 at s = 64) inserted into the
+      query under w 100 and 200, so the F gap is the winning term in
+      cells s + 1 and more columns from where it opened, across strip
+      edges;
+    * ``del_run``: as many bases deleted from it, a tail that makes the
       crossing pay: tle - qle is the run;
-    * ``tie32``, ``tie64``: the row max is reached in two columns 32 or
-      64 apart (a query of period 32 or 64 whose first copy carries N
+    * ``tie{s}``, ``tie{2s}``: the row max is reached in two columns s
+      or 2 s apart (a query of that period whose first copy carries N
       codes worth the gap open 6 + d); the later column must win, so
       qle - tle is d (where tlen > d + 7: the tie then sets the score);
     * ``residues``: perfect matches under narrow and wide bands, whose
-      beg, end and end - beg take every residue mod 32;
+      beg, end and end - beg take every residue mod s (beg odd and even);
     * ``closed``: short queries under small w on long targets, whose
       band closes (beg >= end) while the job lives;
     * ``qlen_edges``: qlen 1 and W - 1, the latter under bands of up to
-      2 w + 1 = 401 columns."""
+      2 w + 1 = 401 columns.
+
+    At s = 32 the sets are those K1's tests and smoke have always run."""
+    if strip not in (32, 64):
+        raise ValueError(f"strip must be 32 or 64, not {strip}")
     rng = np.random.default_rng(W)
     qmax = W - 1
+    half = strip // 2
 
     def pack(jobs):
         q = np.full((len(jobs), W), 4, np.int32)
@@ -117,7 +124,8 @@ def strip_edge_jobs(W, tmax):
         return rng.integers(0, 4, n).astype(np.int32)
 
     sets = {}
-    runs = [(run, w) for run in (33, 47, 64, 70) for w in (100, 200)]
+    lengths = (33, 47, 64, 70) if strip == 32 else (65, 79, 96, 100)
+    runs = [(run, w) for run in lengths for w in (100, 200)]
     jobs = []
     for run, w in runs:
         pre, suf = seq(24), seq(qmax - 24 - run)
@@ -130,22 +138,26 @@ def strip_edge_jobs(W, tmax):
         jobs.append((np.concatenate([pre, suf]),
                      np.concatenate([pre, seq(run), suf]), 80, w))
     sets["del_run"] = pack(jobs)
-    for d in (32, 64):
+    for d in (strip, 2 * strip):
         # an N in place of a match costs 2 (-1 against +a): 6 + d in all
         # the tie outscores row 0 from row 7 + d on, where the tile has
-        # the columns for it
+        # the columns for it; a jump of d columns needs w > d and an h0
+        # above its cost
+        h0w = 100 if d < 100 else 200
         jobs = []
         for tl in ((d + 12, d + 24) if 2 * d + 24 < W else (50, 62)):
             ts = np.tile(seq(d), 4)[:d + tl]
             qs = ts.copy()
             qs[1:1 + (6 + d) // 2] = 4
-            jobs.append((qs, ts[:tl], 100, 100))
+            jobs.append((qs, ts[:tl], h0w, h0w))
         sets[f"tie{d}"] = pack(jobs)
     base = seq(tmax)
     sets["residues"] = pack([(base[:qmax], base[:qmax + 20], 60, w)
-                             for w in (3, 15, 16, 17, 40)])
+                             for w in (3, half - 1, half, half + 1,
+                                       strip + 8)])
     sets["closed"] = pack([(base[:ql], base[:ql + w + 10], 150, w)
-                           for ql in (1, 5, 31, 32, 33) for w in (1, 5)])
+                           for ql in (1, 5, strip - 1, strip, strip + 1)
+                           for w in (1, 5)])
     snp = base.copy()
     snp[::37] = (snp[::37] + 1) % 4
     sets["qlen_edges"] = pack(
