@@ -61,13 +61,18 @@ Phases, one output line each (a failing phase raises, exit != 0):
      in a child process: any error it reports fails; a tool that is
      missing or cannot run the child is printed as such, never as a
      pass;
- 3f. every K1-bd variant's kernel == extend_bd_plain, exactly, on
-     phase 3's main shape, the breakdown script's 512 jobs, jobs that
-     die at rows of their own (alone and beside a survivor), 64 jobs
-     whose tlen exceeds N (tdot's row cap) and a 252-row tile (each
-     variant must differ from baseline on one job at least; a dying
-     job alone must differ from its result in the launch); then the
-     ported breakdown experiment
+ 3f. every K1-bd variant's kernel (a warp per job in its live and its
+     frozen pass) == extend_bd_plain, exactly, on phase 3's main shape,
+     the breakdown script's 512 jobs, jobs that die at rows of their own
+     (alone and beside a survivor), 64 jobs whose tlen exceeds N (tdot's
+     row cap), a 252-row tile and jobs whose frozen trim reads above
+     their last live row's end_i (each variant must differ from baseline
+     on one job at least; a dying job alone must differ from its result
+     in the launch); a tile too wide for a block's shared memory must
+     raise; at the main shape baseline alone beside K1 alone
+     (bd_over_k1), its live and frozen kernels' device times from a
+     torch.profiler trace of its launches, with the live and frozen
+     cells; then the ported breakdown experiment
      (tpubwa_torch.scripts.exp_kernel_breakdown.main at 512 and
      131,072 jobs), whose K1-bd launches are counted;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
@@ -82,12 +87,9 @@ Phases, one output line each (a failing phase raises, exit != 0):
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
-HBM bandwidth, whichever is larger.  For the warp-per-job kernels (K1,
-K1-real, K1-floor and K1-i16) the instructions per cell are constants of
-the recurrence, RECURRENCE_OPS, so the bound does not move with the
-kernel's design; for K1-bd they are read from the inner loop in SASS,
-with memory, control, moves, address arithmetic and the loop counter
-left out), a JSON line
+HBM bandwidth, whichever is larger.  The instructions per cell are
+constants of the recurrence, RECURRENCE_OPS, so the bound does not move
+with the kernel's design), a JSON line
 of the kernels (launches on each kernel's path: K1
 in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
 that of 3c, K1-floor in that of 3d, K1-bd in that of 3f; errors, times,
@@ -128,13 +130,61 @@ SCHED_LANES = 128       # 4 schedulers x 32 lanes per SM per clock
 # K1-i16's row is K1's recurrence on int16 cells, two to every 32-bit
 # operation: Hopper's 16x2 instructions (VIADDMNMX.S16x2, VIMNMX.S16x2,
 # VIADD.16x2) compute both halves of a register at once, so the least
-# work a cell needs in int16 is half K1's.
+# work a cell needs in int16 is half K1's.  K1-bd's row is K1-real's
+# recurrence under the same fixed scoring without the argmax, which
+# K1-bd does not keep: the one-thread K1-real loop (`git show
+# 5163bc9:tpubwa_torch/csrc/extend_real.cu`, nvcc -O3 for sm_90a, read
+# by sass_loops) gives 12.25 / 14.25 for full, K1-real's row, and
+# 11.0 / 12.0 for its no-mj instantiation, whose loop keeps the row max
+# alone.  A cell of that loop (SASS, 4 cells a trip): the score (2
+# ISETP, 2 SEL), M (ISETP, IMAD.IADD, SEL), max(M - oe, 0) (VIADDMNMX,
+# shared by E and F under the fixed scoring), E (VIADDMNMX), F
+# (VIADDMNMX), H = max(M, E, F, 0) (VIMNMX3.RELU), the row max (VIMNMX):
+# 11 ALU ops and the one IMAD.IADD.  K1-bd's frozen cells need neither
+# F (the frozen pass's proof in csrc/extend_bd.cu) nor the E update (a
+# frozen row's E stays as it was handed over), so their row is 3 ops
+# fewer: 8.0 / 9.0, H a two-way max with the relu, still one op.
 RECURRENCE_OPS = {
     "ksw_extend": {"alu_per_cell": 13.25, "int_per_cell": 15.25},
     "ksw_extend_real": {"alu_per_cell": 12.25, "int_per_cell": 14.25},
     "ksw_extend_floor": {"alu_per_cell": 11.25, "int_per_cell": 13.25},
     "ksw_extend16": {"alu_per_cell": 6.625, "int_per_cell": 7.625},
+    "ksw_extend_bd": {"alu_per_cell": 11.0, "int_per_cell": 12.0},
+    "ksw_extend_bd_frozen": {"alu_per_cell": 8.0, "int_per_cell": 9.0},
 }
+
+# The kernels line's rows: (name, source under tpubwa_torch/csrc, the TPU
+# kernel it replaces, the instantiation whose SASS strip loop and
+# registers are printed, {the case's count of cells: its RECURRENCE_OPS
+# key}).  Each row is one instantiation: K1 and K1-real's full are
+# extend_kernel<0>, the floor row its -scan instantiation
+# extend_kernel<1>, K1-bd's baseline the live pass extend_bd_live<kTable,
+# no N cap, all on>.  Every row takes its work per cell from
+# RECURRENCE_OPS (K1-bd's live and frozen cells each their own), with
+# the kernel's own strip loop (its opcodes among it) and registers
+# beside it as information.
+KERNEL_ROWS = (
+    ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
+     r"extend_kernelILi0EE", {"cells": "ksw_extend"}),
+    ("ksw_extend16", "extend16", "scripts/exp_int16_kernel.py:48",
+     r"extend16_kernel", {"cells": "ksw_extend16"}),
+    ("extend_real", "extend", "scripts/exp_kernel_real.py:87",
+     r"extend_kernelILi0EE", {"cells": "ksw_extend_real"}),
+    ("ksw_extend_floor", "extend", "tpubwa/device/extend_pallas.py:224",
+     r"extend_kernelILi1EE", {"cells": "ksw_extend_floor"}),
+    ("ksw_extend_bd", "extend_bd", "scripts/exp_kernel_breakdown.py:54",
+     r"extend_bd_liveILi0ELb0ELb1ELb1ELb1ELb1EE",
+     {"live_cells": "ksw_extend_bd", "frozen_cells": "ksw_extend_bd_frozen"}))
+
+
+def cell_ops(case, charge):
+    """The work per cell of ``case``, averaged over its cells: each count
+    of cells named in ``charge`` ({case key: RECURRENCE_OPS key}) at its
+    own constant.  The counts must add up to ``case["cells"]``."""
+    if sum(case[k] for k in charge) != case["cells"]:
+        raise AssertionError(f"{sorted(charge)} do not add up to the cells")
+    return {o: sum(case[k] * RECURRENCE_OPS[r][o] for k, r in charge.items())
+            / case["cells"] for o in ("alu_per_cell", "int_per_cell")}
 
 
 def _run(cmd):
@@ -156,6 +206,30 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(torch, fn, names, reps):
+    """{name: mean device ms per launch} of the kernels whose names hold
+    each of ``names``, from a torch.profiler (CUPTI) trace of ``reps``
+    calls of ``fn`` after one warm-up: the time of each kernel of a
+    launch that runs several, with the launch as its callers make it.
+    None for a name whose kernels the trace holds no device time of."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: [0.0, 0] for k in names}
+    for ev in prof.key_averages():
+        for k in names:
+            if k in ev.key and ev.device_time_total > 0:
+                us[k][0] += ev.device_time_total
+                us[k][1] += ev.count
+    return {k: round(t / n / 1e3, 4) if n else None
+            for k, (t, n) in us.items()}
 
 
 def timed_once(torch, fn):
@@ -923,18 +997,27 @@ def phase_kernel_floor(torch, np):
 
 def phase_kernel_bd(torch, np):
     """Every K1-bd variant's kernel against its plain version on the
-    card, tolerance 0, on six launches: phase 3's main shape (make_jobs
-    W 128, tmax 256, N 8,192), the script's 512 jobs, 64 jobs that each
-    die at a row of their own, the same beside a job that survives, 64
-    of the script's jobs (tlen 200 > N: tdot's row cap), and 256 jobs on
-    a 252-row tile (t8-slice's clip, unroll2's extra row).  Each variant
-    must differ from baseline on one job at least, and a dying job's
-    kernel result launched alone must differ from its result in the
-    launch (the coupling).  Then the ported experiment at 512 and
-    131,072 jobs, with the count set to 0 just before it and read just
-    after.  The row of the kernels line is baseline's at the main
-    shape."""
+    card, tolerance 0, on seven launches: phase 3's main shape
+    (make_jobs W 128, tmax 256, N 8,192), the script's 512 jobs, 64 jobs
+    that each die at a row of their own, the same beside a job that
+    survives, 64 of the script's jobs (tlen 200 > N: tdot's row cap),
+    256 jobs on a 252-row tile (t8-slice's clip, unroll2's extra row)
+    and 256 jobs whose frozen trim reads above their last live row's
+    end_i (exp_kernel_breakdown.frozen_edge_jobs).  Each variant must
+    differ from baseline on one job at least, and a dying job's kernel
+    result launched alone must differ from its result in the launch
+    (the coupling).  A tile too wide for a block's shared memory must
+    raise, and the next launch run right.  At the main shape, baseline
+    alone beside K1 alone on the same jobs under the same scoring
+    (``bd_over_k1``), in 4 interleaved passes of 16-launch chains, and
+    its live and frozen kernels' device times from a trace of 64 of its
+    launches (``kernel_ms``).  Then the ported
+    experiment at 512 and 131,072 jobs, with the count set to 0 just
+    before it and read just after.  The row of the kernels line is
+    baseline's at the main shape."""
+    from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.scripts import exp_kernel_breakdown as xb
+    from tpubwa_torch.scripts import exp_kernel_floor as xf
     rng = np.random.default_rng(0xBD)
     dying = xb.dying_jobs(rng, 64)
     sets = {"make_jobs": make_jobs(rng, 8192, 128, 256),
@@ -943,9 +1026,11 @@ def phase_kernel_bd(torch, np):
             "dying+survivor": tuple(np.concatenate([a, b]) for a, b in
                                     zip(dying, xb.bd_jobs(1))),
             "tdot_cap": xb.bd_jobs(64),
-            "clip252": xb.clip_jobs(rng, 256)}
+            "clip252": xb.clip_jobs(rng, 256),
+            "frozen_edge": xb.frozen_edge_jobs(rng, 255)}
     differs = {v: 0 for v in xb.VARIANTS[1:]}
     cases, max_err, main_case = {}, 0, None
+    above_live_end = {}
     for name, arrays in sets.items():
         q, t, p = (torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
                    for x in arrays)
@@ -963,6 +1048,7 @@ def phase_kernel_bd(torch, np):
                     f"{got[bad, :4].tolist()} vs {want[bad, :4].tolist()}")
             if v == "baseline":
                 base = got
+                above_live_end[name] = stats["frozen_above_live_end"]
             else:
                 differs[v] += int((got[:, :4] != base[:, :4]).any(1).sum())
             if name != "make_jobs":
@@ -971,11 +1057,28 @@ def phase_kernel_bd(torch, np):
                         lambda v=v: xb.extend_bd(q, t, p, v), 20), 4),
                     "alone_ms": round(cuda_ms(
                         lambda v=v: xb._extend_bd_cuda(q, t, p, v), 20), 4),
-                    "plain_ms": round(plain_ms, 3), "cells": stats["cells"]}
+                    "plain_ms": round(plain_ms, 3),
+                    **{k: stats[k] for k in ("cells", "live_cells",
+                                             "frozen_cells")}}
             cases[v] = case
             if v == "baseline":
                 main_case = dict(case, bytes=4 * (
                     q.numel() + t.numel() + p.numel() + got.numel()))
+        if name == "make_jobs":
+            # baseline whole and K1 on the same jobs under the same
+            # scoring alone, in interleaved passes; then each of
+            # baseline's two kernels from a device trace of its launches
+            alone = xf.interleaved_min({
+                "K1": lambda: ek._extend_cuda(q, t, p, *xb.SCORING, 100),
+                "baseline": lambda: xb._extend_bd_cuda(q, t, p, "baseline")},
+                16, 4, torch.device(DEV))
+            main_case["alone_interleaved_ms"] = {
+                k: round(v, 4) for k, v in alone.items()}
+            main_case["bd_over_k1"] = round(alone["baseline"] / alone["K1"],
+                                            4)
+            main_case["pass_ms"] = kernel_ms(
+                torch, lambda: xb._extend_bd_cuda(q, t, p, "baseline"),
+                ("extend_bd_live", "extend_bd_frozen"), 64)
         if name == "dying":
             # the coupling: alone, a dying job stops where it dies
             coupled = [k for k in range(8)
@@ -988,6 +1091,22 @@ def phase_kernel_bd(torch, np):
     if vacuous:
         raise AssertionError(f"{vacuous} equal baseline on every job: their "
                              "comparison with the plain version is vacuous")
+    if not above_live_end["frozen_edge"]:
+        raise AssertionError("frozen_edge_jobs never read above the last "
+                             "live end_i")
+    # a tile whose block cannot fit the card's shared memory is refused
+    # in the wrapper, and the next launch runs
+    wide = 1 << 13
+    q, t, p = (torch.from_numpy(x).to(DEV) for x in xb.bd_jobs(2))
+    try:
+        xb.extend_bd(torch.full((2, wide), 4, dtype=torch.int32, device=DEV),
+                     t, p)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"a {wide}-column K1-bd tile was launched")
+    if not torch.equal(xb.extend_bd(q, t, p), xb.extend_bd_plain(q, t, p)):
+        raise AssertionError("K1-bd != plain after a refused launch")
     xb.extend_bd.launches = 0
     res = xb.main(["--device", DEV, "--jobs", "512,131072"])
     launches = xb.extend_bd.launches
@@ -996,7 +1115,12 @@ def phase_kernel_bd(torch, np):
                              "kernel")
     print("[3f K1-bd kernel==plain] " + json.dumps(
         {"tolerance": 0, "jobs": {k: len(v[0]) for k, v in sets.items()},
-         "variants": cases, "differs_from_baseline": differs,
+         "variants": cases,
+         "alone_interleaved_ms": main_case["alone_interleaved_ms"],
+         "bd_over_k1": main_case["bd_over_k1"],
+         "pass_ms": main_case["pass_ms"],
+         "differs_from_baseline": differs,
+         "frozen_above_live_end": above_live_end, "refused": refused,
          "coupled_dying_jobs": coupled, "max_abs_err": max_err,
          "experiment": {"timing": res["timing"], "bd_launches": launches}}),
         flush=True)
@@ -1349,6 +1473,12 @@ def sass_loops(text, function):
     """The inner band loop of a one-thread-per-job kernel in ``cuobjdump
     -sass`` output.
 
+    No row of the kernels line calls it: every kernel keeps its row in
+    shared memory now.  It is how RECURRENCE_OPS was read and is
+    re-derived, from the one-thread loops in git's history (``git show
+    5163bc9:tpubwa_torch/csrc/extend_real.cu``, built by nvcc -O3 for
+    sm_90a and disassembled by cuobjdump -sass).
+
     Takes the one function whose mangled name matches the regex
     ``function`` and finds its loops (a backward branch to an earlier
     address).  The inner band loop is an innermost loop that both stores
@@ -1398,8 +1528,8 @@ def bound(case, loop, rates):
     """(bound_ms, bound_by, parts): the larger of the bytes the call must
     move (each input read once, the output written once) over HBM
     bandwidth, and its band cells times the integer work per cell
-    (``loop``: RECURRENCE_OPS' constants, or a band loop read by
-    ``sass_loops``) over the card's integer rate.  That rate is the
+    (``loop``: a RECURRENCE_OPS entry) over the card's integer rate.
+    That rate is the
     lesser pair of limits: the INT32 pipe's 64 lanes per SM for the
     ALU-only ops, and the SM's issue rate (4 x 32 lanes) for all of
     them, IMAD and VIADD included (they may go to the FMA pipe)."""
@@ -1409,11 +1539,6 @@ def bound(case, loop, rates):
                * 1e3)
     t_ops = max(t_alu, t_issue)
     parts = {"bytes_ms": t_bytes, "int_alu_ms": t_alu, "issue_ms": t_issue}
-    if "sass_per_cell" in loop:
-        # the former figure: every SASS instruction of the loop over
-        # the INT32 pipe (memory, branches and addresses included)
-        parts["all_sass_int32_ms"] = (case["cells"] * loop["sass_per_cell"]
-                                      / rates["int32_per_s"] * 1e3)
     return ((t_bytes, "bytes", parts) if t_bytes > t_ops
             else (t_ops, "operations", parts))
 
@@ -1570,43 +1695,25 @@ def main() -> int:
     from tpubwa_torch.device import _build
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
-    # each row is one instantiation: K1 and K1-real's full are
-    # extend_kernel<0>, the floor row its -scan instantiation
-    # extend_kernel<1>, K1-bd's baseline the live pass extend_bd_live<
-    # kTable, no N cap, all on>.  The warp-per-job rows take their work
-    # per cell from RECURRENCE_OPS (``ops``), with the kernel's own
-    # strip loop (its opcodes among it) and registers beside it as
-    # information; K1-bd reads its band loop's SASS
-    for (name, src, replaces, n, err, case, function, ops) in (
-            ("ksw_extend", "extend", "tpubwa/device/extend_pallas.py:162",
-             launches, max_err, main_case, r"extend_kernelILi0EE",
-             "ksw_extend"),
-            ("ksw_extend16", "extend16", "scripts/exp_int16_kernel.py:48",
-             launches16, err16, case16, r"extend16_kernel",
-             "ksw_extend16"),
-            ("extend_real", "extend", "scripts/exp_kernel_real.py:87",
-             launches_real, err_real, case_real, r"extend_kernelILi0EE",
-             "ksw_extend_real"),
-            ("ksw_extend_floor", "extend",
-             "tpubwa/device/extend_pallas.py:224", launches_floor,
-             err_floor, case_floor, r"extend_kernelILi1EE",
-             "ksw_extend_floor"),
-            ("ksw_extend_bd", "extend_bd",
-             "scripts/exp_kernel_breakdown.py:54", launches_bd, err_bd,
-             case_bd, r"extend_bd_liveILi0ELb0ELb1ELb1ELb1ELb1EE", None)):
+    results = {"ksw_extend": (launches, max_err, main_case),
+               "ksw_extend16": (launches16, err16, case16),
+               "extend_real": (launches_real, err_real, case_real),
+               "ksw_extend_floor": (launches_floor, err_floor, case_floor),
+               "ksw_extend_bd": (launches_bd, err_bd, case_bd)}
+    for name, src, replaces, function, ops in KERNEL_ROWS:
+        n, err, case = results[name]
         if src not in disasm:
             disasm[src] = _run([_cuobjdump(), "-sass",
                                 _build.build_info[src]["so"]])
-        if ops:
-            loop = dict(RECURRENCE_OPS[ops],
-                        ops_from=f"RECURRENCE_OPS[{ops!r}]",
-                        strip_loop=sass_strip_loop(disasm[src], function),
-                        **ptxas_usage(_build.build_info[src]["ptxas"],
-                                      function))
-        else:
-            loop = sass_loops(disasm[src], function)
+        loop = dict(cell_ops(case, ops),
+                    ops_from={k: f"RECURRENCE_OPS[{r!r}]"
+                              for k, r in ops.items()},
+                    strip_loop=sass_strip_loop(disasm[src], function),
+                    **ptxas_usage(_build.build_info[src]["ptxas"],
+                                  function))
         bound_ms, bound_by, parts = bound(case, loop, rates)
-        sass[name] = dict(loop, cells=case["cells"], bytes=case["bytes"],
+        sass[name] = dict(loop, bytes=case["bytes"],
+                          **{k: case[k] for k in ("cells", *ops)},
                           **{k: round(v, 6) for k, v in parts.items()})
         kernels.append({
             "name": name, "route": "cuda",

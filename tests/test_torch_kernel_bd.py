@@ -31,12 +31,13 @@ def _cat(*parts):
 
 @pytest.fixture(scope="module")
 def sets():
-    """Four launches: 16 jobs that each die at a row of their own; the
+    """Five launches: 16 jobs that each die at a row of their own; the
     same beside one of the script's jobs, which survives; 40 mixed jobs
     (make_jobs' SNPs, indels and N codes, one with qlen 0, two with
     tlen <= 0, the script's jobs, dying jobs: N = 40 < max tlen, where
     tdot's row cap bites); 16 jobs on a 252-row tile, where t8-slice's
-    clipped strip and unroll2's extra row show."""
+    clipped strip and unroll2's extra row show; 5 jobs whose frozen trim
+    reads columns above their last live row's end_i."""
     rng = np.random.default_rng(17)
     dying = xb.dying_jobs(rng, 16)
     mixed = _cat(make_jobs(rng, 16, 128, 256), xb.bd_jobs(8),
@@ -47,13 +48,14 @@ def sets():
     return {"dying": dying,
             "dying+survivor": _cat(dying, xb.bd_jobs(1)),
             "mixed": mixed,
-            "clip252": xb.clip_jobs(rng, 16)}
+            "clip252": xb.clip_jobs(rng, 16),
+            "frozen_edge": xb.frozen_edge_jobs(rng, 4)}
 
 
-def _plain(q, t, p, variant):
+def _plain(q, t, p, variant, stats=None):
     return xb.extend_bd_plain(
         *(torch.from_numpy(np.ascontiguousarray(x)) for x in (q, t, p)),
-        variant).numpy()
+        variant, stats=stats).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +114,28 @@ def test_jobs_are_coupled_across_the_launch(sets, jax_bd):
         assert _plain(*one, "baseline").tolist() == alone.tolist()
         differ += alone[0, :4].tolist() != launch[k, :4].tolist()
     assert differ >= 1
+
+
+def test_frozen_rows_read_above_the_last_live_end(sets):
+    """Frozen rows read columns above the end_i of a job's last live
+    row, which the JAX kernel holds at h 0: baseline's frozen trim moves
+    end there on frozen_edge_jobs and on make_jobs (the mixed launch),
+    and the sets reach it under every variant but no-transpose and
+    no-roll (whose last live row leaves h 0 on column end_i); no-trim's
+    window goes there by itself.  All equal the JAX kernel
+    (test_plain_equals_jax_variant)."""
+    reached = set()
+    for name, (q, t, p) in sets.items():
+        for v in xb.VARIANTS:
+            stats = {}
+            _plain(q, t, p, v, stats)
+            assert stats["cells"] == (stats["live_cells"]
+                                      + stats["frozen_cells"])
+            if stats["frozen_above_live_end"]:
+                reached.add((name, v))
+    assert {("frozen_edge", "baseline"), ("mixed", "baseline")} <= reached
+    assert {v for _, v in reached} == set(xb.VARIANTS) - {"no-transpose",
+                                                          "no-roll"}
 
 
 def test_job_sets_do_what_they_say():

@@ -155,16 +155,37 @@ def test_strip_loop_opcodes_count_each_instruction():
 
 
 def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
-    """K1's and K1-floor's rows take their work per cell from
-    RECURRENCE_OPS, so a kernel whose loops keep the row in shared memory
-    bounds all the same; a row that reads its band loop still raises."""
+    """No row of the kernels line reads its band loop in SASS any more:
+    each takes its work per cell from RECURRENCE_OPS, so a kernel whose
+    loops keep the row in shared memory (every kernel since K1-bd's
+    redesign) bounds all the same.  sass_loops, which read the one-thread
+    band loops those constants came from, raises on such a kernel."""
     with pytest.raises(AssertionError, match="no inner band loop"):
         c.sass_loops(WARP_SASS, r"extend_kernelILi0EE")
+    assert {r for *_, ops in c.KERNEL_ROWS
+            for r in ops.values()} <= set(c.RECURRENCE_OPS)
+    names = [row[0] for row in c.KERNEL_ROWS]
+    assert len(names) == len(set(names)) == 5
     rates = {"int32_per_s": 132 * 64 * 1980e6,
              "issue_per_s": 132 * 128 * 1980e6}
-    ms, by, parts = c.bound({"cells": 11_384_096, "bytes": 12_779_520},
-                            c.RECURRENCE_OPS["ksw_extend"], rates)
-    assert by == "operations" and "all_sass_int32_ms" not in parts
+    for *_, ops in c.KERNEL_ROWS:
+        case = {"cells": 11_384_096, "bytes": 12_779_520,
+                "live_cells": 8_384_096, "frozen_cells": 3_000_000}
+        ms, by, parts = c.bound(case, c.cell_ops(case, ops), rates)
+        assert by == "operations"
+
+
+def test_the_bd_row_pins_the_live_pass_baseline():
+    """K1-bd's row reads extend_bd_live<kTable, no N cap, scan, roll,
+    reduce, trim>, the instantiation baseline and unroll2 share, by its
+    mangled name among the live and frozen instantiations."""
+    function = dict((r[0], r[3]) for r in c.KERNEL_ROWS)["ksw_extend_bd"]
+    live = "_ZN12_GLOBAL__N_114extend_bd_liveILi{}ELb{}ELb1ELb1ELb1ELb{}EEEvPKiS2_S2_P4int2Piiiii"
+    frozen = ("_ZN12_GLOBAL__N_116extend_bd_frozenILi0ELi1ELb0ELb1ELb1ELb1"
+              "ELb1EEEvPKiS2_S2_PiPK4int2S2_iiiiii")
+    names = [live.format(0, 0, 1), live.format(1, 0, 1),
+             live.format(0, 1, 1), live.format(0, 0, 0), frozen]
+    assert [n for n in names if re.search(function, n)] == [names[0]]
 
 
 # the band cells of the main shape (make_jobs W 128, tmax 256, N 8,192,
@@ -175,6 +196,7 @@ def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
     ("ksw_extend_real", 12_317_898, 0.009021),
     ("ksw_extend_floor", 7_826_210, 0.005264),
     ("ksw_extend16", 11_504_743, 0.004557),
+    ("ksw_extend_bd", 14_024_874, 0.009223),
 ])
 def test_recurrence_constants_give_the_recorded_bounds(name, cells, want_ms):
     rates = {"int32_per_s": 132 * c.INT32_LANES * 1980e6,
@@ -184,6 +206,30 @@ def test_recurrence_constants_give_the_recorded_bounds(name, cells, want_ms):
     assert by == "operations" and round(ms, 6) == want_ms
     assert ms == parts["int_alu_ms"] > max(parts["issue_ms"],
                                            parts["bytes_ms"])
+
+
+def test_the_bd_row_charges_live_and_frozen_cells_their_own_work():
+    """K1-bd's frozen cells need neither F nor the E update: at the main
+    shape (10,780,357 live and 3,244,517 frozen of 14,024,874 cells) the
+    bound is 0.008641 ms, where every cell at the live constant would
+    give 0.009223; the counts must add up to the cells."""
+    charge = dict((r[0], r[4]) for r in c.KERNEL_ROWS)["ksw_extend_bd"]
+    assert charge == {"live_cells": "ksw_extend_bd",
+                      "frozen_cells": "ksw_extend_bd_frozen"}
+    live, frozen = (c.RECURRENCE_OPS[k] for k in charge.values())
+    assert (live["alu_per_cell"] - frozen["alu_per_cell"]
+            == live["int_per_cell"] - frozen["int_per_cell"] == 3.0)
+    rates = {"int32_per_s": 132 * c.INT32_LANES * 1980e6,
+             "issue_per_s": 132 * c.SCHED_LANES * 1980e6}
+    case = {"cells": 14_024_874, "live_cells": 10_780_357,
+            "frozen_cells": 3_244_517,
+            "bytes": 4 * (8192 * (128 + 256 + 5 + 128))}
+    ms, by, parts = c.bound(case, c.cell_ops(case, charge), rates)
+    assert by == "operations" and round(ms, 6) == 0.008641
+    assert ms == parts["int_alu_ms"] > max(parts["issue_ms"],
+                                           parts["bytes_ms"])
+    with pytest.raises(AssertionError, match="do not add up"):
+        c.cell_ops(dict(case, frozen_cells=0), charge)
 
 
 PTXAS = """
@@ -209,13 +255,13 @@ def test_ptxas_usage_of_one_instantiation():
 
 def test_bound_takes_the_larger_limit():
     rates = {"int32_per_s": 64e12, "issue_per_s": 128e12}
-    loop = {"alu_per_cell": 12.0, "int_per_cell": 14.0, "sass_per_cell": 23.0}
+    loop = {"alu_per_cell": 12.0, "int_per_cell": 14.0}
     case = {"cells": 1e9, "bytes": 1e6}
     ms, by, parts = c.bound(case, loop, rates)
     # ALU ops over the INT32 pipe (0.1875 ms) beat all of them over issue
     assert by == "operations" and ms == pytest.approx(0.1875)
     assert parts["issue_ms"] == pytest.approx(14e9 / 128e12 * 1e3)
-    assert parts["all_sass_int32_ms"] == pytest.approx(23e9 / 64e12 * 1e3)
+    assert set(parts) == {"bytes_ms", "int_alu_ms", "issue_ms"}
     ms, by, _ = c.bound(dict(case, bytes=1e12), loop, rates)
     assert by == "bytes" and ms == pytest.approx(1e12 / c.HBM_BYTES_S * 1e3)
 

@@ -1,9 +1,10 @@
 // A host stand-in for the CUDA device runtime, for tests: enough of it
-// to compile a warp-per-job kernel (csrc/extend.cu or csrc/extend16.cu
-// with TPUBWA_WARP_HOST defined) as plain C++ and run it on a machine
-// with no card, under -fsanitize=address,undefined.
+// to compile a warp-per-job kernel (csrc/extend.cu, csrc/extend16.cu or
+// csrc/extend_bd.cu with TPUBWA_WARP_HOST defined) as plain C++ and run
+// it on a machine with no card, under -fsanitize=address,undefined.
 //
-// A launch runs its blocks and warps one after another.  The 32 lanes
+// A launch runs its blocks and warps one after another, so launches on
+// one stream run in order, and an atomic is a plain read-modify-write.  The 32 lanes
 // of a warp are 32 fibers (ucontext) that run the kernel in lockstep: a
 // lane runs until it reaches a warp operation (__shfl_sync,
 // __shfl_up_sync, __reduce_max_sync, __reduce_min_sync, __ballot_sync,
@@ -52,6 +53,21 @@ constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes,
+                                   cudaStream_t) {
+    std::memset(p, value, bytes);
+    return cudaSuccess;
+}
+inline int atomicMax(int* p, int v) {
+    const int old = *p;
+    *p = old > v ? old : v;
+    return old;
+}
+inline int atomicOr(int* p, int v) {
+    const int old = *p;
+    *p = old | v;
+    return old;
+}
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
     // an H100 block's limit

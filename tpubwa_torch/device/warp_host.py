@@ -1,15 +1,18 @@
-"""csrc/extend.cu's and csrc/extend16.cu's kernels on the host, for tests.
+"""csrc/extend.cu's, csrc/extend16.cu's and csrc/extend_bd.cu's kernels on
+the host, for tests.
 
 The kernel sources compile as plain C++ against ``csrc/warp_host.h``,
 which runs a warp's 32 lanes in lockstep, computes its shuffles,
 reductions and ballots by a loop over the lanes' operands, and has host
-versions of the 16x2 intrinsics.  ``build`` compiles one harness
-(``csrc/extend_host.cpp`` or ``csrc/extend16_host.cpp``) with g++ under
+versions of the 16x2 intrinsics and of the atomics.  ``build`` compiles
+one harness (``csrc/extend_host.cpp``, ``csrc/extend16_host.cpp`` or
+``csrc/extend_bd_host.cpp``) with g++ under
 ``-fsanitize=address,undefined`` into ``build/host`` in the checkout (or
 ``$TPUBWA_TORCH_HOST_BUILD``), keyed by a hash of its sources;
-``extend_host`` (K1 and K1-floor), ``extend_real_host`` (K1-real) and
-``extend16_host`` (K1-i16) run one on a set of jobs, and
-``intrinsics16_host`` runs the host intrinsics alone.  This checks the
+``extend_host`` (K1 and K1-floor), ``extend_real_host`` (K1-real),
+``extend16_host`` (K1-i16) and ``extend_bd_host`` (K1-bd, both passes)
+run one on a set of jobs, and ``intrinsics16_host`` runs the host
+intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
 compiler makes of the source still shows only on a card.
@@ -33,7 +36,9 @@ BUILD = Path(os.environ.get(
 # each harness: its entry and the sources it compiles
 SOURCES = {"extend_host": ("extend_host.cpp", "extend.cu", "warp_host.h"),
            "extend16_host": ("extend16_host.cpp", "extend16.cu",
-                             "warp_host.h")}
+                             "warp_host.h"),
+           "extend_bd_host": ("extend_bd_host.cpp", "extend_bd.cu",
+                              "warp_host.h")}
 FLAGS = ["-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined"]
 # the intrinsics of extend16_host --ops, in its order
@@ -133,6 +138,22 @@ def extend16_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
     head = np.asarray([n, W, t.shape[1], params.shape[1], a, b, o_del, e_del,
                        o_ins, e_ins, zdrop, int(reverse)], np.int32)
     return _exec("extend16_host", (head, q, t, params)).reshape(n, 6)
+
+
+def extend_bd_host(q, t, params, variants, reverse=False):
+    """K1-bd's C entry (``tpubwa_extend_bd``) on the host, both passes:
+    one int32 [N, 128] per index of ``exp_kernel_breakdown.VARIANTS`` in
+    ``variants``, lanes 0-3 from the kernel and lanes 4-127 as it left
+    them (the harness fills them with -77 first).  ``reverse`` runs each
+    warp's lanes 31..0.  Raises RuntimeError with the harness's report
+    if a sanitizer or the lockstep check stops it, or if the entry
+    refuses the launch."""
+    q, t, params = _jobs(q, t, params)
+    n, NL = q.shape
+    head = np.asarray([n, NL, t.shape[1], params.shape[1], int(reverse),
+                       len(variants), *variants], np.int32)
+    got = _exec("extend_bd_host", (head, q, t, params))
+    return list(got.reshape(len(variants), n, 128))
 
 
 def intrinsics16_host(a, b, c):

@@ -119,7 +119,11 @@ def extend_bd_plain(q, t, params, variant="baseline", stats=None):
     beg, end, dead), as ``build_kernel(variant, tmax)`` computes them
     (:54-186), lane for lane, with the launch's coupling.  A ``stats``
     dict gets ``cells``, the band cells of every row the launch runs,
-    of every job, live or not."""
+    of every job, split into ``live_cells`` (the job active) and
+    ``frozen_cells``; and ``frozen_above_live_end``, the frozen cells
+    on columns above the end_i of the job's last live row (the initial
+    row's qlen if it had none), where the JAX kernel's rolled H left h 0
+    and only E decayed."""
     read, step, ncap, scan, roll, reduce, trim = _features(variant)
     check_bd(q, t, params, variant)
     a, b, o_del, e_del, o_ins, e_ins = SCORING
@@ -142,6 +146,7 @@ def extend_bd_plain(q, t, params, variant="baseline", stats=None):
     dead = torch.zeros((N, 1), dtype=torch.bool, device=dev)
     tile_tmax = min(int(tlen.max()), N if ncap else tmax)
     ones = torch.ones((N, 1), dtype=I32, device=dev)
+    live_end = qlen.clone()
 
     def target(i):
         if read == "const":
@@ -158,13 +163,19 @@ def extend_bd_plain(q, t, params, variant="baseline", stats=None):
             act = ~dead & (i < tlen)
             beg_i = torch.maximum(beg, i - ww)
             end_i = torch.minimum(torch.minimum(end, i + ww + 1), qlen)
-            if stats is not None:
-                stats["cells"] = stats.get("cells", 0) + int(
-                    torch.clamp_min(end_i - beg_i, 0).sum())
             tb = target(i)
             isn = (tb > 3) | (qpad > 3)
             prof = torch.where(isn, -1, torch.where(tb == qpad, a, -b))
             in_band = (lane >= beg_i) & (lane < end_i)
+            if stats is not None:
+                cells = torch.clamp_min(end_i - beg_i, 0)
+                above = in_band & ~act & (lane > live_end)
+                for key, x in (("live_cells", cells[act]),
+                               ("frozen_cells", cells[~act]),
+                               ("frozen_above_live_end", above)):
+                    stats[key] = stats.get(key, 0) + int(x.sum())
+                stats["cells"] = stats["live_cells"] + stats["frozen_cells"]
+                live_end = torch.where(act, end_i, live_end)
             M = torch.where(eh_h != 0, eh_h + prof, 0)
             M = torch.where(in_band, M, NEG)
             E = torch.where(in_band, eh_e, NEG)
@@ -204,14 +215,18 @@ def extend_bd_plain(q, t, params, variant="baseline", stats=None):
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (variant, q, t, params, out, eh, aux, n, NL, tmax, pstride,
+    # (variant, q, t, params, out, frozen, aux, n, NL, tmax, pstride,
     #  ostride, device, stream) -> cudaError_t
     "tpubwa_extend_bd": (_CI, [_CI] + [_VP] * 6 + [_CI] * 6 + [_VP]),
 }
-AUX_LAUNCH, AUX_PER_JOB = 3, 6     # csrc/extend_bd.cu's aux layout
+AUX_LAUNCH, AUX_PER_JOB = 3, 5     # csrc/extend_bd.cu's aux layout
 
 
 def _extend_bd_cuda(q, t, params, variant):
+    """The C entry on CUDA tensors: the live pass, then the frozen pass
+    on the row each job hands over (``frozen``, [N, NL] (h, e) pairs,
+    job-major) and ``aux`` (the launch's three counters, then each
+    job's state between the passes)."""
     lib = _build.load("extend_bd", _SIGNATURES)
     N, nl = q.shape
     q = q.contiguous()
@@ -220,16 +235,15 @@ def _extend_bd_cuda(q, t, params, variant):
     out = torch.zeros((N, OUT_LANES), dtype=I32, device=q.device)
     if N == 0:
         return out
-    # (h, e) scratch, job-minor ([NL, N] pairs) as K1's; aux: the
-    # launch's three counters, then each job's state between the passes
-    eh = torch.empty((nl, N, 2), dtype=I32, device=q.device)
+    frozen = torch.empty((N, nl, 2), dtype=I32, device=q.device)
     aux = torch.empty(AUX_LAUNCH + AUX_PER_JOB * N, dtype=I32,
                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.tpubwa_extend_bd(
         VARIANTS.index(variant), q.data_ptr(), t.data_ptr(),
-        params.data_ptr(), out.data_ptr(), eh.data_ptr(), aux.data_ptr(), N,
-        nl, t.shape[1], params.shape[1], OUT_LANES, q.device.index, stream)
+        params.data_ptr(), out.data_ptr(), frozen.data_ptr(),
+        aux.data_ptr(), N, nl, t.shape[1], params.shape[1], OUT_LANES,
+        q.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"extend_bd kernel ({variant}) launch failed: "
                            f"cudaError {rc}")
@@ -314,6 +328,32 @@ def clip_jobs(rng, n, tmax=252):
             t[k, tmax - 1] = c
             w = tmax - 1 - tl
         p[k, :5] = (NL - 1, tl, int(rng.integers(20, 60)), w, 5)
+    return q, t, p
+
+
+def frozen_edge_jobs(rng, n, tmax=TMAX):
+    """n + 1 jobs whose frozen trim reads columns above the end_i of
+    their last live row.  Each of the first n is a perfect match (qlen
+    60-100) under a narrow band (w 2-6) that goes past its tlen T (20-40)
+    still open: lane end_i of its last live row holds the rolled
+    H(T - 1, end_i - 1) > 0, so the frozen trim moves end to end_i + 2
+    and the next frozen row reads column end_i + 1, which the JAX kernel
+    holds at h 0.  h0 (50-90) puts the initial row's ramp, nonzero up to
+    column h0 - 7, above end_i too: a kernel that kept its row lazily
+    and read it there would see that stale h.  The last job, a perfect
+    match with tlen T_max + 6 (T_max the largest T), ends the launch six
+    rows later, while those frozen bands are still open."""
+    q = np.full((n + 1, NL), 4, np.int32)
+    t = np.full((n + 1, tmax), 4, np.int32)
+    p = np.zeros((n + 1, OUT_LANES), np.int32)
+    for k in range(n + 1):
+        ql = int(rng.integers(60, 101))
+        t[k] = rng.integers(0, 4, tmax)
+        q[k, :ql] = t[k, :ql]
+        p[k, :5] = (ql, int(rng.integers(20, 41)), int(rng.integers(50, 91)),
+                    int(rng.integers(2, 7)), 5)
+    p[n, 1] = p[:n, 1].max() + 6
+    p[n, 3] = 100
     return q, t, p
 
 
