@@ -10,8 +10,8 @@ Usage (from the root of a checkout, one CUDA card visible):
 Phases, one output line each (a failing phase raises, exit != 0):
   1. toolchain facts (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build of the CUDA kernels from tpubwa_torch/csrc (nvcc, sm_90a; one
-     nvcc per source, all started together), with ptxas's registers and
-     spills for each;
+     nvcc per source, all four started together), with ptxas's
+     registers and spills for each;
   3. the extension kernel == extend_batch_plain on the card, exactly,
      at the three tile shapes of the main path (W 128, 256, 512) and on
      the strip-edge jobs (long gap runs, row-max ties 32 and 64 columns
@@ -83,17 +83,38 @@ Phases, one output line each (a failing phase raises, exit != 0):
      pairs' SAM equals a run with device="cpu" and one through the
      port's scalar host pipeline; then the four launches of the first
      batch's first wave, each timed alone (the shape the main path
-     gives K1).
+     gives K1).  The native walk serves every SA position: no FM array
+     goes up to the card;
+ 5b. the same index as a user's stock bwa files (save_bwa, its ALT
+     contig in a .alt file, loaded as `mem` loads a prefix), through
+     the port's aligner on cuda on phase 5's 2 x 8,192 pairs: the SA
+     positions come from K-sa (csrc/occ.cu's rank-sampled walk).  Its
+     SAM must equal phase 5's byte for byte; K-sa must launch, the
+     extension kernel K-ext must not.  Reads/s, the SA stage's wall
+     (the GPU bracketed by synchronize), the ranks walked, and the
+     first launch's ranks again: K-sa alone beside its plain version
+     and its bound;
+ 3g. (after 5b, whose index it uses) K-sa and K-ext == their plain
+     versions in every instantiation (marked and rank-sampled walk,
+     backward and forward extension, int32 and int64 ranks) on the
+     3,000-base test genome and on phase 5's 64 Mbp index (2^16
+     random ranks and the edge ranks; intervals from set_intv, then a
+     backward and a forward step), K-sa == the native walk on the
+     marked 64 Mbp index, each 64 Mbp instantiation timed alone in
+     interleaved passes, with the LF steps a rank and a warp; then the
+     extension path driven once with the counts at 0.
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
 HBM bandwidth, whichever is larger.  The instructions per cell are
 constants of the recurrence, RECURRENCE_OPS, so the bound does not move
-with the kernel's design), a JSON line
+with the kernel's design.  The FM-index kernels are bound by bytes
+alone: the distinct 32-byte sectors of the index that the plain
+version's reads touch, with their inputs and outputs), a JSON line
 of the kernels (launches on each kernel's path: K1
-in phase 5, the int16 kernel in the experiment of phase 3b, K1-real in
-that of 3c, K1-floor in that of 3d, K1-bd in that of 3f; errors, times,
-bounds) and, last,
+in phase 5, K-sa in 5b, the int16 kernel in the experiment of phase 3b,
+K1-real in that of 3c, K1-floor in that of 3d, K1-bd in that of 3f,
+K-ext on 3g's extension path; errors, times, bounds) and, last,
 {"ok": true, "device": {...}}.
 
 Everything it builds or caches (kernels, the native host libraries, the
@@ -400,10 +421,11 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from tpubwa_torch.device import _build
     from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ
     from tpubwa_torch.scripts import exp_int16_kernel as x16
     from tpubwa_torch.scripts import exp_kernel_breakdown as xb
     kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES,
-               "extend_bd": xb._SIGNATURES}
+               "extend_bd": xb._SIGNATURES, "occ": occ._SIGNATURES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         futures = [ex.submit(_build.load, name, sigs)
@@ -1604,7 +1626,8 @@ def phase_main_path(torch, np):
     ek.extend_batch.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n_lines = n_mapped = 0
+    n_mapped = 0
+    sam_lines = []
     for batch, lines in process_batches(opt, fmi, iter(batches), 0,
                                         align_fn=aligner):
         for line in lines:
@@ -1612,10 +1635,14 @@ def phase_main_path(torch, np):
             if len(f) < 11:
                 raise AssertionError(f"malformed SAM line: {line[:80]}")
             n_mapped += not int(f[1]) & 4
-        n_lines += len(lines)
+        sam_lines += lines
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ek.extend_batch.launches
+    n_lines = len(sam_lines)
+    # the native walk served every SA position: no FM array went up
+    if aligner.didx._fm is not None:
+        raise AssertionError("phase 5 uploaded the FM arrays")
     n_waves = aligner.extender.n_waves - w0
     n_jobs = aligner.extender.n_jobs - j0
     if launches <= 0:
@@ -1664,10 +1691,356 @@ def phase_main_path(torch, np):
         "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
         "sam_lines": n_lines, "mapped": n_mapped,
         "n_waves": n_waves, "n_jobs": n_jobs,
-        "kernel_launches": launches,
+        "kernel_launches": launches, "fm_arrays_uploaded": False,
         "first_wave_launches": first_wave,
         "cpu_and_scalar_equal_pairs": len(first) // 2}), flush=True)
-    return launches
+    return {"launches": launches, "fmi": fmi, "opt": opt,
+            "batches": batches, "sam": sam_lines,
+            "reads_per_s": n_reads / dt}
+
+
+SECTOR = 32             # bytes of one DRAM sector, the unit of a load
+OCC_ROW = 48            # bytes of an occ row (4 counts + 8 BWT words)
+MARK_ROW = 32           # bytes of a mark row
+
+
+def sectors(index, elem_bytes):
+    """The distinct 32-byte sectors that reading elements ``index``
+    (any order, repeats allowed) of an array of ``elem_bytes``-byte
+    elements touches."""
+    import numpy as np
+    index = np.unique(np.asarray(index, np.int64))
+    if not len(index):
+        return 0
+    first = index * elem_bytes // SECTOR
+    last = (index * elem_bytes + elem_bytes - 1) // SECTOR
+    return len(np.unique(np.concatenate([
+        np.minimum(first + j, last)
+        for j in range(int((last - first).max()) + 1)])))
+
+
+def fm_bytes(io_bytes, reads):
+    """The bytes an FM-index kernel must move: ``io_bytes`` (its inputs
+    and outputs, each once) and the distinct sectors of the index it
+    reads, ``reads`` = [(element indices, element bytes)], plus one
+    sector for L2."""
+    return io_bytes + SECTOR * (1 + sum(sectors(i, e) for i, e in reads))
+
+
+def bytes_bound(case):
+    """(bound_ms, "bytes", parts) of a row bound by bytes alone: the
+    bytes its run must move (``case["bytes"]``) over HBM bandwidth.  The
+    FM-index kernels do a few dozen integer ops for each 48-byte row
+    they read, so their operations are far below their bytes."""
+    t = case["bytes"] / HBM_BYTES_S * 1e3
+    return t, "bytes", {"bytes_ms": t}
+
+
+def walk_case(torch, np, didx, ranks, ms, plain_ms, stats):
+    """A K-sa case: its times, the LF steps a rank and a warp (32
+    consecutive ranks, one warp of the kernel) and the bytes of its
+    walk (from the plain version's reads, ``stats``)."""
+    isz = 8 if didx.idt == torch.int64 else 4
+    steps = stats["steps"].cpu().numpy()
+    pad = np.zeros(-len(steps) % 32, steps.dtype)
+    warp_max = np.concatenate([steps, pad]).reshape(-1, 32).max(1)
+    return {"n": len(ranks), "ms": ms and round(ms, 4),
+            "plain_ms": round(plain_ms, 3),
+            "steps_mean": round(float(steps.mean()), 3),
+            "steps_max": int(steps.max()),
+            "warp_max_steps_mean": round(float(warp_max.mean()), 3),
+            "bytes": fm_bytes(2 * isz * len(ranks), [
+                (stats["occ_rows"].cpu().numpy(), OCC_ROW),
+                (stats["mark_rows"].cpu().numpy(), MARK_ROW),
+                (stats["samples"].cpu().numpy(), isz)])}
+
+
+def extend_case(torch, didx, ik, ms, plain_ms, stats):
+    """A K-ext case: its times and bytes (ik in, [4, 3] out, the occ
+    rows of its two occ4 queries)."""
+    isz = 8 if didx.idt == torch.int64 else 4
+    return {"n": len(ik), "ms": ms and round(ms, 4),
+            "plain_ms": round(plain_ms, 3),
+            "bytes": fm_bytes(15 * isz * len(ik), [
+                (stats["occ_rows"].cpu().numpy(), OCC_ROW)])}
+
+
+def int64_twin(torch, didx):
+    """``didx`` with int64 ranks: the same arrays, the other
+    instantiations of the kernels."""
+    import dataclasses
+    return dataclasses.replace(didx, idt=torch.int64, _fm=None)
+
+
+def held_fm(torch, what, got, want):
+    """Raise unless the kernel's ``got`` equals the plain ``want``
+    exactly; returns (mismatching rows, largest absolute difference),
+    (0, 0)."""
+    diff = (got != want).reshape(len(got), -1).any(1)
+    if bool(diff.any()):
+        k = int(diff.nonzero()[0, 0])
+        raise AssertionError(f"{what}: {int(diff.sum())} rows differ, first "
+                             f"{k}: {got[k].tolist()} vs {want[k].tolist()}")
+    return 0, int((got.long() - want.long()).abs().max()) if len(got) else 0
+
+
+def fm_variants(torch, indexes):
+    """{(marks, "int32" | "int64"): DeviceIndex}: each index of
+    ``indexes`` ({marks: DeviceIndex}, int32 ranks) and its int64 twin,
+    the other instantiations of the kernels."""
+    return {(marks, dt): x if dt == "int32" else int64_twin(torch, x)
+            for marks, x in indexes.items() for dt in ("int32", "int64")}
+
+
+def fm_checks(torch, np, label, variants, rng, n):
+    """Both kernels, every instantiation, == plain on one genome's
+    ``variants`` (fm_variants): ``n`` random ranks and the edge ranks;
+    ``n`` intervals from set_intv, then a backward and a forward
+    extension step (a random base each).  Returns {case: facts}, each
+    with its mismatches (0), its inputs and, for K-sa, its positions."""
+    from tpubwa_torch.device import occ
+    out = {}
+    for (marks, dt), didx in variants.items():
+        tag = f"{label}/{marks}/{dt}"
+        sl = didx.seq_len
+        m = np.arange(0, sl + 2, 128)[:4096]
+        ranks = np.concatenate([
+            [0, 1, didx.primary - 1, didx.primary, didx.primary + 1, sl - 1,
+             sl], m - 1, m, m + 1, rng.integers(0, sl + 1, n)])
+        ranks = ranks[(ranks >= 0) & (ranks <= sl)]
+        r = torch.from_numpy(ranks.astype(didx.np_idt)).to(DEV)
+        got = occ.sa_lookup(didx, r)
+        torch.cuda.synchronize()
+        stats = {}
+        want, plain_ms = timed_once(
+            torch, lambda: occ.sa_lookup_plain(didx, r, stats=stats))
+        bad, err = held_fm(torch, f"{tag} sa_lookup", got, want)
+        case = {"mismatches": bad, "max_abs_err": err, "didx": didx,
+                "ranks": r, "got": got}
+        case.update(walk_case(torch, np, didx, ranks, None, plain_ms,
+                              stats))
+        out[f"{tag}/sa_lookup"] = case
+        ik = occ.set_intv(didx, torch.from_numpy(
+            rng.integers(0, 4, n)).to(DEV))
+        for is_back in (True, False):
+            got = occ.bwt_extend(didx, ik, is_back)
+            torch.cuda.synchronize()
+            stats = {}
+            want, plain_ms = timed_once(torch, lambda: occ.bwt_extend_plain(
+                didx, ik, is_back, stats=stats))
+            step = "back" if is_back else "fwd"
+            bad, err = held_fm(torch, f"{tag} bwt_extend {step}", got, want)
+            case = {"mismatches": bad, "max_abs_err": err, "didx": didx,
+                    "ik": ik, "is_back": is_back}
+            case.update(extend_case(torch, didx, ik, None, plain_ms,
+                                    stats))
+            out[f"{tag}/bwt_extend_{step}"] = case
+            ik = got[torch.arange(n, device=DEV), torch.from_numpy(
+                rng.integers(0, 4, n)).to(DEV)].contiguous()
+    return out
+
+
+def small_index(tmp):
+    """tests/test_torch_occ.py's genome (3,000 random bases, seed 11),
+    marked, and its save_bwa/load_bwa round trip (no marks)."""
+    import numpy as np
+    from tpubwa_torch.index import FMIndex
+    from tpubwa_torch.index.build import BntSeq, SeqAnn
+    codes = np.random.default_rng(11).integers(0, 4, 3000).astype(np.uint8)
+    fmi = FMIndex.build(BntSeq(l_pac=3000, anns=[SeqAnn(
+        name="g", anno="", offset=0, length=3000, n_ambs=0)], ambs=[],
+        seed=11, codes=codes))
+    fmi.save_bwa(os.path.join(tmp, "g"))
+    return fmi, FMIndex.load_bwa(os.path.join(tmp, "g"))
+
+
+def phase_occ(torch, np, fmi, stock):
+    """[3g occ]: K-sa and K-ext == plain in every instantiation on the
+    small genome and on phase 5's 64 Mbp index (marked, and its stock-bwa
+    round trip ``stock``, 5b's), K-sa == the native walk on the marked
+    one, each kernel timed in interleaved passes; then the extension
+    path (set_intv, a backward and a forward step) driven once with the
+    counts at 0.  Returns (the bwt_extend row's case, its launches, the
+    largest K-sa difference from plain)."""
+    import tempfile
+    from tpubwa_torch.device import occ
+    from tpubwa_torch.device.occ import DeviceIndex
+    from tpubwa_torch.host.native_smem import sa_positions_native
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    rng = np.random.default_rng(0x0CC)
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        sm, sm_bwa = small_index(d)
+    cases = fm_checks(torch, np, "3 kb", fm_variants(torch, {
+        "marked": DeviceIndex.from_fmindex(sm, DEV),
+        "unmarked": DeviceIndex.from_fmindex(sm_bwa, DEV)}), rng, 4096)
+    big = {"marked": DeviceIndex.from_fmindex(fmi, DEV),
+           "unmarked": DeviceIndex.from_fmindex(stock, DEV)}
+    cases.update(fm_checks(torch, np, f"{GENOME_MB} Mbp",
+                           fm_variants(torch, big), rng, 1 << 16))
+    # the marked 64 Mbp walk against the native one, rank by rank
+    case = cases[f"{GENOME_MB} Mbp/marked/int32/sa_lookup"]
+    ranks = case["ranks"].cpu().numpy().astype(np.int64)
+    flat = np.zeros((len(ranks), 5), np.int64)
+    flat[:, 0], flat[:, 2] = ranks, 1
+    nat = sa_positions_native(fmi, flat, 1)
+    if nat is None:
+        raise AssertionError("the native walk is unavailable")
+    native_mismatches = int((case["got"].cpu().numpy() != nat[0]).sum())
+    if native_mismatches:
+        raise AssertionError(f"K-sa != the native walk on "
+                             f"{native_mismatches} ranks")
+    # times: every 64 Mbp instantiation, alone, in interleaved passes
+    fns = {}
+    for key, c in cases.items():
+        if not key.startswith(f"{GENOME_MB} Mbp"):
+            continue
+        if "ranks" in c:
+            fns[key] = (lambda x, r: lambda: occ.sa_lookup(x, r))(
+                c["didx"], c["ranks"])
+        else:
+            fns[key] = (lambda x, ik, b: lambda: occ.bwt_extend(x, ik, b))(
+                c["didx"], c["ik"], c["is_back"])
+    for key, ms in interleaved_min(fns, 20, 4, torch.device(DEV)).items():
+        cases[key]["ms"] = round(ms, 4)
+    # the extension path, its launches counted: set_intv, then a
+    # backward and a forward step, each on a random base of the last
+    didx = big["marked"]
+    pick = [torch.from_numpy(rng.integers(0, 4, 1 << 16)).to(DEV)
+            for _ in range(3)]
+    occ.sa_lookup.launches = occ.bwt_extend.launches = 0
+    ik = occ.set_intv(didx, pick[0])
+    for is_back, c in ((True, pick[1]), (False, pick[2])):
+        ik = occ.bwt_extend(didx, ik, is_back)[
+            torch.arange(len(c), device=DEV), c].contiguous()
+    torch.cuda.synchronize()
+    ext_launches = occ.bwt_extend.launches
+    if ext_launches != 2 or occ.sa_lookup.launches:
+        raise AssertionError(f"the extension path launched "
+                             f"{ext_launches} extensions")
+    shown = {k: {f: v for f, v in c.items()
+                 if f not in ("didx", "ranks", "got", "ik", "is_back")}
+             for k, c in cases.items()}
+    print("[3g occ] " + json.dumps({
+        "tolerance": 0, "cases": shown,
+        "native_walk": {"ranks": len(ranks), "mismatches": native_mismatches},
+        "extension_path_launches": ext_launches}), flush=True)
+    row = cases[f"{GENOME_MB} Mbp/marked/int32/bwt_extend_fwd"]
+    err = {name: max(c["max_abs_err"] for k, c in cases.items()
+                     if name in k) for name in ("sa_lookup", "bwt_extend")}
+    return dict(row, max_abs_err=err["bwt_extend"]), ext_launches, \
+        err["sa_lookup"]
+
+
+def phase_stock_bwa(torch, np, main):
+    """[5b stock-bwa]: phase 5's index written as stock bwa files (its
+    ALT contig in a .alt file, as bwa.kit lists them) and loaded back as
+    `mem` loads a prefix (cli.load_index: no text-position marks), then
+    phase 5's 2 x 8,192
+    pairs through the port's aligner on cuda: the SA positions come
+    from K-sa.  Its SAM must equal phase 5's byte for byte.  Returns
+    (the stock index, the sa_lookup row's case, K-sa's launches)."""
+    import tempfile
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ
+    from tpubwa_torch.device import pipeline as dp
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.cli import load_index
+    from tpubwa_torch.sim import simulate_pe
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        prefix = os.path.join(d, "stock")
+        t0 = time.perf_counter()
+        fmi.save_bwa(prefix)
+        # the ALT contigs as bwa.kit lists them: stock files carry none
+        with open(prefix + ".alt", "w") as fh:
+            fh.writelines(f"{a.name}\n" for a in fmi.bnt.anns if a.is_alt)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stock = load_index(prefix)
+        index_s = time.perf_counter() - t0
+    if stock.sa_mark_D:
+        raise AssertionError("a stock-bwa index came back with marks")
+    aligner = dp.make_device_aligner(opt, stock, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aligner.didx.upload_fm()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    warm = simulate_pe(stock.bnt, 1024, 100, np.random.default_rng(2))
+    for _ in process_batches(opt, stock, iter([warm]), 0, align_fn=aligner):
+        pass
+    sa = {"s": 0.0, "ranks": 0}
+    sa_positions = aligner._sa_positions
+
+    def timed_sa(intv):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sa_positions(intv)
+        torch.cuda.synchronize()
+        sa["s"] += time.perf_counter() - t
+        sa["ranks"] += len(out[0])
+        return out
+
+    seen = []
+
+    def keep(didx, ranks):
+        if not seen:
+            seen.append(ranks)
+        return lookup(didx, ranks)
+
+    aligner._sa_positions = timed_sa
+    lookup, dp.sa_lookup = dp.sa_lookup, keep
+    try:
+        occ.sa_lookup.launches = occ.bwt_extend.launches = 0
+        ek.extend_batch.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = [l for _, ls in process_batches(
+            opt, stock, iter(batches), 0, align_fn=aligner) for l in ls]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = occ.sa_lookup.launches
+        ext_launches = occ.bwt_extend.launches
+        k1_launches = ek.extend_batch.launches
+    finally:
+        dp.sa_lookup = lookup
+    if launches <= 0:
+        raise AssertionError("5b never launched the SA walk")
+    if ext_launches:
+        raise AssertionError(f"5b launched the extension {ext_launches} "
+                             "times (it is not on mem)")
+    if lines != main["sam"]:
+        bad = next(i for i, (a, b) in enumerate(zip(lines, main["sam"]))
+                   if a != b) if len(lines) == len(main["sam"]) else -1
+        raise AssertionError(f"5b SAM != phase 5's ({len(lines)} vs "
+                             f"{len(main['sam'])} lines, first diff {bad})")
+    # the first launch's ranks again: K-sa alone in interleaved passes,
+    # the plain version, the bytes of the walk
+    didx, ranks = aligner.didx, seen[0]
+    got = occ.sa_lookup(didx, ranks)
+    stats = {}
+    want, plain_ms = timed_once(
+        torch, lambda: occ.sa_lookup_plain(didx, ranks, stats=stats))
+    _, err = held_fm(torch, "5b's K-sa launch", got, want)
+    ms = interleaved_min({"k": lambda: occ.sa_lookup(didx, ranks)}, 20, 4,
+                         torch.device(DEV))["k"]
+    case = walk_case(torch, np, didx, ranks.cpu().numpy(), ms, plain_ms,
+                     stats)
+    case.update(bound_ms=round(bytes_bound(case)[0], 6), max_abs_err=err)
+    n_reads = sum(len(b) for b in batches)
+    print("[5b stock-bwa] " + json.dumps({
+        "index": "phase 5's, save_bwa + .alt, cli.load_index (no "
+                 ".tpubwa.npz)",
+        "save_s": round(save_s, 3), "index_s": round(index_s, 3),
+        "fm_upload_s": round(upload_s, 3), "reads": n_reads,
+        "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
+        "phase5_reads_per_s": round(main["reads_per_s"], 1),
+        "sam_lines": len(lines), "sam_equal_to_phase5": True,
+        "sa_stage_s": round(sa["s"], 3), "ranks_walked": sa["ranks"],
+        "sa_lookup_launches": launches, "bwt_extend_launches": ext_launches,
+        "k1_launches": k1_launches, "sa_launch": case}), flush=True)
+    return stock, case, launches
 
 
 def main() -> int:
@@ -1687,7 +2060,12 @@ def main() -> int:
     phase_sanitizer()
     case_bd, err_bd, launches_bd = phase_kernel_bd(torch, np)
     phase_golden(torch)
-    launches = phase_main_path(torch, np)
+    main_path = phase_main_path(torch, np)
+    launches = main_path["launches"]
+    stock, sa_case, sa_launches = phase_stock_bwa(torch, np, main_path)
+    ext_case, ext_launches, sa_err = phase_occ(torch, np, main_path["fmi"],
+                                               stock)
+    sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
     if bad:
@@ -1721,6 +2099,22 @@ def main() -> int:
             "launches": n, "max_abs_err": err, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})
+    # the FM-index rows: bound by bytes alone (the distinct sectors of
+    # the index their run reads, from the plain version's reads)
+    for name, replaces, n, case in (
+            ("sa_lookup", "tpubwa/device/occ.py:303", sa_launches, sa_case),
+            ("bwt_extend", "tpubwa/device/occ.py:202", ext_launches,
+             ext_case)):
+        bound_ms, bound_by, parts = bytes_bound(case)
+        sass[name] = dict(bytes=case["bytes"], n=case["n"],
+                          **{k: round(v, 6) for k, v in parts.items()})
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tpubwa_torch/csrc/occ.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+            "library_ms": None})
     print("[bounds] " + json.dumps({"card": rates, "hbm_bytes_s":
                                     HBM_BYTES_S, "kernels": sass}),
           flush=True)

@@ -79,3 +79,25 @@ def test_kernels_build_concurrently(fake_toolchain, monkeypatch):
         assert not t.is_alive()
     assert peak[0] == 2
     assert set(_build.build_info) == {"k1", "k2"}
+
+
+def test_an_included_header_keys_the_library(fake_toolchain):
+    """A library is keyed by the headers of csrc/ its source includes,
+    directly or through another header: an edit to one builds anew."""
+    csrc = fake_toolchain / "csrc"
+    (csrc / "k1.cu").write_text('#include "a.cuh"\n#include <cstdint>\n')
+    (csrc / "a.cuh").write_text('#pragma once\n  #  include "b.h"\n')
+    (csrc / "b.h").write_text("// b\n")
+    assert [p.name for p in _build._sources(csrc / "k1.cu")] == [
+        "k1.cu", "a.cuh", "b.h"]
+    first = _build._compile("k1")
+    assert _build._compile("k1") == first
+    for header in ("b.h", "a.cuh"):
+        path = csrc / header
+        path.write_text(path.read_text() + "// edited\n")
+        again = _build._compile("k1")
+        assert again != first and again.exists()
+        first = again
+    # a file the source does not include changes nothing
+    (csrc / "k2.cu").write_text("// other\n")
+    assert _build._compile("k1") == first

@@ -46,8 +46,11 @@ def setup(fasta):
     fmi = FMIndex.from_fasta(fasta)
     jdidx = JaxDeviceIndex.from_fmindex(fmi)
     tdidx = DeviceIndex.from_numpy({
-        "pac_words": np.asarray(jdidx.pac_words), "l_pac": jdidx.l_pac,
-        "seq_len": jdidx.seq_len}, device="cpu")
+        **{k: np.asarray(getattr(jdidx, k)) for k in (
+            "pac_words", "occ_blocks", "sa_sample", "L2", "mark_rows",
+            "sa_marked")},
+        **{k: getattr(jdidx, k) for k in (
+            "l_pac", "seq_len", "primary", "mark_D")}}, device="cpu")
     return fmi, jdidx, tdidx
 
 
@@ -72,8 +75,9 @@ def test_from_numpy_equals_from_fmindex(setup, fasta):
     assert (tfmi.bnt.l_pac, tfmi.seq_len) == (fmi.bnt.l_pac, fmi.seq_len)
     direct = DeviceIndex.from_fmindex(tfmi, "cpu")
     assert torch.equal(direct.pac_words, tdidx.pac_words)
-    assert (direct.l_pac, direct.seq_len) == (tdidx.l_pac, tdidx.seq_len)
-    assert tdidx.np_idt == jdidx.np_idt
+    assert (direct.l_pac, direct.seq_len, direct.primary, direct.mark_D) == (
+        tdidx.l_pac, tdidx.seq_len, tdidx.primary, tdidx.mark_D)
+    assert tdidx.np_idt == jdidx.np_idt == direct.np_idt
     # the int32 bit patterns are the uint32 words
     assert (tdidx.pac_words.numpy().view(np.uint32).tolist()
             == np.asarray(jdidx.pac_words).tolist())

@@ -86,7 +86,11 @@ def test_default_device_raises_without_a_card(golden_index, monkeypatch):
 
 def test_device_index_from_numpy_defaults_to_cuda():
     arrays = {"pac_words": np.zeros(4, np.uint32), "l_pac": 8,
-              "seq_len": 17}
+              "seq_len": 17, "primary": 3, "mark_D": 0,
+              "occ_blocks": np.zeros((1, 12), np.uint32),
+              "mark_rows": np.zeros((1, 8), np.uint32),
+              "sa_sample": np.zeros(1, np.int32),
+              "L2": np.zeros(5, np.int32), "sa_marked": np.zeros(1, np.int32)}
     assert DeviceIndex.from_numpy(arrays, device="cpu").device.type == "cpu"
     if not torch.cuda.is_available():
         # this torch build has no CUDA: the default device cannot be had

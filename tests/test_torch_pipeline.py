@@ -81,12 +81,33 @@ def _flat(regs):
     return (regs.cnt.tolist(), regs.iv.tolist(), regs.fr.tolist())
 
 
-@pytest.mark.parametrize("paired,chunk_reads", [
-    (False, None), (True, None), (True, 16)])
-def test_regions_equal_jax_aligner(setup, paired, chunk_reads):
+@pytest.fixture(scope="module")
+def stock_setup(setup, tmp_path_factory):
+    """setup's index written as stock bwa files (save_bwa into a fresh
+    prefix, no .tpubwa.npz) and loaded by both packages: no
+    text-position marks, so the SA walk is the rank-sampled one."""
+    codes, fmi, _ = setup
+    prefix = str(tmp_path_factory.mktemp("tstock") / "ref")
+    fmi.save_bwa(prefix)
+    sfmi, sjfmi = (FMIndex.load_bwa(prefix),
+                   tpubwa.index.FMIndex.load_bwa(prefix))
+    assert_same_index(sfmi, sjfmi)
+    assert not sfmi.sa_mark_D and not sjfmi.sa_mark_D
+    return codes, sfmi, sjfmi
+
+
+@pytest.mark.parametrize("index,paired,chunk_reads", [
+    pytest.param("npz", False, None, id="False-None"),
+    pytest.param("npz", True, None, id="True-None"),
+    pytest.param("npz", True, 16, id="True-16"),
+    pytest.param("bwa", False, None, id="bwa-False-None"),
+    pytest.param("bwa", True, 16, id="bwa-True-16")])
+def test_regions_equal_jax_aligner(setup, stock_setup, index, paired,
+                                   chunk_reads):
     """chunk_reads=16 splits the batch into chunks: the seeding of chunk
-    i+1 overlaps the planning of chunk i."""
-    codes, fmi, jfmi = setup
+    i+1 overlaps the planning of chunk i.  On the stock-bwa index the SA
+    positions come from occ.sa_lookup, tpubwa's from its device walk."""
+    codes, fmi, jfmi = setup if index == "npz" else stock_setup
     rng = np.random.default_rng(8 + paired)
     if paired:
         pairs = simulate_pairs(codes, 24, 100, rng, snp_rate=0.02)
@@ -108,6 +129,8 @@ def test_regions_equal_jax_aligner(setup, paired, chunk_reads):
     want = jax_aligner(jopt, jfmi, platform="cpu")(jreads)
     assert _flat(got) == _flat(want)
     assert port.extender.n_waves > 0 and port.extender.n_jobs > 0
+    # the FM arrays were read only where the native walk had no marks
+    assert (port.didx._fm is None) == (index == "npz")
 
 
 def test_oversize_reads_take_the_scalar_path(setup):
@@ -178,19 +201,33 @@ def _sam(main, argv):
             if not l.startswith("@PG")]
 
 
+@pytest.fixture(scope="module")
+def golden_bwa_index(golden_index, tmp_path_factory):
+    """The golden index as stock bwa files in a fresh prefix (save_bwa,
+    no .tpubwa.npz): `mem` loads it through FMIndex.load_bwa."""
+    prefix = str(tmp_path_factory.mktemp("tgoldbwa") / "g")
+    FMIndex.load(golden_index).save_bwa(prefix)
+    assert not os.path.exists(prefix + ".tpubwa.npz")
+    return prefix
+
+
 @pytest.mark.parametrize("index,paired,port_opts", [
     ("alt", False, []), ("alt", True, []),
-    ("golden", False, ["-t", "4"]), ("golden", True, ["-t", "4"])])
-def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index, index,
-                                          paired, port_opts):
+    ("golden", False, ["-t", "4"]), ("golden", True, ["-t", "4"]),
+    ("golden-bwa", False, []), ("golden-bwa", True, [])])
+def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index,
+                                          golden_bwa_index, index, paired,
+                                          port_opts):
     """The port's `mem --device cpu` against tpubwa's scalar pipeline
-    (`-t 1`): on an index with ALT contigs, and with 4 host threads."""
+    (`-t 1`): on an index with ALT contigs, with 4 host threads, and on
+    a stock-bwa index (the SA walk of occ.sa_lookup), where it must also
+    equal the port's run on the npz index."""
     if index == "alt":
         prefix, d = alt_index
         fqs = ["pe1.fq", "pe2.fq"] if paired else ["se.fq"]
         fqs = [str(d / f) for f in fqs]
     else:
-        prefix = golden_index
+        prefix = golden_bwa_index if index == "golden-bwa" else golden_index
         fqs = [os.path.join(GOLD, f) for f in (
             ["pe1.fq", "pe2.fq"] if paired else ["se.fq"])]
     want = _sam(tpubwa_main_mem, ["--device", "scalar", prefix] + fqs)
@@ -200,6 +237,9 @@ def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index, index,
     if index == "alt":
         assert any(l.startswith("@SQ") and l.endswith("AH:*")
                    for l in got)
+    if index == "golden-bwa":
+        assert got == _sam(main_mem, ["--device", "cpu", golden_index]
+                           + fqs)
 
 
 def test_no_jax_import():
@@ -234,11 +274,11 @@ def test_missing_paths_raise_not_implemented(setup, monkeypatch):
     reads, _ = _reads([("r", "".join("ACGT"[c] for c in codes[300:400]))])
     aligner = tp.make_device_aligner(MemOpt(), fmi, device="cpu")
     arr, lens = aligner._pack(reads, 32)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match=r"\[seeding\]"):
         collect_intv_device(MemOpt(), aligner.didx, arr, lens, fmi,
                             mode="megaq")
     monkeypatch.setenv("TPUBWA_NO_NATIVE_PLAN", "1")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match=r"\[waves\]"):
         aligner(reads)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match=r"\[dist\]"):
         main_mem(["--dist", "-o", "x.sam", "p", "r.fq"])

@@ -289,3 +289,31 @@ def test_sass_loops_pins_one_template_instantiation(pattern, alu):
 def test_sass_loops_bare_name_of_a_template_raises():
     with pytest.raises(AssertionError, match="2 functions match"):
         c.sass_loops(_two_instantiations(), r"extend_kernel")
+
+
+def test_sectors_count_each_touched_sector_once():
+    """By hand: 48-byte occ rows 0, 1, 1 and 2 lie in bytes [0, 48),
+    [48, 96) and [96, 144): sectors {0, 1}, {1, 2} and {3, 4}, five in
+    all; 32-byte rows are one sector each; 4-byte values 0-7 share
+    sector 0 and value 8 starts sector 1."""
+    assert c.sectors([0, 1, 1, 2], 48) == 5
+    assert c.sectors([2, 1, 0, 1], 48) == 5         # order is no matter
+    assert c.sectors([5, 5, 9], 32) == 2
+    assert c.sectors(range(8), 4) == 1 and c.sectors(range(9), 4) == 2
+    assert c.sectors([], 48) == 0
+
+
+def test_the_fm_rows_are_bound_by_their_bytes_alone():
+    """A K-sa launch of 3 int32 ranks that took LF steps on occ rows 0,
+    1, 1 and 2 (five sectors), tested marks on mark rows 0 and 0 (one)
+    and read sa_marked[3] and [40] (two): 2 x 3 x 4 bytes of ranks and
+    positions, and 32 bytes a sector for those 8 and for L2."""
+    nbytes = c.fm_bytes(2 * 3 * 4, [([0, 1, 1, 2], c.OCC_ROW),
+                                    ([0, 0], c.MARK_ROW), ([3, 40], 4)])
+    assert nbytes == 24 + 32 * (5 + 1 + 2 + 1)
+    ms, by, parts = c.bytes_bound({"bytes": nbytes})
+    assert by == "bytes" and ms == parts["bytes_ms"]
+    assert ms == pytest.approx(312 / c.HBM_BYTES_S * 1e3)
+    # a row with no band cells takes no part of the cells' bound
+    with pytest.raises(KeyError):
+        c.bound({"bytes": nbytes}, c.RECURRENCE_OPS["ksw_extend"], {})

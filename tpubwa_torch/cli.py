@@ -160,7 +160,7 @@ def _add_mem_opts(ap: argparse.ArgumentParser) -> None:
                          "record-range shards (manual multi-host mode)")
     ap.add_argument("--dist", action="store_true",
                     help="multi-host runs (not ported yet: ROADMAP "
-                         "Queue 1 item 7)")
+                         "Queue 1 [dist])")
     ap.add_argument("--journal", default=None,
                     help="checkpoint journal for resumable runs "
                          "(requires -o)")
@@ -288,10 +288,10 @@ def main_mem(argv, out=None) -> int:
     args = ap.parse_args(argv)
     if args.dist:
         raise NotImplementedError("--dist needs multi-GPU support "
-                                  "(ROADMAP Queue 1 item 7)")
+                                  "(ROADMAP Queue 1 [dist])")
     if args.shard:
         raise NotImplementedError("--shard needs the record sharding of "
-                                  "tpubwa.dist (ROADMAP Queue 1 item 7)")
+                                  "tpubwa.dist (ROADMAP Queue 1 [shard])")
     # no fallback: a device that cannot be had raises before any work
     from .device.pipeline import make_device_aligner, resolve_device
     device = resolve_device(args.device)

@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point.  It is compiled
 with nvcc for Hopper (sm_90a) into a shared library keyed by a hash of
-its source and flags, the way tpubwa/native builds its C++, and loaded
+its source, the headers of ``csrc/`` it includes and the flags, the way tpubwa/native builds its C++, and loaded
 with ctypes.  Nothing here runs at import time: the CPU-only test
 environment imports every module and has no nvcc.
 
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,9 +52,31 @@ def _nvcc() -> str:
                        "toolkit (PATH or /usr/local/cuda/bin)")
 
 
+def _sources(src: Path) -> list:
+    """``src`` and every file of its directory that it includes with
+    ``#include "..."``, directly or through another, in the order
+    first reached."""
+    found, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in found or not path.exists():
+            continue
+        found.append(path)
+        todo += [path.parent / m for m in re.findall(
+            r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M)]
+    return found
+
+
+def _key(name: str) -> bytes:
+    """What a library of ``csrc/<name>.cu`` is keyed by: its source, the
+    headers it includes (an edit to one builds anew) and the flags."""
+    return (b"".join(p.read_bytes() for p in _sources(CSRC / f"{name}.cu"))
+            + " ".join(NVCC_FLAGS).encode())
+
+
 def _compile(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    key = _key(name)
     so = BUILD / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
     report = so.with_suffix(".ptxas.txt")
     info = {"so": str(so), "seconds": 0.0, "ptxas": ""}

@@ -3,7 +3,10 @@ tpubwa/device/pipeline.py in its host-seeding configuration.
 
 Stage plan per chunk of reads:
   A. SMEM seeding on the host      (native C++, device/smem.py)
-  B. SA positions on the host      (native bounded SA walk)
+  B. SA positions                  (native bounded SA walk on the host
+                                    over an index with text-position
+                                    marks; else the SA walk on the
+                                    device, occ.sa_lookup)
   C. chaining + extension planning (native planner,
                                     host/native_emit.py:plan_batch_native)
   D. extension waves on the device (extend_fused.extend_seed_desc_np:
@@ -34,7 +37,7 @@ from ..opts import MemOpt
 from ..utils import serial_pipeline
 from .extend_fused import extend_seed_desc_np
 from .extend_kernel import LANES, _mat_ab
-from .occ import DeviceIndex
+from .occ import DeviceIndex, sa_lookup
 from .smem import collect_intv_device
 
 
@@ -72,7 +75,7 @@ class DeviceAligner:
             raise NotImplementedError(
                 "a scoring matrix that is not bwa_fill_scmat-structured "
                 "needs the Python planner and WaveExtender (ROADMAP "
-                "Queue 1 item 6)")
+                "Queue 1 [waves])")
         self.device = resolve_device(device)
         self.didx = DeviceIndex.from_fmindex(fmi, self.device)
         self.extender = ExtendStats()
@@ -102,8 +105,11 @@ class DeviceAligner:
 
     def _sa_positions(self, intv):
         """bwa's per-interval subsampling (step = occ/max_occ, at most
-        max_occ samples) through the native marked-SA walk.  Returns
-        flat (pos, cnt) in (read, interval-row) order."""
+        max_occ samples) and the SA walk: the native marked walk on the
+        host over an index with text-position marks, else
+        ``occ.sa_lookup`` on the device (a stock-bwa index: the
+        rank-sampled walk), the ranks uploaded once.  Returns flat
+        (pos int64, cnt int64) in (read, interval-row) order."""
         flat, _counts = intv
         if not len(flat):
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
@@ -112,12 +118,20 @@ class DeviceAligner:
                     np.zeros(len(flat), np.int64))
         nat = sa_positions_native(self.fmi, flat, self.opt.max_occ,
                                   threads=self.opt.n_threads)
-        if nat is None:
-            raise NotImplementedError(
-                "SA positions need the native walk over a tpubwa index "
-                "with text-position marks; the device SA lookup is "
-                "ROADMAP Queue 1 item 4")
-        return nat
+        if nat is not None:
+            return nat
+        size = flat[:, 2]
+        step = np.where(size > self.opt.max_occ, size // self.opt.max_occ, 1)
+        cnt = np.minimum((size + step - 1) // step, self.opt.max_occ)
+        ends = np.cumsum(cnt)
+        n = int(ends[-1])
+        if n == 0:
+            return np.zeros(0, np.int64), cnt
+        k = np.arange(n, dtype=np.int64) - np.repeat(ends - cnt, cnt)
+        ranks = np.repeat(flat[:, 0], cnt) + k * np.repeat(step, cnt)
+        pos = sa_lookup(self.didx, torch.from_numpy(ranks.astype(
+            self.didx.np_idt)).to(self.device))
+        return pos.cpu().numpy().astype(np.int64), cnt
 
     # -------------------------------------------------------------
     def _seed_chunk(self, chunk: Sequence[Read]):
@@ -152,7 +166,7 @@ class DeviceAligner:
             raise NotImplementedError(
                 "the native planner is unavailable (TPUBWA_NO_NATIVE_PLAN "
                 "or no tpubwa_torch/native build); the Python planner with "
-                "WaveExtender is ROADMAP Queue 1 item 6")
+                "WaveExtender is ROADMAP Queue 1 [waves]")
         regs_flat, n_waves, n_jobs = planned
         ext.n_waves += n_waves
         ext.n_jobs += n_jobs

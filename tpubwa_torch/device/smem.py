@@ -5,7 +5,7 @@ This slice has mode ``host`` only: the native C++ seeder
 (tpubwa_torch/host/native_smem.py) runs the full 3-round mem_collect_intv
 protocol on the host, and the chunk's reads go up to the device once
 for the descriptor extension.  The GPU seeding machine (modes
-``megaq``/``hybrid``) is ROADMAP Queue 1 item 5.
+``megaq``/``hybrid``) is ROADMAP Queue 1 [seeding].
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from ..host.native_smem import smem_collect_batch_native
 
 _GPU_SEEDING = ("seed mode {!r} needs the GPU seeding machine "
-                "(ROADMAP Queue 1 item 5); tpubwa_torch seeds in mode "
+                "(ROADMAP Queue 1 [seeding]); tpubwa_torch seeds in mode "
                 "'host' only")
 
 
@@ -44,5 +44,5 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
             "the native seeder (tpubwa_torch/native/smem.cpp) is "
             "unavailable; "
             "seeding without it needs the GPU seeding machine (ROADMAP "
-            "Queue 1 item 5)")
+            "Queue 1 [seeding])")
     return _package_rows(rows6[:, :5], rows6[:, 5], reads, didx.device)

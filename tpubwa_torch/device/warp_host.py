@@ -1,18 +1,18 @@
-"""csrc/extend.cu's, csrc/extend16.cu's and csrc/extend_bd.cu's kernels on
-the host, for tests.
+"""csrc/extend.cu's, csrc/extend16.cu's, csrc/extend_bd.cu's and
+csrc/occ.cu's kernels on the host, for tests.
 
 The kernel sources compile as plain C++ against ``csrc/warp_host.h``,
 which runs a warp's 32 lanes in lockstep, computes its shuffles,
 reductions and ballots by a loop over the lanes' operands, and has host
 versions of the 16x2 intrinsics and of the atomics.  ``build`` compiles
-one harness (``csrc/extend_host.cpp``, ``csrc/extend16_host.cpp`` or
-``csrc/extend_bd_host.cpp``) with g++ under
+one harness (``csrc/extend_host.cpp``, ``csrc/extend16_host.cpp``,
+``csrc/extend_bd_host.cpp`` or ``csrc/occ_host.cpp``) with g++ under
 ``-fsanitize=address,undefined`` into ``build/host`` in the checkout (or
 ``$TPUBWA_TORCH_HOST_BUILD``), keyed by a hash of its sources;
 ``extend_host`` (K1 and K1-floor), ``extend_real_host`` (K1-real),
-``extend16_host`` (K1-i16) and ``extend_bd_host`` (K1-bd, both passes)
-run one on a set of jobs, and ``intrinsics16_host`` runs the host
-intrinsics alone.  This checks the
+``extend16_host`` (K1-i16), ``extend_bd_host`` (K1-bd, both passes) and
+``occ_host`` (K-sa and K-ext) run one on a set of jobs, and
+``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
 compiler makes of the source still shows only on a card.
@@ -38,7 +38,8 @@ SOURCES = {"extend_host": ("extend_host.cpp", "extend.cu", "warp_host.h"),
            "extend16_host": ("extend16_host.cpp", "extend16.cu",
                              "warp_host.h"),
            "extend_bd_host": ("extend_bd_host.cpp", "extend_bd.cu",
-                              "warp_host.h")}
+                              "warp_host.h"),
+           "occ_host": ("occ_host.cpp", "occ.cu", "fm.cuh", "warp_host.h")}
 FLAGS = ["-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined"]
 # the intrinsics of extend16_host --ops, in its order
@@ -69,10 +70,10 @@ def build(name: str = "extend_host") -> Path:
     return exe
 
 
-def _exec(name, arrays, args=()):
+def _exec(name, arrays, args=(), dtype=np.int32):
     """Run harness ``name`` on the concatenated bytes of ``arrays``;
-    returns what it wrote.  Raises RuntimeError with its report if it
-    fails."""
+    returns what it wrote, as ``dtype``.  Raises RuntimeError with its
+    report if it fails."""
     exe = build(name)
     with tempfile.TemporaryDirectory() as d:
         inp, out = os.path.join(d, "in"), os.path.join(d, "out")
@@ -84,7 +85,7 @@ def _exec(name, arrays, args=()):
         if res.returncode != 0:
             raise RuntimeError(f"{name} failed (rc {res.returncode}):\n"
                                f"{res.stderr[-4000:]}")
-        return np.fromfile(out, np.int32)
+        return np.fromfile(out, dtype)
 
 
 def _jobs(q, t, params):
@@ -164,3 +165,32 @@ def intrinsics16_host(a, b, c):
     got = _exec("extend16_host", (np.asarray([len(a)], np.int32), a, b, c),
                 ("--ops",)).view(np.uint32)
     return dict(zip(INTRINSICS16, got.reshape(len(INTRINSICS16), len(a))))
+
+
+def occ_host(arrays, ranks, ik):
+    """csrc/occ.cu's C entries on the host, on a tpubwa-layout index:
+    ``arrays`` maps ``occ_blocks``, ``mark_rows`` (uint32), ``L2``,
+    ``sa_marked``, ``sa_sample`` (the rank type, int32 or int64, taken
+    from ``sa_sample``) and ``primary``, ``seq_len``, ``mark_D``.
+    Returns (positions [n] of ``ranks`` through ``tpubwa_sa_lookup``,
+    the backward and the forward extensions [m, 4, 3] of ``ik`` [m, 3]
+    through ``tpubwa_bwt_extend``), of the rank type.  Raises
+    RuntimeError with the harness's report if a sanitizer stops it or
+    an entry returns an error."""
+    dt = np.asarray(arrays["sa_sample"]).dtype
+    if dt not in (np.int32, np.int64):
+        raise TypeError(f"rank type {dt}")
+    occ, marks = (np.ascontiguousarray(arrays[k], np.uint32)
+                  for k in ("occ_blocks", "mark_rows"))
+    ranks = np.ascontiguousarray(ranks, dt)
+    ik = np.ascontiguousarray(ik, dt).reshape(-1, 3)
+    head = np.asarray([len(occ), len(marks), len(arrays["sa_marked"]),
+                       len(arrays["sa_sample"]), arrays["primary"],
+                       arrays["seq_len"], arrays["mark_D"], dt == np.int64,
+                       len(ranks), len(ik)], np.int64)
+    got = _exec("occ_host", (head, occ, marks, *(
+        np.ascontiguousarray(arrays[k], dt)
+        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik), dtype=dt)
+    n, m = len(ranks), len(ik) * 12
+    return (got[:n], got[n:n + m].reshape(-1, 4, 3),
+            got[n + m:].reshape(-1, 4, 3))
