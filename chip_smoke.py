@@ -10,7 +10,7 @@ Usage (from the root of a checkout, one CUDA card visible):
 Phases, one output line each (a failing phase raises, exit != 0):
   1. toolchain facts (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build of the CUDA kernels from tpubwa_torch/csrc (nvcc, sm_90a; one
-     nvcc per source, all four started together), with ptxas's
+     nvcc per source, all five started together), with ptxas's
      registers and spills for each;
   3. the extension kernel == extend_batch_plain on the card, exactly,
      at the three tile shapes of the main path (W 128, 256, 512) and on
@@ -83,8 +83,9 @@ Phases, one output line each (a failing phase raises, exit != 0):
      pairs' SAM equals a run with device="cpu" and one through the
      port's scalar host pipeline; then the four launches of the first
      batch's first wave, each timed alone (the shape the main path
-     gives K1).  The native walk serves every SA position: no FM array
-     goes up to the card;
+     gives K1), and the seeding stage's wall (native seeding on the
+     host, the GPU bracketed by synchronize).  The native walk serves
+     every SA position: no FM array goes up to the card;
  5b. the same index as a user's stock bwa files (save_bwa, its ALT
      contig in a .alt file, loaded as `mem` loads a prefix), through
      the port's aligner on cuda on phase 5's 2 x 8,192 pairs: the SA
@@ -102,7 +103,24 @@ Phases, one output line each (a failing phase raises, exit != 0):
      backward and a forward step), K-sa == the native walk on the
      marked 64 Mbp index, each 64 Mbp instantiation timed alone in
      interleaved passes, with the LF steps a rank and a warp; then the
-     extension path driven once with the counts at 0.
+     extension path driven once with the counts at 0;
+ 5c. phase 5's 2 x 8,192 pairs through the port's aligner on cuda with
+     TPUBWA_SEED_MODE=megaq (as `mem` runs it): every seeding row from
+     K2 and K3 (csrc/smem.cu), with the counts at 0 just before the run.
+     Its SAM must equal phase 5's byte for byte.  Reads/s and the
+     seeding stage's wall beside phase 5's, the reads that took K2's
+     second launch, and each mode's device busy share over a profiled
+     pass of the first batch;
+ 3h. (after 5c, whose first chunk it uses) K2 and K3 == their plain
+     versions (on CPU copies of the index) in every instantiation, K2
+     also at one row slot a read (its second launch), on the 3,000-base
+     genome and on 256 reads of 5c's first chunk with the edge reads
+     (across the sentinel's row both ways, a repeat unit, random, one
+     base, all N); megaq rows == the native seeder's on all 32,768 of
+     phase 5's reads, int32 and int64; then each kernel alone on that
+     chunk (16,384 reads, the main path's launch) in interleaved passes,
+     with its bwt_extend steps a read and a warp and the sectors of the
+     index it reads (counted by csrc/smem_host.cpp).
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
@@ -112,9 +130,10 @@ with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), a JSON line
 of the kernels (launches on each kernel's path: K1
-in phase 5, K-sa in 5b, the int16 kernel in the experiment of phase 3b,
-K1-real in that of 3c, K1-floor in that of 3d, K1-bd in that of 3f,
-K-ext on 3g's extension path; errors, times, bounds) and, last,
+in phase 5, K-sa in 5b, K2 and K3 in 5c, the int16 kernel in the
+experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
+K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
+bounds) and, last,
 {"ok": true, "device": {...}}.
 
 Everything it builds or caches (kernels, the native host libraries, the
@@ -424,8 +443,10 @@ def phase_build():
     from tpubwa_torch.device import occ
     from tpubwa_torch.scripts import exp_int16_kernel as x16
     from tpubwa_torch.scripts import exp_kernel_breakdown as xb
+    from tpubwa_torch.device import smem_fused
     kernels = {"extend": ek._SIGNATURES, "extend16": x16._SIGNATURES,
-               "extend_bd": xb._SIGNATURES, "occ": occ._SIGNATURES}
+               "extend_bd": xb._SIGNATURES, "occ": occ._SIGNATURES,
+               "smem": smem_fused._SIGNATURES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         futures = [ex.submit(_build.load, name, sigs)
@@ -1625,19 +1646,20 @@ def phase_main_path(torch, np):
     w0, j0 = aligner.extender.n_waves, aligner.extender.n_jobs
     ek.extend_batch.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     n_mapped = 0
     sam_lines = []
-    for batch, lines in process_batches(opt, fmi, iter(batches), 0,
-                                        align_fn=aligner):
-        for line in lines:
-            f = line.split("\t")
-            if len(f) < 11:
-                raise AssertionError(f"malformed SAM line: {line[:80]}")
-            n_mapped += not int(f[1]) & 4
-        sam_lines += lines
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with SeedTimer(torch) as seeding:
+        t0 = time.perf_counter()
+        for batch, lines in process_batches(opt, fmi, iter(batches), 0,
+                                            align_fn=aligner):
+            for line in lines:
+                f = line.split("\t")
+                if len(f) < 11:
+                    raise AssertionError(f"malformed SAM line: {line[:80]}")
+                n_mapped += not int(f[1]) & 4
+            sam_lines += lines
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = ek.extend_batch.launches
     n_lines = len(sam_lines)
     # the native walk served every SA position: no FM array went up
@@ -1689,6 +1711,7 @@ def phase_main_path(torch, np):
                   f"(tpubwa_torch.sim.bench_index({GENOME_MB}, realistic=True))",
         "index_s": round(index_s, 1), "reads": n_reads,
         "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
+        "seeding_s": round(seeding.s, 3), "seed_mode": aligner.seed_mode,
         "sam_lines": n_lines, "mapped": n_mapped,
         "n_waves": n_waves, "n_jobs": n_jobs,
         "kernel_launches": launches, "fm_arrays_uploaded": False,
@@ -1696,7 +1719,8 @@ def phase_main_path(torch, np):
         "cpu_and_scalar_equal_pairs": len(first) // 2}), flush=True)
     return {"launches": launches, "fmi": fmi, "opt": opt,
             "batches": batches, "sam": sam_lines,
-            "reads_per_s": n_reads / dt}
+            "reads_per_s": n_reads / dt, "seeding_s": seeding.s,
+            "aligner": aligner}
 
 
 SECTOR = 32             # bytes of one DRAM sector, the unit of a load
@@ -2043,6 +2067,408 @@ def phase_stock_bwa(torch, np, main):
     return stock, case, launches
 
 
+def busy_share(torch, fn):
+    """(fn(), its wall s, the device's busy share of that wall): the
+    union of the device's kernel and copy intervals in a torch.profiler
+    (CUPTI) trace of one call of ``fn``, over its host wall, the device
+    bracketed by synchronize; None where the trace holds no device
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return out, wall, (busy / 1e6 / wall if spans else None)
+
+
+class SeedTimer:
+    """The seeding stage's wall: ``pipeline.collect_intv_device`` wrapped,
+    each call bracketed by synchronize, summed over the calls made inside
+    the ``with``."""
+
+    def __init__(self, torch):
+        self.torch, self.s, self.calls = torch, 0.0, 0
+
+    def __enter__(self):
+        from tpubwa_torch.device import pipeline as dp
+        self.dp, self.real = dp, dp.collect_intv_device
+
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.real(*a, **k)
+            self.torch.cuda.synchronize()
+            self.s += time.perf_counter() - t
+            self.calls += 1
+            return out
+
+        dp.collect_intv_device = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dp.collect_intv_device = self.real
+
+
+def megaq_aligner(opt, fmi):
+    """The port's aligner on the card as `mem` makes it with
+    TPUBWA_SEED_MODE=megaq (the mode is read when it is made)."""
+    from tpubwa_torch.device.pipeline import make_device_aligner
+    old = os.environ.get("TPUBWA_SEED_MODE")
+    os.environ["TPUBWA_SEED_MODE"] = "megaq"
+    try:
+        aligner = make_device_aligner(opt, fmi, device=DEV)
+    finally:
+        if old is None:
+            del os.environ["TPUBWA_SEED_MODE"]
+        else:
+            os.environ["TPUBWA_SEED_MODE"] = old
+    if aligner.seed_mode != "megaq":
+        raise AssertionError("the aligner did not take TPUBWA_SEED_MODE")
+    return aligner
+
+
+def phase_megaq(torch, np, main):
+    """[5c megaq]: phase 5's 2 x 8,192 pairs through the port's aligner on
+    cuda with TPUBWA_SEED_MODE=megaq: every seeding row comes from K2 and
+    K3 (csrc/smem.cu).  Its SAM must equal phase 5's byte for byte; K2
+    and K3 must launch, with the counts at 0 just before the run.
+    Reads/s and the seeding stage's wall beside phase 5's, the reads that
+    took K2's second launch, and each mode's device busy share over a
+    profiled pass of the first batch.  Returns the facts, with the first
+    chunk's K2 inputs (``chunk``: opt, didx, qd, ld) for phase 3h."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import smem, smem_fused
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
+    aligner = megaq_aligner(opt, fmi)
+    warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
+    for _ in process_batches(opt, fmi, iter([warm]), 0, align_fn=aligner):
+        pass
+    seen = {"calls": [], "reads": 0, "second": 0}
+    k2 = smem.rounds12_megaq
+
+    def kept(opt_, didx, qd, ld, **kw):
+        stats = {}
+        out = k2(opt_, didx, qd, ld, stats=stats, **kw)
+        if not seen["calls"]:
+            seen["calls"].append((opt_, didx, qd, ld))
+        seen["reads"] += len(ld)
+        seen["second"] += stats["second_launch_reads"]
+        return out
+
+    smem.rounds12_megaq = kept
+    try:
+        smem_fused.rounds12_megaq.launches = 0
+        smem._seed_strategy_scan.launches = 0
+        ek.extend_batch.launches = 0
+        torch.cuda.synchronize()
+        with SeedTimer(torch) as seeding:
+            t0 = time.perf_counter()
+            lines = [l for _, ls in process_batches(
+                opt, fmi, iter(batches), 0, align_fn=aligner) for l in ls]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {"smem_rounds12": smem_fused.rounds12_megaq.launches,
+                    "seed_strategy": smem._seed_strategy_scan.launches,
+                    "ksw_extend": ek.extend_batch.launches}
+    finally:
+        smem.rounds12_megaq = k2
+    if not launches["smem_rounds12"] or not launches["seed_strategy"]:
+        raise AssertionError(f"5c launched {launches}")
+    if lines != main["sam"]:
+        bad = next(i for i, (a, b) in enumerate(zip(lines, main["sam"]))
+                   if a != b) if len(lines) == len(main["sam"]) else -1
+        raise AssertionError(f"5c SAM != phase 5's ({len(lines)} vs "
+                             f"{len(main['sam'])} lines, first diff {bad})")
+    # each mode's busy share over one profiled pass of the first batch
+    busy = {}
+    for name, fn in (("phase5_host", main["aligner"]), ("megaq", aligner)):
+        _, wall, share = busy_share(torch, lambda: [
+            0 for _ in process_batches(opt, fmi, iter(batches[:1]), 0,
+                                       align_fn=fn)])
+        busy[name] = {"wall_s": round(wall, 3), "busy_share":
+                      share if share is None else round(share, 5)}
+    n_reads = sum(len(b) for b in batches)
+    facts = {"reads": n_reads, "seconds": round(dt, 3),
+             "reads_per_s": round(n_reads / dt, 1),
+             "phase5_reads_per_s": round(main["reads_per_s"], 1),
+             "seeding_s": round(seeding.s, 3),
+             "phase5_seeding_s": round(main["seeding_s"], 3),
+             "seeding_calls": seeding.calls, "sam_lines": len(lines),
+             "sam_equal_to_phase5": True, "launches": launches,
+             "k2_second_launch_reads": seen["second"],
+             "k2_second_launch_share": round(seen["second"] / seen["reads"],
+                                             6),
+             "first_batch_pass": busy}
+    print("[5c megaq] " + json.dumps(facts), flush=True)
+    return dict(facts, chunk=seen["calls"][0])
+
+
+def edge_reads(np, text, rng):
+    """Reads at the protocol's edges: across the sentinel's row both ways
+    (30 random bases then the doubled text's first 70: a backward step
+    from that prefix; its last 70 then 30 random bases: a forward step
+    whose reverse complement is that prefix), a 40-base unit of the
+    text repeated, a random read, one base, all N."""
+    r30 = rng.integers(0, 4, (2, 30)).astype(np.uint8)
+    return [np.concatenate([r30[0], text[:70]]),
+            np.concatenate([text[len(text) - 70:], r30[1]]),
+            np.tile(text[1000:1040], 3)[:100].copy(),
+            rng.integers(0, 4, 100).astype(np.uint8), text[500:501].copy(),
+            np.full(100, 4, np.uint8)]
+
+
+def pack_reads(np, reads, L=128):
+    arr = np.full((len(reads), L), 4, np.uint8)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for i, r in enumerate(reads):
+        arr[i, :len(r)] = r
+    return arr, lens
+
+
+def seeding_checks(torch, np, label, fmi, arr, lens, opt):
+    """K2 (both launches, and with one slot a read) and K3 == their plain
+    versions, every instantiation, on ``arr``/``lens``: the kernels on the
+    card, the plain versions on CPU copies of the index.  Returns
+    {instantiation: facts}, each with the plain version's ms."""
+    from tpubwa_torch.device import smem, smem_fused
+    from tpubwa_torch.device.occ import DeviceIndex
+    gpu = DeviceIndex.from_fmindex(fmi, DEV)
+    cpu = DeviceIndex.from_fmindex(fmi, "cpu")
+    q, ld = torch.from_numpy(arr), torch.from_numpy(lens)
+    out = {}
+    for dt in ("int32", "int64"):
+        g, c = (gpu, cpu) if dt == "int32" else (int64_twin(torch, gpu),
+                                                 int64_twin(torch, cpu))
+        t0 = time.perf_counter()
+        want = smem_fused.rounds12_plain(opt, c, q, ld)
+        plain12 = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want3 = smem._seed_strategy_scan_plain(c, q, ld, opt.min_seed_len,
+                                               opt.max_mem_intv)
+        plain3 = (time.perf_counter() - t0) * 1e3
+        second = 0
+        for slots in (smem_fused.K2_SLOTS, 1):
+            stats = {}
+            got = smem_fused.rounds12_megaq(opt, g, q.to(DEV), ld.to(DEV),
+                                            slots=slots, stats=stats)
+            torch.cuda.synchronize()
+            if got[0].shape != want[0].shape:
+                raise AssertionError(f"{label}/{dt} K2 (slots {slots}): "
+                                     f"{len(got[0])} rows, plain "
+                                     f"{len(want[0])}")
+            for a, b, what in ((got[0], want[0], "rows"),
+                               (got[1], want[1], "rids")):
+                held_fm(torch, f"{label}/{dt} K2 {what} (slots {slots})",
+                        a.cpu().reshape(len(a), -1),
+                        b.reshape(len(b), -1))
+            second = max(second, stats["second_launch_reads"])
+        got3 = smem._seed_strategy_scan(g, q.to(DEV), ld.to(DEV),
+                                        opt.min_seed_len, opt.max_mem_intv)
+        torch.cuda.synchronize()
+        for a, b, what in ((got3[0], want3[0], "hits"),
+                           (got3[1], want3[1], "n_hits")):
+            held_fm(torch, f"{label}/{dt} K3 {what}",
+                    a.cpu().reshape(len(a), -1), b.reshape(len(b), -1))
+        out[dt] = {"reads": len(arr), "rows12": len(want[0]),
+                   "hits": int(want3[1].sum()), "mismatches": 0,
+                   "second_launch_reads_at_1_slot": second,
+                   "plain_ms": {"smem_rounds12": round(plain12, 3),
+                                "seed_strategy": round(plain3, 3)}}
+    return out
+
+
+def seeding_bytes(torch, np, didx, qd, ld, opt, kernel, out_rows):
+    """The bytes a launch of K2 (``kernel`` 0, every read of the chunk)
+    or K3 (1) must move: the reads and lens, the rows it writes
+    (``out_rows``) and their counts, and the distinct sectors of the
+    index it reads, counted by csrc/smem_host.cpp (built without the
+    sanitizers) on the same inputs."""
+    from tpubwa_torch.device import smem, smem_fused, warp_host
+    fm = didx.upload_fm()
+    arrays = {"occ_blocks": fm["occ_blocks"].cpu().numpy().view(np.uint32),
+              "L2": fm["L2"].cpu().numpy(), "primary": didx.primary,
+              "seq_len": didx.seq_len}
+    B, L = qd.shape
+    *_, rows = warp_host.smem_host(
+        arrays, qd.cpu().numpy(), ld.cpu().numpy(), kernel,
+        (opt.min_seed_len, smem_fused.split_len_of(opt), opt.split_width,
+         opt.max_mem_intv, smem.max_hits(L, opt.min_seed_len)),
+        slots=smem_fused.K2_SLOTS, count_rows=True, sanitize=False)
+    isz = 8 if didx.idt == torch.int64 else 4
+    io = B * L + 4 * B + out_rows * 5 * isz + 4 * B
+    return fm_bytes(io, [(rows, OCC_ROW)]), len(rows)
+
+
+def k2_alone(torch, opt, didx, qd, ld):
+    """K2's C entry alone on preallocated buffers (every read, the row
+    slots of the first launch): a launch not counted on the wrapper.
+    The buffers live on the returned function (``.buffers``: rids,
+    scratch, rows, counts, steps), which launches on their pointers."""
+    from tpubwa_torch.device import _build, smem_fused as sf
+    lib = _build.load("smem", sf._SIGNATURES)
+    B, L = qd.shape
+    rids = torch.arange(B, dtype=torch.int32, device=DEV)
+    scratch = torch.empty((B, sf.K2_STACKS, L + 1, 5), dtype=didx.idt,
+                          device=DEV)
+    rows = torch.empty((B, sf.K2_SLOTS, 5), dtype=didx.idt, device=DEV)
+    counts = torch.empty(B, dtype=torch.int32, device=DEV)
+    steps = torch.empty(B, dtype=torch.int32, device=DEV)
+    args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
+            rids.data_ptr(), B, opt.min_seed_len, sf.split_len_of(opt),
+            opt.split_width, sf.K2_SLOTS, scratch.data_ptr(),
+            rows.data_ptr(), counts.data_ptr(), steps.data_ptr(),
+            qd.device.index, sf.stream_of(qd))
+
+    def launch():
+        if lib.tpubwa_smem_rounds12(*args):
+            raise AssertionError("K2's launch failed")
+    launch.buffers = (rids, scratch, rows, counts, steps)
+    return launch
+
+
+def k3_alone(torch, opt, didx, qd, ld):
+    """K3's C entry alone on preallocated buffers, which live on the
+    returned function (``.buffers``: hits, n_hits)."""
+    from tpubwa_torch.device import _build, smem, smem_fused as sf
+    lib = _build.load("smem", sf._SIGNATURES)
+    B, L = qd.shape
+    maxh = smem.max_hits(L, opt.min_seed_len)
+    hits = torch.zeros((B, maxh, 5), dtype=didx.idt, device=DEV)
+    n_hits = torch.empty(B, dtype=torch.int32, device=DEV)
+    args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(), B,
+            opt.min_seed_len, opt.max_mem_intv, maxh, hits.data_ptr(),
+            n_hits.data_ptr(), None, qd.device.index, sf.stream_of(qd))
+
+    def launch():
+        if lib.tpubwa_seed_strategy(*args):
+            raise AssertionError("K3's launch failed")
+    launch.buffers = (hits, n_hits)
+    return launch
+
+
+def phase_seeding(torch, np, main, megaq):
+    """[3h seeding]: K2 and K3 == their plain versions in each
+    instantiation (int32 and int64 ranks; K2 also with one row slot a
+    read, so most reads take its second launch) on the 3,000-base test
+    genome and on 256 reads of phase 5's first chunk with the edge
+    reads; megaq rows == the native seeder's on all 32,768 of phase 5's
+    reads, both instantiations; then, on 5c's first chunk (the launch the
+    main path gives K2), each kernel alone in interleaved passes, its
+    wrapper, its bwt_extend steps a read and a warp, and its bytes.
+    Returns {kernel: (launches, max_abs_err, case)}."""
+    import tempfile
+    from tpubwa_torch.device import smem, smem_fused
+    from tpubwa_torch.device.smem import collect_intv_device
+    from tpubwa_torch.host.native_smem import smem_collect_batch_native
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    fmi, opt = main["fmi"], main["opt"]
+    rng = np.random.default_rng(0x5EED)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        sm, _ = small_index(d)
+    text = sm.bnt.doubled()
+    small = [text[s:s + 100].copy()
+             for s in rng.integers(0, len(text) - 100, 250)]
+    for r in small[:100]:
+        r[rng.integers(0, 100, 3)] = rng.integers(0, 5, 3)
+    cases = {}
+    cases["3 kb"] = seeding_checks(
+        torch, np, "3 kb", sm, *pack_reads(np, small + edge_reads(
+            np, text, rng)), opt)
+    _, _, qd, ld = megaq["chunk"]
+    qn, lens = qd[:256].cpu().numpy(), ld[:256].cpu().numpy()
+    big = [qn[i, :lens[i]] for i in range(256)]
+    cases[f"{GENOME_MB} Mbp"] = seeding_checks(
+        torch, np, f"{GENOME_MB} Mbp", fmi, *pack_reads(
+            np, big + edge_reads(np, fmi.bnt.doubled(), rng)), opt)
+    # megaq == the native seeder on every read of phase 5, both types
+    gpu = megaq["chunk"][1]
+    native = {}
+    for dt, didx in (("int32", gpu), ("int64", int64_twin(torch, gpu))):
+        n_rows = 0
+        for batch in main["batches"]:
+            arr, lens = pack_reads(np, [r.seq for r in batch])
+            got = collect_intv_device(opt, didx, arr, lens, fmi,
+                                      mode="megaq")
+            want = smem_collect_batch_native(opt, fmi, arr, lens, threads=8)
+            if not (np.array_equal(got[0], want[:, :5])
+                    and np.array_equal(got[1], want[:, 5])):
+                raise AssertionError(f"megaq ({dt}) != the native seeder")
+            n_rows += len(want)
+        native[dt] = {"reads": sum(len(b) for b in main["batches"]),
+                      "rows": n_rows, "mismatches": 0}
+    # the main path's K2 launch: 5c's first chunk
+    opt_, didx, qd, ld = megaq["chunk"]
+    stats12, stats3 = {}, {}
+    rows12, rids12 = smem_fused.rounds12_megaq(opt_, didx, qd, ld,
+                                               stats=stats12)
+    hits, n_hits = smem._seed_strategy_scan(didx, qd, ld, opt_.min_seed_len,
+                                            opt_.max_mem_intv, stats=stats3)
+    torch.cuda.synchronize()
+    alone = {"smem_rounds12": k2_alone(torch, opt_, didx, qd, ld),
+             "seed_strategy": k3_alone(torch, opt_, didx, qd, ld)}
+    best = interleaved_min({
+        **alone,
+        "smem_rounds12 wrapper": lambda: smem_fused.rounds12_megaq(
+            opt_, didx, qd, ld),
+        "seed_strategy wrapper": lambda: smem._seed_strategy_scan(
+            didx, qd, ld, opt_.min_seed_len, opt_.max_mem_intv)},
+        10, 4, torch.device(DEV))
+    # what the timed launches left: K2's exact counts and steps, K3's hits
+    _, _, _, counts, steps = alone["smem_rounds12"].buffers
+    want_counts = torch.bincount(rids12, minlength=len(ld))
+    if not (torch.equal(counts.long(), want_counts)
+            and torch.equal(steps, stats12["steps"])):
+        raise AssertionError("K2 alone != its wrapper's counts and steps")
+    got_hits, got_n = alone["seed_strategy"].buffers
+    if not (torch.equal(got_hits, hits) and torch.equal(got_n, n_hits)):
+        raise AssertionError("K3 alone != its wrapper's hits")
+    # the plain versions step one interval at a time: timed on 256 of the
+    # chunk's reads and the edge reads, not on the chunk
+    plain256 = cases[f"{GENOME_MB} Mbp"]["int32"]["plain_ms"]
+    out = {}
+    for name, stats, n_out, kernel in (
+            ("smem_rounds12", stats12, len(rows12), 0),
+            ("seed_strategy", stats3, int(n_hits.sum()), 1)):
+        steps = stats["steps"].cpu().numpy()
+        pad = np.zeros(-len(steps) % 32, steps.dtype)
+        warp_max = np.concatenate([steps, pad]).reshape(-1, 32).max(1)
+        nbytes, n_occ = seeding_bytes(torch, np, didx, qd, ld, opt_, kernel,
+                                      n_out)
+        case = {"reads": len(ld), "rows": n_out,
+                "ms": round(best[name], 4),
+                "wrapper_ms": round(best[f"{name} wrapper"], 4),
+                "plain_ms": plain256[name],
+                "plain_reads": cases[f"{GENOME_MB} Mbp"]["int32"]["reads"],
+                "steps_mean": round(float(steps.mean()), 3),
+                "steps_max": int(steps.max()),
+                "warp_max_steps_mean": round(float(warp_max.mean()), 3),
+                "occ_rows_read": n_occ, "bytes": nbytes,
+                "max_abs_err": 0}
+        case["bound_ms"] = round(bytes_bound(case)[0], 6)
+        out[name] = case
+    out["smem_rounds12"]["second_launch_reads"] = stats12[
+        "second_launch_reads"]
+    print("[3h seeding] " + json.dumps({
+        "tolerance": 0, "cases": cases, "native_seeder": native,
+        "main_launch": out, "card": "the first chunk of 5c (16,384 reads)",
+        "seconds": round(time.perf_counter() - t_phase, 1)}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2066,6 +2492,8 @@ def main() -> int:
     ext_case, ext_launches, sa_err = phase_occ(torch, np, main_path["fmi"],
                                                stock)
     sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
+    megaq = phase_megaq(torch, np, main_path)
+    seeding = phase_seeding(torch, np, main_path, megaq)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
     if bad:
@@ -2115,6 +2543,22 @@ def main() -> int:
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
             "library_ms": None})
+    # the seeding rows: bound by bytes alone, the distinct sectors of the
+    # index the main path's first K2 and K3 launches read (csrc/smem_host)
+    for name, replaces in (
+            ("smem_rounds12", "tpubwa/device/smem_fused.py:872"),
+            ("seed_strategy", "tpubwa/device/smem.py:199")):
+        case = seeding[name]
+        bound_ms, bound_by, parts = bytes_bound(case)
+        sass[name] = dict(bytes=case["bytes"], reads=case["reads"],
+                          **{k: round(v, 6) for k, v in parts.items()})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
+            "launches": megaq["launches"][name],
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
+            "bound_by": bound_by, "library_ms": None})
     print("[bounds] " + json.dumps({"card": rates, "hbm_bytes_s":
                                     HBM_BYTES_S, "kernels": sass}),
           flush=True)

@@ -101,3 +101,10 @@ def test_an_included_header_keys_the_library(fake_toolchain):
     # a file the source does not include changes nothing
     (csrc / "k2.cu").write_text("// other\n")
     assert _build._compile("k1") == first
+
+
+def test_the_seeding_kernels_are_keyed_by_their_headers():
+    """csrc/smem.cu's library is keyed by smem.cuh and, through it,
+    fm.cuh (the repo's own sources)."""
+    assert [p.name for p in _build._sources(_build.CSRC / "smem.cu")] == [
+        "smem.cu", "warp_host.h", "smem.cuh", "fm.cuh"]

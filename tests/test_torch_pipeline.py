@@ -242,6 +242,29 @@ def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index,
                            + fqs)
 
 
+@pytest.mark.parametrize("paired", [False, True])
+def test_cli_mem_cpu_megaq_equals_host_and_tpubwa(alt_index, monkeypatch,
+                                                 paired):
+    """`mem --device cpu` with TPUBWA_SEED_MODE=megaq (K2's and K3's plain
+    versions seed every read; the native seeder is never called): SAM
+    byte-equal to host mode's and to tpubwa's scalar pipeline."""
+    from tpubwa_torch.device import smem as tsmem
+    prefix, d = alt_index
+    fqs = [str(d / f) for f in (["pe1.fq", "pe2.fq"] if paired
+                                else ["se.fq"])]
+    host = _sam(main_mem, ["--device", "cpu", prefix] + fqs)
+    want = _sam(tpubwa_main_mem, ["--device", "scalar", prefix] + fqs)
+
+    def no_host_seeding(*a, **k):
+        raise AssertionError("a megaq chunk was seeded on the host")
+
+    monkeypatch.setattr(tsmem, "smem_collect_batch_native", no_host_seeding)
+    monkeypatch.setenv("TPUBWA_SEED_MODE", "megaq")
+    got = _sam(main_mem, ["--device", "cpu", prefix] + fqs)
+    assert len(got) > len(fqs) * 40
+    assert got == host == want
+
+
 def test_no_jax_import():
     code = ("import sys, tpubwa_torch, tpubwa_torch.cli, "
             "tpubwa_torch.device.pipeline, "
@@ -274,9 +297,9 @@ def test_missing_paths_raise_not_implemented(setup, monkeypatch):
     reads, _ = _reads([("r", "".join("ACGT"[c] for c in codes[300:400]))])
     aligner = tp.make_device_aligner(MemOpt(), fmi, device="cpu")
     arr, lens = aligner._pack(reads, 32)
-    with pytest.raises(NotImplementedError, match=r"\[seeding\]"):
+    with pytest.raises(NotImplementedError, match=r"\[hybrid\]"):
         collect_intv_device(MemOpt(), aligner.didx, arr, lens, fmi,
-                            mode="megaq")
+                            mode="hybrid")
     monkeypatch.setenv("TPUBWA_NO_NATIVE_PLAN", "1")
     with pytest.raises(NotImplementedError, match=r"\[waves\]"):
         aligner(reads)

@@ -1,7 +1,8 @@
-// FM-index device functions (bwt.c:bwt_occ4 / bwt_invPsi / bwt_extend
-// and the text-position marks of tpubwa's SA walk), one query a thread,
-// for the kernels that walk the index: csrc/occ.cu now, the seeding
-// kernels later.  The counterparts of the plain functions of
+// FM-index device functions (bwt.c:bwt_occ4 / bwt_invPsi / bwt_extend /
+// bwt_set_intv and the text-position marks of tpubwa's SA walk), one
+// query a thread, for the kernels that walk the index: csrc/occ.cu and
+// the seeding kernels of csrc/smem.cu (through csrc/smem.cuh).  The
+// counterparts of the plain functions of
 // tpubwa_torch/device/occ.py, which hold them to tpubwa/device/occ.py.
 //
 // Layout (tpubwa_torch/device/occ.py:DeviceIndex): occ rows of 12 uint32,
@@ -18,19 +19,27 @@
 //
 // Rows are read through __ldg: the index is read-only for a kernel's
 // life.  With TPUBWA_WARP_HOST defined (the host harness of
-// csrc/warp_host.h) __popc and __ldg are their host equivalents.
+// csrc/warp_host.h) __popc and __ldg are their host equivalents, and a
+// harness may set fm::read_rows to collect the occ row of every query.
 
 #pragma once
 
 #include <cstdint>
 
 #ifdef TPUBWA_WARP_HOST
+#include <vector>
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 #endif
 
 namespace fm {
+
+#ifdef TPUBWA_WARP_HOST
+// where not null, the occ row (block index) of every occ_row query is
+// appended here: the host harness counts a launch's index reads with it
+inline std::vector<int64_t>* read_rows = nullptr;
+#endif
 
 constexpr int kRowWords = 12;   // occ row: 4 counts + 8 BWT words
 constexpr int kMarkWords = 8;   // mark row: count + 4 bit words + 3 pad
@@ -59,6 +68,9 @@ __device__ __forceinline__ uint32_t cover(int cov) {
 template <class Idx>
 __device__ __forceinline__ const uint32_t* occ_row(const Index<Idx>& f,
                                                    Idx x) {
+#ifdef TPUBWA_WARP_HOST
+    if (read_rows) read_rows->push_back((int64_t)(x >> 7));
+#endif
     return f.occ + (int64_t)(x >> 7) * kRowWords;
 }
 
@@ -147,6 +159,16 @@ __device__ __forceinline__ int64_t mark_index(const uint32_t* marks, Idx k) {
     // bits above bp in k's own word: marked ranks earlier in the word
     if (bp < 31) idx += __popc(__ldg(row + 1 + wi) >> (bp + 1));
     return idx;
+}
+
+// the interval of the one-base pattern c (bwt.h:bwt_set_intv): x0 from
+// c's bucket, x1 from its complement's, size = the count of c
+template <class Idx>
+__device__ __forceinline__ void set_intv(const Index<Idx>& f, int c,
+                                         Idx ik[3]) {
+    ik[0] = __ldg(f.L2 + c) + 1;
+    ik[1] = __ldg(f.L2 + 3 - c) + 1;
+    ik[2] = __ldg(f.L2 + c + 1) - __ldg(f.L2 + c);
 }
 
 // bidirectional extension of ik = (x0, x1, size) by each base

@@ -1,8 +1,11 @@
 """Per-batch aligner with GPU seed extension, the counterpart of
-tpubwa/device/pipeline.py in its host-seeding configuration.
+tpubwa/device/pipeline.py in its host-seeding and megaq configurations.
 
 Stage plan per chunk of reads:
-  A. SMEM seeding on the host      (native C++, device/smem.py)
+  A. SMEM seeding                  (device/smem.py: native C++ on the
+                                    host by default; with
+                                    TPUBWA_SEED_MODE=megaq, K2 and K3 on
+                                    the device)
   B. SA positions                  (native bounded SA walk on the host
                                     over an index with text-position
                                     marks; else the SA walk on the
@@ -20,6 +23,7 @@ code (the port's copy of tpubwa's, in ``tpubwa_torch/host``).
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Sequence
@@ -65,7 +69,8 @@ class ExtendStats:
 
 
 class DeviceAligner:
-    """Host seeding/SA/planning; extension waves on ``device``."""
+    """Seeding (host, or megaq on ``device``), SA and planning;
+    extension waves on ``device``."""
 
     def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda"):
         self.opt = opt
@@ -81,9 +86,12 @@ class DeviceAligner:
         self.extender = ExtendStats()
         # longer reads go to the scalar path (the kernel's lane bound)
         self.read_len_cap = 510
-        # reads per seeding chunk (host seeding compiles nothing, so
-        # one size serves every batch)
+        # reads per seeding chunk (nothing is compiled per shape, so one
+        # size serves every batch and both seed modes)
         self.chunk_reads = 16384
+        # 'host' (native seeding) or 'megaq' (K2 + K3 on the device);
+        # device/smem.py raises on the others
+        self.seed_mode = os.environ.get("TPUBWA_SEED_MODE", "host")
 
     # -------------------------------------------------------------
     def _pack(self, reads: Sequence[Read], pad_to: int):
@@ -142,7 +150,8 @@ class DeviceAligner:
             pad <<= 1
         arr, lens = self._pack(chunk, pad)
         flat, frid, qd = collect_intv_device(self.opt, self.didx, arr,
-                                             lens, self.fmi)
+                                             lens, self.fmi,
+                                             mode=self.seed_mode)
         counts = np.bincount(frid, minlength=arr.shape[0])[:len(chunk)]
         intv = (flat, counts)
         # qd: the chunk's reads, resident for the descriptor extension

@@ -1,11 +1,19 @@
 """Batched SMEM seeding for a read chunk, the counterpart of
 tpubwa/device/smem.py:collect_intv_device.
 
-This slice has mode ``host`` only: the native C++ seeder
-(tpubwa_torch/host/native_smem.py) runs the full 3-round mem_collect_intv
-protocol on the host, and the chunk's reads go up to the device once
-for the descriptor extension.  The GPU seeding machine (modes
-``megaq``/``hybrid``) is ROADMAP Queue 1 [seeding].
+Two modes:
+
+* ``host``: the native C++ seeder (tpubwa_torch/host/native_smem.py)
+  runs the full 3-round mem_collect_intv protocol on the host, and the
+  chunk's reads go up to the device once for the descriptor extension;
+* ``megaq``: the three rounds on the device, rounds 1 and 2 in K2
+  (``smem_fused.rounds12_megaq``) and round 3 in K3
+  (``_seed_strategy_scan``), both hand-written CUDA in ``csrc/smem.cu``
+  on CUDA tensors and their plain versions on CPU tensors.  Every row
+  comes from them; the host only merges.
+
+tpubwa's ``hybrid`` split is ROADMAP Queue 1 [hybrid]; its other machine
+modes are not ported on purpose (ROADMAP).
 """
 
 from __future__ import annotations
@@ -14,10 +22,109 @@ import numpy as np
 import torch
 
 from ..host.native_smem import smem_collect_batch_native
+from . import _build
+from .occ import DeviceIndex, _kernel_route, _raise_on
+from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
+                         index_args, read_lists, rounds12_megaq, run_reads,
+                         stream_of)
 
-_GPU_SEEDING = ("seed mode {!r} needs the GPU seeding machine "
-                "(ROADMAP Queue 1 [seeding]); tpubwa_torch seeds in mode "
-                "'host' only")
+_NOT_PORTED = ("seed mode {!r} is one of tpubwa's TPU seeding machines "
+               "that the port leaves out on purpose (ROADMAP Queue 1, 'Not "
+               "ported on purpose'); use 'megaq' or 'host'")
+
+
+def max_hits(L: int, min_len: int) -> int:
+    """K3's hit slots a read (tpubwa/device/smem.py:209): a hit spans at
+    least min_len + 1 bases and the next starts past it, so a read of at
+    most L bases has fewer."""
+    return L // max(int(min_len), 1) + 1
+
+
+def seed_strategy1_plain(base, q, x: int, min_len: int, max_intv: int):
+    """bwt_seed_strategy1 (ref/smem.py:seed_strategy1), a generator over
+    ``smem_fused.run_reads``: (the next x, the row [x0, x1, size, qb, qe]
+    or None)."""
+    if q[x] > 3:
+        return x + 1, None
+    ik = base[q[x]]
+    for i in range(x + 1, len(q)):
+        if q[i] > 3:
+            return i + 1, None
+        ok = yield (ik, 3 - q[i], False)
+        if ok[2] < max_intv and i - x >= min_len:
+            return i + 1, [*ok, x, i + 1]
+        ik = ok
+    return len(q), None
+
+
+def seed_strategy_read(base, q, min_len: int, max_intv: int):
+    """Round 3 of one read (native/smem.cpp:486-497), a generator over
+    ``smem_fused.run_reads``: its hit rows in query order."""
+    hits = []
+    x = 0
+    while x < len(q):
+        if q[x] > 3:
+            x += 1
+            continue
+        x, m = yield from seed_strategy1_plain(base, q, x, min_len, max_intv)
+        if m is not None and m[2] > 0:
+            hits.append(m)
+    return hits
+
+
+def _seed_strategy_scan_plain(didx: DeviceIndex, qd: torch.Tensor,
+                              ld: torch.Tensor, min_len: int, max_intv: int,
+                              stats=None):
+    """K3's contract, read by read: (hits idt [B, maxh, 5], zero past
+    each read's n_hits, n_hits int32 [B]).  A ``stats`` dict gets
+    ``steps`` (int32 [B], the bwt_extend calls a read)."""
+    B, L = check_reads(didx, qd, ld)
+    base = base_intervals(didx)
+    got, steps = run_reads(didx, [
+        seed_strategy_read(base, q, min_len, max_intv)
+        for q in read_lists(qd, ld)])
+    hits = np.zeros((B, max_hits(L, min_len), 5), np.int64)
+    for r, rows in enumerate(got):
+        hits[r, :len(rows)] = np.asarray(rows, np.int64).reshape(-1, 5)
+    if stats is not None:
+        stats["steps"] = torch.tensor(steps, dtype=torch.int32)
+    return (torch.from_numpy(hits).to(didx.idt).to(qd.device),
+            torch.tensor([len(g) for g in got], dtype=torch.int32,
+                         device=qd.device))
+
+
+def _seed_strategy_scan(didx: DeviceIndex, qd: torch.Tensor,
+                        ld: torch.Tensor, min_len: int, max_intv: int,
+                        stats=None):
+    """Round 3 of mem_collect_intv (bwt_seed_strategy1 across each read)
+    for a chunk: reads uint8 [B, L], lens int32 [B] -> (hits idt [B,
+    maxh, 5] (x0, x1, size, qb, qe), zero past each read's count,
+    n_hits int32 [B]), maxh = ``max_hits(L, min_len)``.  CPU tensors run
+    ``_seed_strategy_scan_plain``; CUDA tensors launch K3
+    (``csrc/smem.cu``; ``_seed_strategy_scan.launches``).  A ``stats``
+    dict gets ``steps`` (int32 [B])."""
+    B, L = check_reads(didx, qd, ld)
+    if not _kernel_route(qd):
+        return _seed_strategy_scan_plain(didx, qd, ld, min_len, max_intv,
+                                         stats=stats)
+    lib = _build.load("smem", _SIGNATURES)
+    maxh = max_hits(L, min_len)
+    dev = qd.device
+    hits = torch.zeros((B, maxh, 5), dtype=didx.idt, device=dev)
+    n_hits = torch.empty(B, dtype=torch.int32, device=dev)
+    steps = torch.empty(B, dtype=torch.int32, device=dev)
+    rc = lib.tpubwa_seed_strategy(
+        *index_args(didx), qd.data_ptr(), L, ld.data_ptr(), B, int(min_len),
+        int(max_intv), maxh, hits.data_ptr(), n_hits.data_ptr(),
+        steps.data_ptr(), dev.index, stream_of(qd))
+    _raise_on(rc, "seed_strategy")
+    _seed_strategy_scan.launches += 1
+    if stats is not None:
+        stats["steps"] = steps
+    return hits, n_hits
+
+
+_seed_strategy_scan.launches = 0
 
 
 def _package_rows(flat, frid, reads, device):
@@ -28,21 +135,65 @@ def _package_rows(flat, frid, reads, device):
     return flat, frid, qd.to(device)
 
 
-def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
-                        fmi, mode: str = "host"):
+def merge_rounds(rows12, rids12, hits=None, n_hits=None):
+    """The chunk's rows as the seeding contract: K2's rows (idt [n, 5],
+    read-major, each read's round 1 then round 2) and their read ids,
+    then K3's hits ([B, maxh, 5] and n_hits [B], or None where round 3
+    did not run), merged by one stable lexsort by (rid, qb, qe)
+    (tpubwa/device/smem.py:767-771), which keeps ref/smem.py's order of
+    ties.  Returns (flat int64 [n, 5], frid int64 [n]) numpy arrays."""
+    blocks = [np.asarray(rows12).reshape(-1, 5)]
+    rids = [np.asarray(rids12)]
+    if hits is not None:
+        hits, n_hits = np.asarray(hits), np.asarray(n_hits)
+        valid = np.arange(hits.shape[1])[None, :] < n_hits[:, None]
+        blocks.append(hits[valid])
+        rids.append(np.nonzero(valid)[0])
+    flat = np.concatenate(blocks).astype(np.int64)
+    frid = np.concatenate(rids).astype(np.int64)
+    order = np.lexsort((flat[:, 4], flat[:, 3], frid))
+    return flat[order], frid[order]
+
+
+def _collect_megaq(opt, didx: DeviceIndex, reads: np.ndarray,
+                   lens: np.ndarray):
+    """Mode megaq: the chunk's reads go up once, K2 seeds rounds 1+2 and
+    K3 round 3, and the host merges their rows (``merge_rounds``)."""
+    qd = torch.from_numpy(np.ascontiguousarray(reads, np.uint8)).to(
+        didx.device)
+    ld = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(
+        didx.device)
+    rows12, rids12 = rounds12_megaq(opt, didx, qd, ld)
+    round3 = ()
+    if opt.max_mem_intv > 0:
+        round3 = tuple(x.cpu() for x in _seed_strategy_scan(
+            didx, qd, ld, opt.min_seed_len, opt.max_mem_intv))
+    return (*merge_rounds(rows12.cpu(), rids12.cpu(), *round3), qd)
+
+
+def collect_intv_device(opt, didx: DeviceIndex, reads: np.ndarray,
+                        lens: np.ndarray, fmi, mode: str = "host"):
     """Full 3-round mem_collect_intv for a packed chunk (uint8 reads
     [B, L], int32 lens [B]).  Returns (flat int64 [n, 5] rows (x0, x1,
     size, qb, qe), frid int64 [n] read ids, qd uint8 [B, L] on the
     index's device); rows are in (read, qb, qe) order, the
-    ref.smem.collect_intv contract per read.  SA positions are left to
-    the caller."""
+    ref.smem.collect_intv contract per read.  ``mode``: 'host' (the
+    native seeder on the host) or 'megaq' (K2 and K3 on the index's
+    device).  SA positions are left to the caller."""
+    if mode == "megaq":
+        return _collect_megaq(opt, didx, reads, lens)
+    if mode == "hybrid":
+        raise NotImplementedError(
+            "seed mode 'hybrid' (a share of each chunk on the card beside "
+            "native host seeding) is ROADMAP Queue 1 [hybrid]; use 'megaq' "
+            "or 'host'")
+    if mode in ("mega", "fused", "split", "cursor", "reach"):
+        raise NotImplementedError(_NOT_PORTED.format(mode))
     if mode != "host":
-        raise NotImplementedError(_GPU_SEEDING.format(mode))
+        raise ValueError(f"unknown seed mode {mode!r}")
     rows6 = smem_collect_batch_native(opt, fmi, reads, lens)
     if rows6 is None:
         raise NotImplementedError(
             "the native seeder (tpubwa_torch/native/smem.cpp) is "
-            "unavailable; "
-            "seeding without it needs the GPU seeding machine (ROADMAP "
-            "Queue 1 [seeding])")
+            "unavailable; seed mode 'megaq' seeds without it")
     return _package_rows(rows6[:, :5], rows6[:, 5], reads, didx.device)

@@ -1,0 +1,319 @@
+"""Rounds 1 and 2 of mem_collect_intv for a read chunk on the device, the
+counterpart of tpubwa/device/smem_fused.py:rounds12_megaq (seed mode
+``megaq``).
+
+Two versions, bit-identical by test:
+
+* ``rounds12_plain``: read by read, in the shape of ``ref/smem.py``,
+  over the plain ``set_intv``/``bwt_extend_plain`` of ``device/occ.py``;
+  for the tests and ``chip_smoke.py``'s phase 3h (it steps one interval
+  at a time, far too slow for a chunk);
+* K2, the hand-written CUDA kernel ``collect12_kernel`` of
+  ``csrc/smem.cu`` (one read a thread over ``csrc/smem.cuh``), reached
+  through ``rounds12_megaq`` for CUDA tensors.
+
+``rounds12_megaq`` routes by the tensors' device: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises.  Nothing
+falls back from one to the other, and no row is seeded on the host.
+
+Unlike tpubwa's lockstep machine, K2 follows bwa's scalar protocol read
+by read (the port's native seeder, ``native/smem.cpp``): every bound
+comes from the read's length, so no lane overflows, and there is no
+retry machine, host tail or SA fusion.  A read's rows go to a fixed
+number of row slots; a read with more is counted exactly and re-run in
+a second launch with room for the largest count (``collect12``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .occ import (DeviceIndex, I64, _kernel_route, _raise_on,
+                  bwt_extend_plain, set_intv)
+
+# row slots a read in K2's first launch: a 100 bp read has a few rows,
+# a repeat more; a read with more is re-run (collect12), a launch whose
+# time is its reads' chains (PERF.md §6: at 32 slots, two reads of 33
+# rows cost a third of the chunk's first launch)
+K2_SLOTS = 64
+# K2's scratch a read: curr, prev, a call's rows and round 1's rows
+K2_STACKS = 4
+
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    # (occ, L2, primary, seq_len, idx64, q, L, lens, rids, n,
+    #  min_seed_len, split_len, split_width, slots, scratch, rows,
+    #  counts, steps, device, stream) -> cudaError_t
+    "tpubwa_smem_rounds12": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP,
+                                   _VP, _CL, _CI, _CI, _CL, _CI, _VP, _VP,
+                                   _VP, _VP, _CI, _VP]),
+    # (occ, L2, primary, seq_len, idx64, q, L, lens, n, min_len,
+    #  max_intv, maxh, hits, n_hits, steps, device, stream)
+    "tpubwa_seed_strategy": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP,
+                                   _CL, _CI, _CL, _CI, _VP, _VP, _VP, _CI,
+                                   _VP]),
+}
+
+
+def split_len_of(opt) -> int:
+    """bwa's split_len: reads at least this long are re-seeded."""
+    return int(opt.min_seed_len * opt.split_factor + 0.499)
+
+
+def check_reads(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor):
+    """Raise unless ``qd`` is uint8 [B, L] and ``ld`` int32 [B] in
+    [0, L], contiguous, on the index's device; returns (B, L)."""
+    if qd.dtype != torch.uint8 or qd.dim() != 2:
+        raise ValueError(f"reads must be uint8 [B, L], got {qd.dtype} "
+                         f"{tuple(qd.shape)}")
+    B, L = qd.shape
+    if ld.dtype != torch.int32 or tuple(ld.shape) != (B,):
+        raise ValueError(f"lens must be int32 [{B}], got {ld.dtype} "
+                         f"{tuple(ld.shape)}")
+    for name, x in (("reads", qd), ("lens", ld)):
+        if x.device != didx.device:
+            raise ValueError(f"{name} is on {x.device}, the index on "
+                             f"{didx.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if B and bool(((ld < 0) | (ld > L)).any()):
+        raise ValueError(f"a read length outside [0, {L}]")
+    return B, L
+
+
+def index_args(didx: DeviceIndex):
+    """The index arguments of csrc/smem.cu's entries: occ, L2, primary,
+    seq_len, idx64."""
+    fm = didx.upload_fm()
+    return (fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
+            didx.seq_len, int(didx.idt == I64))
+
+
+def stream_of(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------------
+# the plain version (ref/smem.py's shape, one read at a time)
+#
+# Each read's protocol is a generator that yields its next extension, an
+# interval (x0, x1, size), a base and a direction, and is sent the
+# extended interval (x0, x1, size) back; ``run_reads`` batches the
+# pending extensions of all reads into one bwt_extend_plain call a
+# direction and step.  A read's steps are its own, in its own order:
+# only the calls are shared.
+
+def run_reads(didx: DeviceIndex, gens):
+    """Drive one generator a read (see above) to its end over
+    ``device/occ.py``'s plain ``bwt_extend_plain``.  Returns (their
+    return values, the bwt_extend calls each made)."""
+    out, steps, pending = [None] * len(gens), [0] * len(gens), {}
+
+    def advance(r, value):
+        try:
+            pending[r] = gens[r].send(value)
+        except StopIteration as stop:
+            out[r] = stop.value
+            pending.pop(r, None)
+
+    for r in range(len(gens)):
+        advance(r, None)
+    while pending:
+        for is_back in (True, False):
+            rs = [r for r, req in pending.items() if req[2] == is_back]
+            if not rs:
+                continue
+            ik = torch.tensor([pending[r][0] for r in rs], dtype=didx.idt,
+                              device=didx.device)
+            c = torch.tensor([pending[r][1] for r in rs], device=didx.device)
+            ok = bwt_extend_plain(didx, ik, is_back)[
+                torch.arange(len(rs), device=didx.device), c].tolist()
+            for r, v in zip(rs, ok):
+                steps[r] += 1
+                advance(r, tuple(v))
+    return out, steps
+
+
+def base_intervals(didx: DeviceIndex):
+    """set_intv of each base, as four (x0, x1, size)."""
+    return [tuple(v) for v in set_intv(didx, torch.arange(4)).tolist()]
+
+
+def smem1a_plain(base, q, x: int, min_intv: int):
+    """bwt_smem1a with max_intv = 0 (ref/smem.py:smem1a), a generator
+    over ``run_reads``: the SMEMs of q (a list of codes) covering x, as
+    [x0, x1, size, qb, qe] by query start, and the next x.  ``base``:
+    ``base_intervals``."""
+    n = len(q)
+    if q[x] > 3:
+        return [], x + 1
+    min_intv = max(min_intv, 1)
+    ik = [*base[q[x]], 0, x + 1]
+    curr = []
+    i = x + 1
+    while i < n:
+        if q[i] > 3:
+            curr.append(ik)
+            break
+        # forward extension reads the complement's slot
+        ok = [*(yield (ik[:3], 3 - q[i], False)), ik[3], ik[4]]
+        if ok[2] != ik[2]:
+            curr.append(ik)
+            if ok[2] < min_intv:
+                break
+        ik = ok
+        ik[4] = i + 1
+        i += 1
+    if i == n:
+        curr.append(ik)
+    curr.reverse()
+    ret = curr[0][4]
+    prev, mem = curr, []
+    i = x - 1
+    while i >= -1:
+        c = -1 if i < 0 or q[i] > 3 else q[i]
+        curr = []
+        for p in prev:
+            ok = (yield (p[:3], c, True)) if c >= 0 else None
+            if c < 0 or ok[2] < min_intv:
+                if not curr and (not mem or i + 1 < mem[-1][3]):
+                    mem.append([p[0], p[1], p[2], i + 1, p[4]])
+            elif not curr or ok[2] != curr[-1][2]:
+                curr.append([*ok, p[3], p[4]])
+        if not curr:
+            break
+        prev = curr
+        i -= 1
+    mem.reverse()
+    return mem, ret
+
+
+def collect12_read(base, q, min_seed_len: int, split_len: int,
+                   split_width: int):
+    """Rounds 1 and 2 of one read (native/smem.cpp:468-485), a generator
+    over ``run_reads``: the round-1 rows of at least min_seed_len bases,
+    then the round-2 rows of each re-seeded round-1 row in turn."""
+    r1 = []
+    x = 0
+    while x < len(q):
+        if q[x] > 3:
+            x += 1
+            continue
+        mem, x = yield from smem1a_plain(base, q, x, 1)
+        r1 += [m for m in mem if m[4] - m[3] >= min_seed_len]
+    r2 = []
+    for p in r1:
+        if p[4] - p[3] < split_len or p[2] > split_width:
+            continue
+        mem, _ = yield from smem1a_plain(base, q, (p[3] + p[4]) >> 1,
+                                         p[2] + 1)
+        r2 += [m for m in mem if m[4] - m[3] >= min_seed_len]
+    return r1 + r2
+
+
+def read_lists(qd: torch.Tensor, ld: torch.Tensor):
+    """Each read's codes as a list of ints."""
+    qn, lens = qd.cpu().numpy(), ld.cpu().numpy()
+    return [qn[r, :lens[r]].tolist() for r in range(len(lens))]
+
+
+def rounds12_plain(opt, didx: DeviceIndex, qd: torch.Tensor,
+                   ld: torch.Tensor, stats=None):
+    """K2's contract, read by read: (rows idt [n, 5] (x0, x1, size, qb,
+    qe), rids int64 [n]), read-major, each read's rows in the order
+    found.  A ``stats`` dict gets ``steps`` (int32 [B], the bwt_extend
+    calls a read) and ``second_launch_reads`` (0: the plain version has
+    no slots)."""
+    check_reads(didx, qd, ld)
+    base = base_intervals(didx)
+    got, steps = run_reads(didx, [
+        collect12_read(base, q, opt.min_seed_len, split_len_of(opt),
+                       opt.split_width) for q in read_lists(qd, ld)])
+    rows = [row for rs in got for row in rs]
+    rids = [r for r, rs in enumerate(got) for _ in rs]
+    if stats is not None:
+        stats["steps"] = torch.tensor(steps, dtype=torch.int32)
+        stats["second_launch_reads"] = 0
+    return (torch.tensor(rows, dtype=didx.idt).reshape(-1, 5).to(qd.device),
+            torch.tensor(rids, dtype=I64, device=qd.device))
+
+
+# ---------------------------------------------------------------------
+# the kernel
+
+def collect12(launch, n_reads: int, slots: int, device, stats=None):
+    """K2's launches: ``launch(rids, slots)`` seeds the reads ``rids``
+    (int32 [n]) with ``slots`` row slots each and returns (rows idt
+    [n, slots, 5], counts int32 [n], steps int32 [n]); a count past
+    ``slots`` is exact, its rows past the slots unwritten.  The first
+    launch seeds every read; the second, only where it runs, the reads
+    whose count passed ``slots``, with as many slots as the largest
+    count.  Returns (rows idt [n, 5], rids int64 [n]), read-major."""
+    rids = torch.arange(n_reads, dtype=torch.int32, device=device)
+    rows, counts, steps = launch(rids, slots)
+    over = counts > slots
+    n_over = int(over.sum())
+    parts = [(rids, rows, torch.where(over, 0, counts), slots)]
+    if n_over:
+        again = rids[over]
+        most = int(counts.max())
+        rows2, counts2, _ = launch(again, most)
+        parts.append((again, rows2, counts2, most))
+    out_rows, out_rids = [], []
+    for r, x, c, width in parts:
+        keep = torch.arange(width, device=device)[None, :] < c[:, None]
+        out_rows.append(x[keep])
+        out_rids.append(r.long()[:, None].expand(-1, width)[keep])
+    rows, rids = torch.cat(out_rows), torch.cat(out_rids)
+    if n_over:
+        order = torch.sort(rids, stable=True).indices
+        rows, rids = rows[order], rids[order]
+    if stats is not None:
+        stats["steps"] = steps
+        stats["second_launch_reads"] = n_over
+    return rows, rids
+
+
+def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
+                   ld: torch.Tensor, slots: int = K2_SLOTS, stats=None):
+    """Rounds 1 and 2 of mem_collect_intv for a chunk: reads uint8 [B, L]
+    (codes, 4 = N), lens int32 [B] -> (rows idt [n, 5] (x0, x1, size, qb,
+    qe), rids int64 [n]), read-major, each read's round-1 rows then its
+    round-2 rows in the order found (the native seeder's).  CPU tensors
+    run ``rounds12_plain``; CUDA tensors launch K2 (``csrc/smem.cu``),
+    with ``slots`` row slots a read in the first launch
+    (``rounds12_megaq.launches`` counts the launches).  A ``stats`` dict
+    gets ``steps`` (int32 [B], bwt_extend calls a read) and
+    ``second_launch_reads``."""
+    B, L = check_reads(didx, qd, ld)
+    if slots < 1:
+        raise ValueError(f"slots must be positive, got {slots}")
+    if not _kernel_route(qd):
+        return rounds12_plain(opt, didx, qd, ld, stats=stats)
+    lib = _build.load("smem", _SIGNATURES)
+    index = index_args(didx)
+    dev, idt = qd.device, didx.idt
+
+    def launch(rids, width):
+        n = len(rids)
+        scratch = torch.empty((n, K2_STACKS, L + 1, 5), dtype=idt, device=dev)
+        rows = torch.empty((n, width, 5), dtype=idt, device=dev)
+        counts = torch.empty(n, dtype=torch.int32, device=dev)
+        steps = torch.empty(n, dtype=torch.int32, device=dev)
+        rc = lib.tpubwa_smem_rounds12(
+            *index, qd.data_ptr(), L, ld.data_ptr(), rids.data_ptr(), n,
+            opt.min_seed_len, split_len_of(opt), opt.split_width, width,
+            scratch.data_ptr(), rows.data_ptr(), counts.data_ptr(),
+            steps.data_ptr(), dev.index, stream_of(qd))
+        _raise_on(rc, "smem_rounds12")
+        rounds12_megaq.launches += 1
+        return rows, counts, steps
+
+    return collect12(launch, B, slots, dev, stats=stats)
+
+
+rounds12_megaq.launches = 0
+

@@ -1,17 +1,18 @@
-"""csrc/extend.cu's, csrc/extend16.cu's, csrc/extend_bd.cu's and
-csrc/occ.cu's kernels on the host, for tests.
+"""csrc/extend.cu's, csrc/extend16.cu's, csrc/extend_bd.cu's,
+csrc/occ.cu's and csrc/smem.cu's kernels on the host, for tests.
 
 The kernel sources compile as plain C++ against ``csrc/warp_host.h``,
 which runs a warp's 32 lanes in lockstep, computes its shuffles,
 reductions and ballots by a loop over the lanes' operands, and has host
 versions of the 16x2 intrinsics and of the atomics.  ``build`` compiles
 one harness (``csrc/extend_host.cpp``, ``csrc/extend16_host.cpp``,
-``csrc/extend_bd_host.cpp`` or ``csrc/occ_host.cpp``) with g++ under
-``-fsanitize=address,undefined`` into ``build/host`` in the checkout (or
-``$TPUBWA_TORCH_HOST_BUILD``), keyed by a hash of its sources;
-``extend_host`` (K1 and K1-floor), ``extend_real_host`` (K1-real),
-``extend16_host`` (K1-i16), ``extend_bd_host`` (K1-bd, both passes) and
-``occ_host`` (K-sa and K-ext) run one on a set of jobs, and
+``csrc/extend_bd_host.cpp``, ``csrc/occ_host.cpp`` or
+``csrc/smem_host.cpp``) with g++ under ``-fsanitize=address,undefined``
+into ``build/host`` in the checkout (or ``$TPUBWA_TORCH_HOST_BUILD``),
+keyed by a hash of its sources; ``extend_host`` (K1 and K1-floor),
+``extend_real_host`` (K1-real), ``extend16_host`` (K1-i16),
+``extend_bd_host`` (K1-bd, both passes), ``occ_host`` (K-sa and K-ext)
+and ``smem_host`` (K2 and K3) run one on a set of jobs, and
 ``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
@@ -39,30 +40,37 @@ SOURCES = {"extend_host": ("extend_host.cpp", "extend.cu", "warp_host.h"),
                              "warp_host.h"),
            "extend_bd_host": ("extend_bd_host.cpp", "extend_bd.cu",
                               "warp_host.h"),
-           "occ_host": ("occ_host.cpp", "occ.cu", "fm.cuh", "warp_host.h")}
+           "occ_host": ("occ_host.cpp", "occ.cu", "fm.cuh", "warp_host.h"),
+           "smem_host": ("smem_host.cpp", "smem.cu", "smem.cuh", "fm.cuh",
+                         "warp_host.h")}
 FLAGS = ["-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined"]
+# without the sanitizers, for a count over a large input (smem_host's
+# count_rows on the card's machine)
+FAST_FLAGS = ["-std=c++17", "-O2"]
 # the intrinsics of extend16_host --ops, in its order
 INTRINSICS16 = ("__vadd2", "__vmaxs2", "__vimin_s16x2_relu",
                 "__viaddmin_s16x2", "__viaddmax_s16x2",
                 "__viaddmax_s16x2_relu", "__byte_perm")
 
 
-def build(name: str = "extend_host") -> Path:
+def build(name: str = "extend_host", sanitize: bool = True) -> Path:
     """The harness executable ``name`` (a key of ``SOURCES``), built on
-    first use.  Raises RuntimeError without g++ or when the build
+    first use, with ``FLAGS`` (or ``FAST_FLAGS`` where not
+    ``sanitize``).  Raises RuntimeError without g++ or when the build
     fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host harness needs it")
+    flags = FLAGS if sanitize else FAST_FLAGS
     key = b"".join((CSRC / s).read_bytes() for s in SOURCES[name])
-    key += " ".join(FLAGS).encode()
+    key += " ".join(flags).encode()
     exe = BUILD / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}"
     if not exe.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = exe.with_suffix(f".{os.getpid()}.tmp")
         entry = SOURCES[name][0]
-        res = subprocess.run([gxx, *FLAGS, "-o", str(tmp), str(CSRC / entry)],
+        res = subprocess.run([gxx, *flags, "-o", str(tmp), str(CSRC / entry)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed on {entry}:\n{res.stderr}")
@@ -70,11 +78,11 @@ def build(name: str = "extend_host") -> Path:
     return exe
 
 
-def _exec(name, arrays, args=(), dtype=np.int32):
+def _exec(name, arrays, args=(), dtype=np.int32, sanitize=True):
     """Run harness ``name`` on the concatenated bytes of ``arrays``;
     returns what it wrote, as ``dtype``.  Raises RuntimeError with its
     report if it fails."""
-    exe = build(name)
+    exe = build(name, sanitize)
     with tempfile.TemporaryDirectory() as d:
         inp, out = os.path.join(d, "in"), os.path.join(d, "out")
         with open(inp, "wb") as fh:
@@ -194,3 +202,42 @@ def occ_host(arrays, ranks, ik):
     n, m = len(ranks), len(ik) * 12
     return (got[:n], got[n:n + m].reshape(-1, 4, 3),
             got[n + m:].reshape(-1, 4, 3))
+
+
+def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
+              count_rows=False, sanitize=True):
+    """One launch of csrc/smem.cu's K2 (``kernel`` 0,
+    ``tpubwa_smem_rounds12``, on the reads ``rids`` with ``slots`` row
+    slots each) or K3 (1, ``tpubwa_seed_strategy``, on every read) on the
+    host.  ``arrays`` maps ``occ_blocks`` (uint32), ``L2`` (the rank
+    type, int32 or int64) and ``primary``, ``seq_len``; ``reads`` uint8
+    [B, L], ``lens`` int32 [B]; ``params`` (min_seed_len, split_len,
+    split_width, max_intv, maxh).  Returns int64 arrays: (rows [n,
+    slots, 5], counts [n], steps [n]) for K2, (hits [B, maxh, 5], n_hits
+    [B], steps [B]) for K3, and with ``count_rows`` the distinct occ rows
+    the launch read, ascending.  Raises RuntimeError with the harness's
+    report if a sanitizer stops it or the entry returns an error."""
+    L2 = np.asarray(arrays["L2"])
+    if L2.dtype not in (np.int32, np.int64):
+        raise TypeError(f"rank type {L2.dtype}")
+    occ = np.ascontiguousarray(arrays["occ_blocks"], np.uint32)
+    reads = np.ascontiguousarray(reads, np.uint8)
+    B, L = reads.shape
+    rids = np.ascontiguousarray(np.arange(B) if rids is None else rids,
+                                np.int32)
+    n = len(rids) if kernel == 0 else B
+    min_seed_len, split_len, split_width, max_intv, maxh = params
+    head = np.asarray([kernel, len(occ), arrays["primary"],
+                       arrays["seq_len"], L2.dtype == np.int64, B, L, n,
+                       min_seed_len, split_len, split_width, slots,
+                       max_intv, maxh, int(count_rows)], np.int64)
+    got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
+        lens, np.int32), *((rids,) if kernel == 0 else ())),
+        dtype=np.int64, sanitize=sanitize)
+    width = slots if kernel == 0 else maxh
+    k = n * width * 5
+    out = (got[:k].reshape(n, width, 5), got[k:k + n], got[k + n:k + 2 * n])
+    if count_rows:
+        m = int(got[k + 2 * n])
+        out += (got[k + 2 * n + 1:k + 2 * n + 1 + m],)
+    return out
