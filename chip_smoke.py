@@ -113,14 +113,19 @@ Phases, one output line each (a failing phase raises, exit != 0):
      pass of the first batch;
  3h. (after 5c, whose first chunk it uses) K2 and K3 == their plain
      versions (on CPU copies of the index) in every instantiation, K2
-     also at one row slot a read (its second launch), on the 3,000-base
-     genome and on 256 reads of 5c's first chunk with the edge reads
-     (across the sentinel's row both ways, a repeat unit, random, one
-     base, all N); megaq rows == the native seeder's on all 32,768 of
-     phase 5's reads, int32 and int64; then each kernel alone on that
-     chunk (16,384 reads, the main path's launch) in interleaved passes,
-     with its bwt_extend steps a read and a warp and the sectors of the
-     index it reads (counted by csrc/smem_host.cpp).
+     also at one row slot a read (its second launch) and with its steps
+     and chain a read, on the 3,000-base genome and on 256 reads of 5c's
+     first chunk with the edge reads (across the sentinel's row both
+     ways, a repeat unit, random, one base, all N); megaq rows == the
+     native seeder's on all 32,768 of phase 5's reads, int32 and int64;
+     then each kernel alone on that chunk (16,384 reads, the main path's
+     launch) in interleaved passes, with its bwt_extend steps a read, the
+     sectors of the index it reads (counted by csrc/smem_host.cpp) and,
+     for K3 (a read a thread), the steps of a warp's longest read, for K2
+     (a warp a read) the chain a read (forward steps plus backward
+     strips), its launch shape (warps a block and an SM) and registers;
+     K2 must refuse reads one base past its limit, in the C entry and the
+     wrapper; and the global loads of K2's and K3's SASS.
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
@@ -1567,6 +1572,51 @@ def sass_loops(text, function):
                 inner_candidates=len(found))
 
 
+def sass_loads(text, function):
+    """The global loads of the one function in ``cuobjdump -sass``
+    output whose mangled name matches the regex ``function``, as
+    information: how many of each width (bits), and for each innermost
+    loop that holds one, its loads, its instructions and whether a
+    load's value is read before the loop's back branch (``waits``: then
+    each trip's load waits for the last trip's, so the loop's loads
+    issue one after another)."""
+    name, ins, loops = sass_function(text, function)
+
+    def width(op):
+        mnem = _GUARD.sub("", op.strip()).split()[0]
+        if not mnem.startswith("LDG"):
+            return None
+        return 128 if ".128" in mnem else 64 if ".64" in mnem else 32
+
+    def counted(ops):
+        out = {}
+        for op in ops:
+            w = width(op)
+            if w:
+                out[str(w)] = out.get(str(w), 0) + 1
+        return out
+
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                        for o in loops)]
+    found = []
+    for lo, hi, _ in inner:
+        body = [op for a, op in ins if lo <= a <= hi]
+        if not counted(body):
+            continue
+        waits = False
+        for k, op in enumerate(body):
+            if width(op):
+                dest = set(def_use(op)[0])
+                waits |= any(dest & set(r for part in def_use(later)[1:3]
+                                        for r in part)
+                             for later in body[k + 1:])
+        found.append({"at": hex(lo), "instructions": len(body),
+                      "ldg": counted(body), "waits": waits})
+    return {"function": name, "ldg": counted(op for _, op in ins),
+            "loops": found}
+
+
 def bound(case, loop, rates):
     """(bound_ms, bound_by, parts): the larger of the bytes the call must
     move (each input read once, the output written once) over HBM
@@ -2253,7 +2303,8 @@ def seeding_checks(torch, np, label, fmi, arr, lens, opt):
         g, c = (gpu, cpu) if dt == "int32" else (int64_twin(torch, gpu),
                                                  int64_twin(torch, cpu))
         t0 = time.perf_counter()
-        want = smem_fused.rounds12_plain(opt, c, q, ld)
+        want_stats = {}
+        want = smem_fused.rounds12_plain(opt, c, q, ld, stats=want_stats)
         plain12 = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         want3 = smem._seed_strategy_scan_plain(c, q, ld, opt.min_seed_len,
@@ -2265,6 +2316,10 @@ def seeding_checks(torch, np, label, fmi, arr, lens, opt):
             got = smem_fused.rounds12_megaq(opt, g, q.to(DEV), ld.to(DEV),
                                             slots=slots, stats=stats)
             torch.cuda.synchronize()
+            for key in ("steps", "chain"):
+                if not torch.equal(stats[key].cpu(), want_stats[key]):
+                    raise AssertionError(f"{label}/{dt} K2 {key} (slots "
+                                         f"{slots}) != plain")
             if got[0].shape != want[0].shape:
                 raise AssertionError(f"{label}/{dt} K2 (slots {slots}): "
                                      f"{len(got[0])} rows, plain "
@@ -2312,31 +2367,78 @@ def seeding_bytes(torch, np, didx, qd, ld, opt, kernel, out_rows):
     return fm_bytes(io, [(rows, OCC_ROW)]), len(rows)
 
 
-def k2_alone(torch, opt, didx, qd, ld):
+def k2_alone(torch, opt, didx, qd, ld, lib=None):
     """K2's C entry alone on preallocated buffers (every read, the row
     slots of the first launch): a launch not counted on the wrapper.
     The buffers live on the returned function (``.buffers``: rids,
-    scratch, rows, counts, steps), which launches on their pointers."""
+    queue, rows, counts, steps, chain), which launches on their
+    pointers.  ``lib``: another build of csrc/smem.cu's entries (the
+    package's own where None)."""
     from tpubwa_torch.device import _build, smem_fused as sf
-    lib = _build.load("smem", sf._SIGNATURES)
+    lib = lib or _build.load("smem", sf._SIGNATURES)
     B, L = qd.shape
     rids = torch.arange(B, dtype=torch.int32, device=DEV)
-    scratch = torch.empty((B, sf.K2_STACKS, L + 1, 5), dtype=didx.idt,
-                          device=DEV)
+    queue = torch.empty(1, dtype=torch.int32, device=DEV)
     rows = torch.empty((B, sf.K2_SLOTS, 5), dtype=didx.idt, device=DEV)
-    counts = torch.empty(B, dtype=torch.int32, device=DEV)
-    steps = torch.empty(B, dtype=torch.int32, device=DEV)
+    counts, steps, chain = (torch.empty(B, dtype=torch.int32, device=DEV)
+                            for _ in range(3))
     args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
             rids.data_ptr(), B, opt.min_seed_len, sf.split_len_of(opt),
-            opt.split_width, sf.K2_SLOTS, scratch.data_ptr(),
+            opt.split_width, sf.K2_SLOTS, queue.data_ptr(),
             rows.data_ptr(), counts.data_ptr(), steps.data_ptr(),
-            qd.device.index, sf.stream_of(qd))
+            chain.data_ptr(), qd.device.index, sf.stream_of(qd))
 
     def launch():
         if lib.tpubwa_smem_rounds12(*args):
             raise AssertionError("K2's launch failed")
-    launch.buffers = (rids, scratch, rows, counts, steps)
+    launch.buffers = (rids, queue, rows, counts, steps, chain)
     return launch
+
+
+def k2_refusals(torch, didx, qd, ld, opt):
+    """K2 on reads one base longer than it takes, each rank type: the C
+    entry must refuse before it runs (a nonzero cudaError, nothing
+    written) and the wrapper raise RuntimeError naming the limit.
+    Returns {rank type: facts}, with the launch shape at the longest
+    length it takes."""
+    from tpubwa_torch.device import _build, smem_fused as sf
+    lib = _build.load("smem", sf._SIGNATURES)
+    out = {}
+    for dt, x in (("int32", didx), ("int64", int64_twin(torch, didx))):
+        _, shape = sf.k2_shape(lib, x.idt == torch.int64, 128,
+                               qd.device.index)
+        most = shape["max_len"]
+        if most != sf.k2_max_len(x.idt):
+            raise AssertionError(f"K2's limit {most} != k2_max_len")
+        wide = torch.full((len(ld), most + 1), 4, dtype=torch.uint8,
+                          device=DEV)
+        wide[:, :qd.shape[1]] = qd
+        queue, counts = (torch.full((n,), -7, dtype=torch.int32, device=DEV)
+                         for n in (1, len(ld)))
+        rids = torch.arange(len(ld), dtype=torch.int32, device=DEV)
+        rows = torch.empty((len(ld), 1, 5), dtype=x.idt, device=DEV)
+        rc = lib.tpubwa_smem_rounds12(
+            *sf.index_args(x), wide.data_ptr(), most + 1, ld.data_ptr(),
+            rids.data_ptr(), len(ld), opt.min_seed_len, sf.split_len_of(opt),
+            opt.split_width, 1, queue.data_ptr(), rows.data_ptr(),
+            counts.data_ptr(), None, None, qd.device.index,
+            sf.stream_of(wide))
+        torch.cuda.synchronize()
+        if rc == 0 or bool((counts != -7).any() | (queue != -7).any()):
+            raise AssertionError(f"K2 ran reads of {most + 1} bases ({dt})")
+        try:
+            sf.rounds12_megaq(opt, x, wide, ld)
+        except RuntimeError as e:
+            if f"at most {most} bases" not in str(e):
+                raise
+            said = str(e)
+        else:
+            raise AssertionError(f"the wrapper took {most + 1} bases ({dt})")
+        _, at_most = sf.k2_shape(lib, x.idt == torch.int64, most,
+                                 qd.device.index)
+        out[dt] = {"max_len": most, "refused_rc": rc, "raised": said,
+                   "shape_at_max_len": at_most}
+    return out
 
 
 def k3_alone(torch, opt, didx, qd, ld):
@@ -2427,12 +2529,15 @@ def phase_seeding(torch, np, main, megaq):
         "seed_strategy wrapper": lambda: smem._seed_strategy_scan(
             didx, qd, ld, opt_.min_seed_len, opt_.max_mem_intv)},
         10, 4, torch.device(DEV))
-    # what the timed launches left: K2's exact counts and steps, K3's hits
-    _, _, _, counts, steps = alone["smem_rounds12"].buffers
+    # what the timed launches left: K2's exact counts, steps and chain,
+    # K3's hits
+    *_, counts, steps, chain = alone["smem_rounds12"].buffers
     want_counts = torch.bincount(rids12, minlength=len(ld))
     if not (torch.equal(counts.long(), want_counts)
-            and torch.equal(steps, stats12["steps"])):
-        raise AssertionError("K2 alone != its wrapper's counts and steps")
+            and torch.equal(steps, stats12["steps"])
+            and torch.equal(chain, stats12["chain"])):
+        raise AssertionError("K2 alone != its wrapper's counts, steps and "
+                             "chain")
     got_hits, got_n = alone["seed_strategy"].buffers
     if not (torch.equal(got_hits, hits) and torch.equal(got_n, n_hits)):
         raise AssertionError("K3 alone != its wrapper's hits")
@@ -2444,8 +2549,6 @@ def phase_seeding(torch, np, main, megaq):
             ("smem_rounds12", stats12, len(rows12), 0),
             ("seed_strategy", stats3, int(n_hits.sum()), 1)):
         steps = stats["steps"].cpu().numpy()
-        pad = np.zeros(-len(steps) % 32, steps.dtype)
-        warp_max = np.concatenate([steps, pad]).reshape(-1, 32).max(1)
         nbytes, n_occ = seeding_bytes(torch, np, didx, qd, ld, opt_, kernel,
                                       n_out)
         case = {"reads": len(ld), "rows": n_out,
@@ -2455,18 +2558,55 @@ def phase_seeding(torch, np, main, megaq):
                 "plain_reads": cases[f"{GENOME_MB} Mbp"]["int32"]["reads"],
                 "steps_mean": round(float(steps.mean()), 3),
                 "steps_max": int(steps.max()),
-                "warp_max_steps_mean": round(float(warp_max.mean()), 3),
                 "occ_rows_read": n_occ, "bytes": nbytes,
                 "max_abs_err": 0}
+        if kernel:  # K3, one read a thread: a warp waits for its longest
+            pad = np.zeros(-len(steps) % 32, steps.dtype)
+            warp_max = np.concatenate([steps, pad]).reshape(-1, 32).max(1)
+            case["warp_max_steps_mean"] = round(float(warp_max.mean()), 3)
+        else:  # K2, a warp a read: its chain is what it waits for
+            chain = stats["chain"].cpu().numpy()
+            case.update(chain_mean=round(float(chain.mean()), 3),
+                        chain_max=int(chain.max()))
         case["bound_ms"] = round(bytes_bound(case)[0], 6)
         out[name] = case
     out["smem_rounds12"]["second_launch_reads"] = stats12[
         "second_launch_reads"]
+    out["smem_rounds12"].update(k2_launch_facts(torch, didx, qd.shape[1]))
     print("[3h seeding] " + json.dumps({
         "tolerance": 0, "cases": cases, "native_seeder": native,
         "main_launch": out, "card": "the first chunk of 5c (16,384 reads)",
+        "k2_refusals": k2_refusals(torch, didx, qd, ld, opt_),
+        "sass_loads": seeding_sass(),
         "seconds": round(time.perf_counter() - t_phase, 1)}), flush=True)
     return out
+
+
+def k2_launch_facts(torch, didx, L):
+    """K2's launch at reads of L bases on this card: the warps a block,
+    the blocks and warps an SM the occupancy query allows, the bytes of a
+    warp's stacks, and each instantiation's registers from ptxas."""
+    from tpubwa_torch.device import _build, smem_fused as sf
+    lib = _build.load("smem", sf._SIGNATURES)
+    rc, shape = sf.k2_shape(lib, didx.idt == torch.int64, L,
+                            torch.cuda.current_device())
+    if rc:
+        raise AssertionError(f"K2 refuses reads of {L} bases")
+    report = _build.build_info["smem"]["ptxas"]
+    return {"launch": dict(shape, warps_per_sm=shape["warps"]
+                           * shape["blocks_per_sm"]),
+            "ptxas": {dt: ptxas_usage(report, rf"collect12_kernelI{m}E")
+                      for dt, m in (("int32", "i"), ("int64", "l"))}}
+
+
+def seeding_sass():
+    """The global loads of K2 and K3 (int32) in their SASS (sass_loads):
+    how wide, and whether a loop's loads wait for one another."""
+    from tpubwa_torch.device import _build
+    text = _run([_cuobjdump(), "-sass", _build.build_info["smem"]["so"]])
+    return {name: sass_loads(text, rf"{fn}IiE")
+            for name, fn in (("smem_rounds12", "collect12_kernel"),
+                             ("seed_strategy", "seed_strategy_kernel"))}
 
 
 def main() -> int:

@@ -268,6 +268,27 @@ def test_wrappers_check_their_inputs(genomes):
         smem_fused.rounds12_megaq(opt, didx, arr, lens, slots=0)
 
 
+@pytest.mark.parametrize("idt", ["int32", "int64"])
+def test_k2_refuses_reads_too_long(genomes, monkeypatch, idt):
+    """K2 keeps a read's stacks in a block's shared memory: a read length
+    past its limit raises RuntimeError naming the limit, and no plain
+    route seeds it instead (the CPU route refuses what the card
+    refuses)."""
+    fmi, _, reads = genomes["test"]
+    didx = _didx(fmi, idt)
+    most = smem_fused.k2_max_len(didx.idt)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version seeded a refused read")
+
+    monkeypatch.setattr(smem_fused, "rounds12_plain", no_plain)
+    arr = torch.full((1, most + 1), 4, dtype=torch.uint8)
+    arr[0, :100] = torch.from_numpy(reads[0])
+    lens = torch.tensor([100], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match=f"at most {most} bases"):
+        smem_fused.rounds12_megaq(MemOpt(), didx, arr, lens)
+
+
 def test_other_seed_modes_raise(genomes):
     fmi, _, reads = genomes["test"]
     didx = _didx(fmi, "int32")

@@ -317,3 +317,40 @@ def test_the_fm_rows_are_bound_by_their_bytes_alone():
     # a row with no band cells takes no part of the cells' bound
     with pytest.raises(KeyError):
         c.bound({"bytes": nbytes}, c.RECURRENCE_OPS["ksw_extend"], {})
+
+
+# occ4's word loop as one thread a read compiles it: one 32-bit load a
+# trip, its value counted before the back branch; then a row fetched as
+# three 16-byte loads in straight-line code
+LOADS = """
+        Function : _Z5occ4sPj
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_2:
+        /*0010*/                   LDG.E.CONSTANT R8, desc[UR4][R4.64] ;
+        /*0020*/                   LOP3.LUT R9, R8, R12, RZ, 0x3c, !PT ;
+        /*0030*/                   POPC R9, R9 ;
+        /*0040*/                   IADD3 R4, P1, R4, 0x4, RZ ;
+        /*0050*/                   ISETP.NE.AND P3, PT, R18, RZ, PT ;
+        /*0060*/               @P3 BRA `(.L_x_2) ;
+        /*0070*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64] ;
+        /*0080*/                   LDG.E.128.CONSTANT R16, desc[UR4][R2.64+0x10] ;
+        /*0090*/                   LDG.E.128.CONSTANT R20, desc[UR4][R2.64+0x20] ;
+.L_x_3:
+        /*00a0*/                   LDG.E.CONSTANT R8, desc[UR4][R6.64] ;
+        /*00b0*/                   IADD3 R6, P1, R6, 0x4, RZ ;
+        /*00c0*/                   ISETP.NE.AND P4, PT, R19, RZ, PT ;
+        /*00d0*/               @P4 BRA `(.L_x_3) ;
+        /*00e0*/                   EXIT ;
+"""
+
+
+def test_sass_loads_counts_widths_and_loops_that_wait():
+    """Five loads: three 128-bit, two 32-bit in two loops; the first
+    loop reads its load's value (POPC of the LOP3 of R8) before its back
+    branch, the second never does."""
+    got = c.sass_loads(LOADS, r"occ4")
+    assert got["ldg"] == {"32": 2, "128": 3}
+    assert got["loops"] == [
+        {"at": "0x10", "instructions": 6, "ldg": {"32": 1}, "waits": True},
+        {"at": "0xa0", "instructions": 4, "ldg": {"32": 1}, "waits": False}]

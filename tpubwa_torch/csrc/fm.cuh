@@ -18,19 +18,30 @@
 // GRCh38 scale (doubled length 6.2e9) they pass 2^31.
 //
 // Rows are read through __ldg: the index is read-only for a kernel's
-// life.  With TPUBWA_WARP_HOST defined (the host harness of
-// csrc/warp_host.h) __popc and __ldg are their host equivalents, and a
-// harness may set fm::read_rows to collect the occ row of every query.
+// life.  A count query reads its whole row as three 16-byte loads
+// (load_row), issued together before any is used, and counts from
+// registers, where a loop over the row's words, its trip count the
+// rank's, would load them one at a time; bwt_extend loads the rows of
+// both its queries before it counts either, and one row where both fall
+// in the same 128-base block (bwa's bwt_2occ4).  With TPUBWA_WARP_HOST
+// defined (the host harness of csrc/warp_host.h) __popc, __ldg and the
+// 16-byte load are their host equivalents (the last checks its
+// alignment), and a harness may set fm::read_rows to collect the occ row
+// of every query.
 
 #pragma once
 
 #include <cstdint>
 
 #ifdef TPUBWA_WARP_HOST
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
 #include <vector>
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+struct uint4 { unsigned x, y, z, w; };
 #endif
 
 namespace fm {
@@ -51,7 +62,19 @@ struct Index {
     const Idx* L2;        // [5]: 0, #A, #A+#C, #A+#C+#G, seq_len
     Idx primary;          // conceptual row of the sentinel
     Idx seq_len;          // doubled text length
+    // L2's values, which a kernel loads once (with_l2) and reads where
+    // the base is a constant after unrolling, so that they stay in
+    // registers; a base known only at run time reads L2
+    Idx l2[5];
 };
+
+// f with L2's values loaded into f.l2: a kernel's first step
+template <class Idx>
+__device__ __forceinline__ Index<Idx> with_l2(Index<Idx> f) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) f.l2[i] = __ldg(f.L2 + i);
+    return f;
+}
 
 // one bit (the low bit of the pair) per base of w equal to c
 __device__ __forceinline__ uint32_t match(uint32_t w, int c) {
@@ -82,29 +105,103 @@ __device__ __forceinline__ int bwt_code(const Index<Idx>& f, Idx x) {
     return (int)(w >> ((15 - (within & 15)) << 1)) & 3;
 }
 
+// the 16 bytes at p (16-byte aligned: an occ row is 48 bytes, the
+// array's start aligned), one load
+__device__ __forceinline__ uint4 load16(const uint32_t* p) {
+#ifdef TPUBWA_WARP_HOST
+    if ((uintptr_t)p & 15) {
+        std::fprintf(stderr, "fm: a 16-byte load at a misaligned address\n");
+        std::abort();
+    }
+    uint4 v;
+    std::memcpy(&v, p, sizeof v);
+    return v;
+#else
+    return __ldg(reinterpret_cast<const uint4*>(p));
+#endif
+}
+
+// an occ row: the 4 checkpoint counts and the block's 8 BWT words
+struct Row {
+    uint4 cnt, lo, hi;  // counts; words 0-3; words 4-7
+};
+
+// the occ row of stored BWT index x, its three loads issued together
+template <class Idx>
+__device__ __forceinline__ Row load_row(const Index<Idx>& f, Idx x) {
+    const uint32_t* row = occ_row(f, x);
+    return Row{load16(row), load16(row + 4), load16(row + 8)};
+}
+
+// the pairs of a word's first cov bases (none where cov <= 0), low bits
+__device__ __forceinline__ uint32_t low_cover(int cov) {
+    return cov >= 16 ? 0x55555555u
+           : cov <= 0 ? 0u
+                      : 0x55555555u << (2 * (16 - cov));
+}
+
+// occ of each base from a row's checkpoint counts ck and, over its
+// block's first nb bases, the pairs' low bits set (lo), high bits set
+// (hi) and both (both): a base of code c has low bit c & 1 and high bit
+// c >> 1, so T = both, G = high - both, C = low - both, A = the rest
+template <class Idx>
+__device__ __forceinline__ void bit_counts(const uint4& ck, int nb,
+                                           uint32_t lo, uint32_t hi,
+                                           uint32_t both, Idx cnt[4]) {
+    cnt[0] = (Idx)ck.x + (Idx)(nb - hi - lo + both);
+    cnt[1] = (Idx)ck.y + (Idx)(lo - both);
+    cnt[2] = (Idx)ck.z + (Idx)(hi - both);
+    cnt[3] = (Idx)ck.w + (Idx)both;
+}
+
+// occ of each base among the row's checkpoint and its block's first nb
+// bases (nb in [1, 128]), from registers: per word, the pairs' low and
+// high bits under the cover mask (bit_counts).
+template <class Idx>
+__device__ __forceinline__ void row_occ4(const Row& r, int nb, Idx cnt[4]) {
+    const uint32_t w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w,
+                           r.hi.x, r.hi.y, r.hi.z, r.hi.w};
+    uint32_t lo = 0, hi = 0, both = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const uint32_t m = low_cover(nb - 16 * i);
+        const uint32_t l = w[i] & m, h = (w[i] >> 1) & m;
+        lo += __popc(l);
+        hi += __popc(h);
+        both += __popc(l & h);
+    }
+    bit_counts(r.cnt, nb, lo, hi, both, cnt);
+}
+
+// occ4's stored row for conceptual row k (kk = k - (k >= primary),
+// clamped into the stored rows); false where occ4 reads no row: k < 0
+// (all zero) and k == seq_len (the totals, from L2)
+template <class Idx>
+__device__ __forceinline__ bool occ4_kk(const Index<Idx>& f, Idx k, Idx* kk) {
+    Idx x = k >= f.primary ? k - 1 : k;
+    *kk = x < 0 ? 0 : x > f.seq_len - 1 ? f.seq_len - 1 : x;
+    return k >= 0 && k != f.seq_len;
+}
+
+// occ4 where it reads no row (see occ4_kk)
+template <class Idx>
+__device__ __forceinline__ void occ4_edge(const Index<Idx>& f, Idx k,
+                                          Idx cnt[4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+        cnt[c] = k < 0 ? (Idx)0 : f.l2[c + 1] - f.l2[c];
+}
+
 // occ(k, c) for all four bases; k a conceptual row in [-1, seq_len]
-// (occ4's kk = k - (k >= primary), clamped into the stored rows)
 template <class Idx>
 __device__ __forceinline__ void occ4(const Index<Idx>& f, Idx k,
                                      Idx cnt[4]) {
-    if (k < 0) {
-        for (int c = 0; c < 4; ++c) cnt[c] = 0;
+    Idx kk;
+    if (!occ4_kk(f, k, &kk)) {
+        occ4_edge(f, k, cnt);
         return;
     }
-    if (k == f.seq_len) {
-        for (int c = 0; c < 4; ++c) cnt[c] = __ldg(f.L2 + c + 1) - __ldg(f.L2 + c);
-        return;
-    }
-    Idx kk = k >= f.primary ? k - 1 : k;
-    kk = kk < 0 ? 0 : kk > f.seq_len - 1 ? f.seq_len - 1 : kk;
-    const uint32_t* row = occ_row(f, kk);
-    const int nb = (int)(kk & 127) + 1;
-    uint32_t n[4] = {0, 0, 0, 0};
-    for (int i = 0; i < 8 && 16 * i < nb; ++i) {
-        const uint32_t w = __ldg(row + 4 + i), m = cover(nb - 16 * i);
-        for (int c = 0; c < 4; ++c) n[c] += __popc(match(w, c) & m);
-    }
-    for (int c = 0; c < 4; ++c) cnt[c] = (Idx)__ldg(row + c) + (Idx)n[c];
+    row_occ4(load_row(f, kk), (int)(kk & 127) + 1, cnt);
 }
 
 // occ(k, c) for one base
@@ -171,29 +268,50 @@ __device__ __forceinline__ void set_intv(const Index<Idx>& f, int c,
     ik[2] = __ldg(f.L2 + c + 1) - __ldg(f.L2 + c);
 }
 
-// bidirectional extension of ik = (x0, x1, size) by each base
-// (bwt.c:bwt_extend): ok[c] = the interval of c prepended (IsBack) or
-// appended, as (x0, x1, size) in tpubwa's order.  Two occ4 queries, at
-// piv - 1 and piv - 1 + size.
+// bwt_extend's result from its two occ4 queries: tk = occ4(piv - 1),
+// tl = occ4(piv - 1 + size)
 template <class Idx, bool IsBack>
-__device__ __forceinline__ void bwt_extend(const Index<Idx>& f,
-                                           const Idx ik[3], Idx ok[4][3]) {
+__device__ __forceinline__ void extend_counts(const Index<Idx>& f,
+                                              const Idx ik[3],
+                                              const Idx tk[4],
+                                              const Idx tl[4],
+                                              Idx ok[4][3]) {
     const Idx piv = IsBack ? ik[0] : ik[1];
     const Idx oth = IsBack ? ik[1] : ik[0];
     const Idx sz = ik[2];
-    Idx tk[4], tl[4];
-    occ4(f, piv - 1, tk);
-    occ4(f, piv - 1 + sz, tl);
     const Idx sent = piv <= f.primary && piv + sz - 1 >= f.primary;
     Idx acc = oth + sent;
+#pragma unroll
     for (int c = 3; c >= 0; --c) {
         const Idx size = tl[c] - tk[c];
-        const Idx npiv = __ldg(f.L2 + c) + 1 + tk[c];
+        const Idx npiv = f.l2[c] + 1 + tk[c];
         ok[c][IsBack ? 0 : 1] = npiv;
         ok[c][IsBack ? 1 : 0] = acc;
         ok[c][2] = size;
         acc += size;
     }
+}
+
+// bidirectional extension of ik = (x0, x1, size) by each base
+// (bwt.c:bwt_extend): ok[c] = the interval of c prepended (IsBack) or
+// appended, as (x0, x1, size) in tpubwa's order.  Two occ4 queries, at
+// piv - 1 and piv - 1 + size: both rows are loaded before either is
+// counted, and once where the two fall in one block.
+template <class Idx, bool IsBack>
+__device__ __forceinline__ void bwt_extend(const Index<Idx>& f,
+                                           const Idx ik[3], Idx ok[4][3]) {
+    const Idx piv = IsBack ? ik[0] : ik[1];
+    const Idx k = piv - 1, l = piv - 1 + ik[2];
+    Idx kk, ll, tk[4], tl[4];
+    const bool rk = occ4_kk(f, k, &kk), rl = occ4_kk(f, l, &ll);
+    Row a{}, b{};
+    if (rk) a = load_row(f, kk);
+    if (rl) b = rk && (kk >> 7) == (ll >> 7) ? a : load_row(f, ll);
+    if (rk) row_occ4(a, (int)(kk & 127) + 1, tk);
+    else occ4_edge(f, k, tk);
+    if (rl) row_occ4(b, (int)(ll & 127) + 1, tl);
+    else occ4_edge(f, l, tl);
+    extend_counts<Idx, IsBack>(f, ik, tk, tl, ok);
 }
 
 }  // namespace fm

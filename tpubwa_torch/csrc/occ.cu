@@ -85,6 +85,7 @@ bwt_extend_kernel(fm::Index<Idx> f, const Idx* __restrict__ ik,
                   Idx* __restrict__ ok, int64_t n) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
+    f = fm::with_l2(f);
     const Idx in[3] = {ik[3 * i], ik[3 * i + 1], ik[3 * i + 2]};
     Idx res[4][3];
     fm::bwt_extend<Idx, IsBack>(f, in, res);

@@ -1,20 +1,22 @@
 // SMEM seeding device functions (bwt.c:bwt_smem1a and
-// bwt_seed_strategy1), one read a thread, over the FM-index functions of
-// csrc/fm.cuh (set_intv, bwt_extend), for the seeding kernels of
-// csrc/smem.cu.  They follow the port's native scalar seeder step for
-// step (tpubwa_torch/native/smem.cpp smem1a :235-318, seed_strategy1
+// bwt_seed_strategy1) over the FM-index functions of csrc/fm.cuh
+// (set_intv, bwt_extend), for the seeding kernels of csrc/smem.cu: smem1a
+// runs one read on a warp (K2), seed_strategy1 one read a thread (K3).
+// They follow the port's native scalar seeder step for step
+// (tpubwa_torch/native/smem.cpp smem1a :235-318, seed_strategy1
 // :321-344), and so bwa's scalar protocol, not the lockstep machines of
-// tpubwa/device/smem_fused.py.
+// tpubwa/device/smem_fused.py: smem1a makes exactly the bwt_extend calls
+// of the scalar loop, only some of them side by side.
 //
 // An interval is five Idx: (x0, x1, size, qb, qe), the layout of a seeding
 // row.  smem1a keeps its three stacks (curr, prev and the call's output)
-// in memory the caller gives it: a call on a read of len bases pushes at
+// in the warp's shared memory: a call on a read of len bases pushes at
 // most len - x intervals forward, never more than it had onto a backward
-// stack, and emits rows of distinct qe in (x, len], so len + 1 intervals
-// a stack always suffice and no bound can be passed.
+// stack, and emits rows of distinct qb in [0, x], so len + 1 intervals a
+// stack always suffice and no bound can be passed.
 //
 // Like fm.cuh, the file compiles as plain C++ with TPUBWA_WARP_HOST
-// defined (csrc/smem_host.cpp).
+// defined (csrc/smem_host.cpp), after warp_host.h.
 
 #pragma once
 
@@ -23,6 +25,8 @@
 #include "fm.cuh"
 
 namespace seed {
+
+constexpr unsigned kFull = 0xffffffffu;
 
 template <class Idx>
 struct Intv {
@@ -39,37 +43,122 @@ __device__ __forceinline__ Intv<Idx> set_intv(const fm::Index<Idx>& f,
 }
 
 // ik extended by base c (the base in the extension's direction), qb and qe
-// kept; counts the bwt_extend calls in steps
+// kept
 template <class Idx, bool IsBack>
 __device__ __forceinline__ Intv<Idx> extend(const fm::Index<Idx>& f,
-                                            const Intv<Idx>& ik, int c,
-                                            int& steps) {
+                                            const Intv<Idx>& ik, int c) {
     const Idx in[3] = {ik.x0, ik.x1, ik.size};
     Idx ok[4][3];
     fm::bwt_extend<Idx, IsBack>(f, in, ok);
-    ++steps;
     return Intv<Idx>{ok[c][0], ok[c][1], ok[c][2], ik.qb, ik.qe};
 }
 
-template <class Idx>
-__device__ __forceinline__ void reverse(Intv<Idx>* a, int n) {
-    for (int i = 0, j = n - 1; i < j; ++i, --j) {
-        const Intv<Idx> t = a[i];
-        a[i] = a[j];
-        a[j] = t;
-    }
+// bwt_extend of ik on one warp: every lane gives the same ik and gets
+// the same ok.  Lanes 0-7 count one BWT word each of piv - 1's row, lanes
+// 8-15 one of piv - 1 + size's (a 32-bit load each, all issued at once,
+// with every lane's broadcast loads of both rows' checkpoint counts);
+// each packs its word's low, high and both bits under the cover mask
+// into bytes (at most 16 each, 128 a row: no carry), and two warp sums
+// (__reduce_add_sync) add them up, one row each.  The same counts as
+// fm::bwt_extend, which counts all 16 words in each lane.
+template <class Idx, bool IsBack>
+__device__ __forceinline__ void bwt_extend_warp(const fm::Index<Idx>& f,
+                                                const Idx ik[3],
+                                                Idx ok[4][3]) {
+    const int lane = threadIdx.x & 31;
+    const Idx piv = IsBack ? ik[0] : ik[1];
+    const Idx k = piv - 1, l = piv - 1 + ik[2];
+    Idx kk, ll, tk[4], tl[4];
+    const bool rk = fm::occ4_kk(f, k, &kk), rl = fm::occ4_kk(f, l, &ll);
+    const bool of_l = lane & 8;  // this lane's word is of l's row
+    const Idx x = of_l ? ll : kk;
+    uint32_t w = 0;
+    uint4 ck{}, cl{};
+    if (lane < 16 && (of_l ? rl : rk))
+        w = __ldg(fm::occ_row(f, x) + 4 + (lane & 7));
+    if (rk) ck = fm::load16(f.occ + (int64_t)(kk >> 7) * fm::kRowWords);
+    if (rl) cl = fm::load16(f.occ + (int64_t)(ll >> 7) * fm::kRowWords);
+    const uint32_t m = fm::low_cover((int)(x & 127) + 1 - 16 * (lane & 7));
+    const uint32_t lo = w & m, hi = (w >> 1) & m;
+    const uint32_t bits = lane < 16 ? __popc(lo) | __popc(hi) << 8 |
+                                          __popc(lo & hi) << 16
+                                    : 0u;
+    const uint32_t sk = __reduce_add_sync(kFull, of_l ? 0u : bits);
+    const uint32_t sl = __reduce_add_sync(kFull, of_l ? bits : 0u);
+    if (rk)
+        fm::bit_counts(ck, (int)(kk & 127) + 1, sk & 255u, sk >> 8 & 255u,
+                       sk >> 16, tk);
+    else
+        fm::occ4_edge(f, k, tk);
+    if (rl)
+        fm::bit_counts(cl, (int)(ll & 127) + 1, sl & 255u, sl >> 8 & 255u,
+                       sl >> 16, tl);
+    else
+        fm::occ4_edge(f, l, tl);
+    fm::extend_counts<Idx, IsBack>(f, ik, tk, tl, ok);
+}
+
+// ik extended by base c on one warp (bwt_extend_warp), qb and qe kept
+template <class Idx, bool IsBack>
+__device__ __forceinline__ Intv<Idx> extend_warp(const fm::Index<Idx>& f,
+                                                 const Intv<Idx>& ik,
+                                                 int c) {
+    const Idx in[3] = {ik.x0, ik.x1, ik.size};
+    Idx ok[4][3];
+    bwt_extend_warp<Idx, IsBack>(f, in, ok);
+    return Intv<Idx>{ok[c][0], ok[c][1], ok[c][2], ik.qb, ik.qe};
+}
+
+// the lanes below `lane`
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+    return (1u << lane) - 1u;
+}
+
+// the highest lane of a non-empty lane mask
+__device__ __forceinline__ int top_lane(unsigned mask) {
+    return 31 - __clz(mask);
 }
 
 // bwt_smem1a with max_intv = 0, as mem_collect_intv calls it in rounds 1
-// and 2 (bwa's max_intv branches never run there): the SMEMs of q[0, len)
-// that cover x, of at least min_intv occurrences, into mem[0, n_mem) by
-// query start.  curr and prev are stacks of len + 1 intervals, mem holds
-// len + 1.  Returns the next x.
+// and 2 (bwa's max_intv branches never run there), on one warp: the
+// SMEMs of q[0, len) that cover x, of at least min_intv occurrences, into
+// mem[0, n_mem) by DEcreasing query start (the caller reads them
+// backwards).  Every lane calls it with the same arguments and leaves
+// with the same n_mem, steps, chain and return value (the next x); curr,
+// prev and mem are the warp's stacks of len + 1 intervals in shared
+// memory.  steps counts the bwt_extend calls (the scalar loop's), chain
+// the rounds of them the warp makes one after another: a forward step,
+// or a strip of up to 32 backward extensions.
+//
+// The forward phase is one chain: the warp makes each extension
+// together (bwt_extend_warp) and lane 0 pushes.  The backward phase
+// extends the stack by q[i] a lane an interval, in strips of 32.  The
+// scalar loop (native/smem.cpp:286-309) visits prev in order and (a)
+// keeps a surviving extension unless its size equals that of the last
+// one it kept, and (b) emits the first failing interval that comes before
+// any survivor, unless a row already starts at or before i + 1.  The
+// extensions themselves are independent; the warp gets the same result:
+//   (a) a survivor that is not kept has the size of the last kept one, so
+//       "the last kept" and "the last survivor" have the same size: a lane
+//       compares with the nearest survivor below it in its strip (a
+//       ballot and a shuffle) or, for the strip's first, with the last
+//       survivor of the strips before (carried across strips), and the
+//       kept lanes take their slots in order by a prefix count;
+//   (b) once the round's first failing interval is seen the question is
+//       settled: if it emits, the row it writes starts at i + 1 and stops
+//       every later one; if it does not, whatever stopped it (a survivor
+//       before it, or a row starting at or before i + 1) stops every
+//       later one too.  So the warp tests that one interval alone.
+// On an index the sizes grow along the stack (a shorter match's
+// interval holds a longer one's), so failures come before survivors; the
+// rule above does not lean on that.
 template <class Idx>
 __device__ int smem1a(const fm::Index<Idx>& f, const uint8_t* q, int len,
                       int x, Idx min_intv, Intv<Idx>* curr, Intv<Idx>* prev,
-                      Intv<Idx>* mem, int& n_mem, int& steps) {
+                      Intv<Idx>* mem, int& n_mem, int& steps, int& chain) {
+    const int lane = threadIdx.x & 31;
     n_mem = 0;
+    __syncwarp();  // the stacks' last readers are done
     if (q[x] > 3) return x + 1;
     if (min_intv < 1) min_intv = 1;
     Intv<Idx> ik = set_intv(f, q[x]);
@@ -77,58 +166,100 @@ __device__ int smem1a(const fm::Index<Idx>& f, const uint8_t* q, int len,
     // forward: push the interval each time the next base shrinks it
     int n_curr = 0, i = x + 1;
     for (; i < len; ++i) {
-        if (q[i] > 3) {
-            curr[n_curr++] = ik;
-            break;
-        }
+        const int c = q[i];
+        if (c > 3) break;
         // forward extension reads the complement's slot
-        const Intv<Idx> ok = extend<Idx, false>(f, ik, 3 - q[i], steps);
+        const Intv<Idx> ok = extend_warp<Idx, false>(f, ik, 3 - c);
+        ++steps;
+        ++chain;
         if (ok.size != ik.size) {
-            curr[n_curr++] = ik;
+            if (lane == 0) curr[n_curr] = ik;
+            ++n_curr;
             if (ok.size < min_intv) break;
         }
         ik = ok;
         ik.qe = i + 1;
     }
-    if (i == len) curr[n_curr++] = ik;
-    reverse(curr, n_curr);  // longest matches (smallest intervals) first
-    const int ret = (int)curr[0].qe;
+    // an N, or the read's end, ends the match with ik on the stack
+    if (i == len || q[i] > 3) {
+        if (lane == 0) curr[n_curr] = ik;
+        ++n_curr;
+    }
+    __syncwarp();
+    // longest matches (smallest intervals) first
+    for (int j = lane; j < n_curr; j += 32) prev[j] = curr[n_curr - 1 - j];
+    __syncwarp();
+    const int ret = (int)prev[0].qe;
     // backward: extend every interval of the stack by q[i]; one that can
     // go no further is an SMEM unless a longer one already ended here
-    Intv<Idx>* t = prev;
-    prev = curr;
-    curr = t;
     int n_prev = n_curr;
+    Idx last_qb = 0;  // mem[n_mem - 1].qb where n_mem > 0
     for (i = x - 1; i >= -1; --i) {
         const int c = (i < 0 || q[i] > 3) ? -1 : q[i];
-        n_curr = 0;
-        for (int j = 0; j < n_prev; ++j) {
-            const Intv<Idx> p = prev[j];
-            Intv<Idx> ok{};
-            if (c >= 0) ok = extend<Idx, true>(f, p, c, steps);
-            if (c < 0 || ok.size < min_intv) {
-                if (n_curr == 0 && (n_mem == 0 || i + 1 < mem[n_mem - 1].qb)) {
-                    Intv<Idx> m = p;
-                    m.qb = i + 1;
-                    mem[n_mem++] = m;
-                }
-            } else if (n_curr == 0 || ok.size != curr[n_curr - 1].size) {
-                curr[n_curr++] = ok;  // qb and qe kept from p
+        int n_next = 0;
+        bool settled = false;   // the round's first failure was seen
+        bool survived = false;  // a survivor was seen
+        Idx carry = 0;          // the last survivor's size
+        for (int s = 0; s < n_prev; s += 32) {
+            const int j = s + lane;
+            const bool live = j < n_prev;
+            Intv<Idx> p{}, ok{};
+            if (live) p = prev[j];
+            if (live && c >= 0) ok = extend<Idx, true>(f, p, c);
+            if (c >= 0) {
+                steps += n_prev - s < 32 ? n_prev - s : 32;
+                ++chain;
             }
+            const bool fail = live && (c < 0 || ok.size < min_intv);
+            const bool good = live && !fail;
+            const unsigned fails = __ballot_sync(kFull, fail);
+            const unsigned goods = __ballot_sync(kFull, good);
+            if (!settled && fails) {
+                settled = true;
+                const int first = __ffs(fails) - 1;
+                if (!survived && !(goods & lanes_below(first)) &&
+                    (n_mem == 0 || i + 1 < last_qb)) {
+                    if (lane == first) {
+                        Intv<Idx> m = p;
+                        m.qb = i + 1;
+                        mem[n_mem] = m;
+                    }
+                    ++n_mem;
+                    last_qb = i + 1;
+                }
+            }
+            const unsigned below = goods & lanes_below(lane);
+            const Idx before = __shfl_sync(
+                kFull, ok.size, below ? top_lane(below) : lane);
+            const bool keep =
+                good && (below ? ok.size != before
+                               : !survived || ok.size != carry);
+            const unsigned keeps = __ballot_sync(kFull, keep);
+            if (keep)  // qb and qe kept from p
+                curr[n_next + __popc(keeps & lanes_below(lane))] =
+                    Intv<Idx>{ok.x0, ok.x1, ok.size, p.qb, p.qe};
+            n_next += __popc(keeps);
+            if (goods) {
+                carry = __shfl_sync(kFull, ok.size, top_lane(goods));
+                survived = true;
+            }
+            if (c < 0) break;  // settled, and nothing survives
         }
-        if (n_curr == 0) break;
-        t = prev;
+        if (n_next == 0) break;
+        Intv<Idx>* t = prev;
         prev = curr;
         curr = t;
-        n_prev = n_curr;
+        n_prev = n_next;
+        __syncwarp();
     }
-    reverse(mem, n_mem);  // by query start
+    __syncwarp();  // mem's rows are visible to every lane
     return ret;
 }
 
-// bwt_seed_strategy1: from x forward until the interval falls below
-// max_intv with at least min_len + 1 bases matched; that interval is *m
-// (qb = x) and *got set.  Returns the next x.
+// bwt_seed_strategy1, one read a thread: from x forward until the
+// interval falls below max_intv with at least min_len + 1 bases matched;
+// that interval is *m (qb = x) and *got set.  Counts the bwt_extend calls
+// in steps.  Returns the next x.
 template <class Idx>
 __device__ int seed_strategy1(const fm::Index<Idx>& f, const uint8_t* q,
                               int len, int x, int min_len, Idx max_intv,
@@ -138,7 +269,8 @@ __device__ int seed_strategy1(const fm::Index<Idx>& f, const uint8_t* q,
     Intv<Idx> ik = set_intv(f, q[x]);
     for (int i = x + 1; i < len; ++i) {
         if (q[i] > 3) return i + 1;
-        const Intv<Idx> ok = extend<Idx, false>(f, ik, 3 - q[i], steps);
+        const Intv<Idx> ok = extend<Idx, false>(f, ik, 3 - q[i]);
+        ++steps;
         if (ok.size < max_intv && i - x >= min_len) {
             *m = ok;
             m->qb = x;

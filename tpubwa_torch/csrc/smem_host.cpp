@@ -8,17 +8,19 @@
 // IN: int64 header (kernel: 0 for K2, tpubwa_smem_rounds12, 1 for K3,
 // tpubwa_seed_strategy; n_blocks, primary, seq_len, idx64, B, L, n,
 // min_seed_len, split_len, split_width, slots, max_intv, maxh,
-// count_rows), then occ uint32 [n_blocks, 12], L2 of the rank type
-// (int64 where idx64, else int32) [5], reads uint8 [B, L], lens int32
-// [B] and, for K2, rids int32 [n].  OUT gets int64 values: K2's rows
-// [n, slots, 5], counts [n] and steps [n]; or K3's hits [B, maxh, 5],
-// n_hits [B] and steps [B]; then, where count_rows, the number of
-// distinct occ rows the launch read and those rows, ascending.  Every
-// array is a heap block of its exact size (the scratch [n, 4, L + 1]
-// intervals too), and the outputs and the scratch start as -77 (K3's
-// hits as zeros, as the wrapper allocates them), so a read past an array
-// is the sanitizer's and a slot never written shows in the result.  A
-// launch that returns an error exits with 3.
+// count_rows, reverse), then occ uint32 [n_blocks, 12], L2 of the rank
+// type (int64 where idx64, else int32) [5], reads uint8 [B, L], lens
+// int32 [B] and, for K2, rids int32 [n].  OUT gets int64 values: K2's
+// rows [n, slots, 5], counts [n], steps [n] and chain [n]; or K3's hits
+// [B, maxh, 5], n_hits [B] and steps [B]; then, where count_rows, the
+// number of distinct occ rows the launch read and those rows, ascending.
+// reverse runs each warp's lanes 31..0.  Every array is a heap block of
+// its exact size (each warp's shared slice too, warp_host.h), and the
+// outputs and the read queue start as -77 (K3's hits as zeros, as the
+// wrapper allocates them), so a read past an array is the sanitizer's
+// and a slot never written shows in the result.  A launch that returns
+// an error (K2 refuses a read length whose stacks do not fit a block's
+// shared memory) exits with 3.
 
 #define TPUBWA_WARP_HOST
 #include "smem.cu"
@@ -54,21 +56,24 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     const auto lens = read_array<int32_t>(f, B);
     std::vector<int64_t> rows_read;
     if (h[14]) fm::read_rows = &rows_read;
+    warp_host::reverse = h[15] != 0;
     int rc;
     if (kernel == 0) {
         const auto rids = read_array<int32_t>(f, n);
-        std::vector<Idx> scratch((size_t)(n * 4 * (L + 1) * 5), (Idx)-77);
+        std::vector<int32_t> queue(1, -77);
         std::vector<Idx> rows((size_t)(n * slots * 5), (Idx)-77);
-        std::vector<int32_t> counts((size_t)n, -77), steps((size_t)n, -77);
+        std::vector<int32_t> counts((size_t)n, -77), steps((size_t)n, -77),
+            chain((size_t)n, -77);
         rc = tpubwa_smem_rounds12(occ.data(), L2.data(), primary, seq_len,
                                   sizeof(Idx) == 8, q.data(), L, lens.data(),
                                   rids.data(), n, min_seed_len, split_len,
-                                  split_width, slots, scratch.data(),
-                                  rows.data(), counts.data(), steps.data(), 0,
-                                  nullptr);
+                                  split_width, slots, queue.data(),
+                                  rows.data(), counts.data(), steps.data(),
+                                  chain.data(), 0, nullptr);
         write_int64(o, rows);
         write_int64(o, counts);
         write_int64(o, steps);
+        write_int64(o, chain);
     } else {
         // zeros, as the wrapper allocates them
         std::vector<Idx> hits((size_t)(B * maxh * 5), (Idx)0);
@@ -102,7 +107,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: smem_host IN OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open IN");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 15);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 16);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[4] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

@@ -1,22 +1,29 @@
 // A host stand-in for the CUDA device runtime, for tests: enough of it
-// to compile a warp-per-job kernel (csrc/extend.cu, csrc/extend16.cu or
-// csrc/extend_bd.cu with TPUBWA_WARP_HOST defined) as plain C++ and run
-// it on a machine with no card, under -fsanitize=address,undefined.
+// to compile a warp-per-job kernel (csrc/extend.cu, csrc/extend16.cu,
+// csrc/extend_bd.cu or csrc/smem.cu with TPUBWA_WARP_HOST defined) as
+// plain C++ and run it on a machine with no card, under
+// -fsanitize=address,undefined.
 //
 // A launch runs its blocks and warps one after another, so launches on
-// one stream run in order, and an atomic is a plain read-modify-write.  The 32 lanes
-// of a warp are 32 fibers (ucontext) that run the kernel in lockstep: a
-// lane runs until it reaches a warp operation (__shfl_sync,
-// __shfl_up_sync, __reduce_max_sync, __reduce_min_sync, __ballot_sync,
-// __syncwarp), leaves its operand in an exchange array and yields; when
-// all 32 have
-// arrived the operation is computed by a loop over that array and the
-// lanes go on.  Every lane must reach the same operation, or leave the
-// kernel, in the same round: anything else is a divergent full-mask
-// operation, undefined on the card, and aborts here.  Dynamic shared
-// memory is a heap block of exactly the launch's size, filled with a
-// poison pattern before each block, so a read past it is the
-// sanitizer's and a read of a pair never written shows in the result.
+// one stream run in order, and an atomic is a plain read-modify-write.
+// The 32 lanes of a warp are 32 fibers (ucontext) that run the kernel in
+// lockstep: a lane runs until it reaches a warp operation (__shfl_sync,
+// __shfl_up_sync, __reduce_max_sync, __reduce_min_sync,
+// __reduce_add_sync, __ballot_sync, __syncwarp), leaves its operand in
+// an exchange array and yields; when all 32 have arrived the operation
+// is computed by a loop over that array and the lanes go on (a 64-bit
+// shuffle is two of 32 bits, as on the card).  Every lane must reach the
+// same operation, or leave the kernel, in the same round: anything else
+// is a divergent full-mask operation, undefined on the card, and aborts
+// here.  Dynamic shared memory is a heap block of exactly the launch's
+// size, filled with a poison pattern before each block, so a read past
+// it is the sanitizer's and a read of a pair never written shows in the
+// result; a kernel that cuts it into one slice a warp asks for its own
+// slice with warp_shared(bytes), a heap block of exactly those bytes for
+// the warp's life, poisoned the same way (its warps times bytes must fit
+// the launch's), so a read past the slice is caught too.  The device
+// attributes and the occupancy query answer for an H100 (132 SMs, 227 KB
+// a block, 228 KB and 2,048 threads an SM; registers not counted).
 // Lanes run in order 0..31, or 31..0 with warp_host::reverse set: a
 // kernel whose result changes with the order is missing a __syncwarp.
 // There is no __syncthreads: warps of a block never meet.  The 16x2
@@ -26,6 +33,7 @@
 
 #pragma once
 
+#include <setjmp.h>
 #include <ucontext.h>
 
 #include <cstdint>
@@ -63,6 +71,11 @@ inline int atomicMax(int* p, int v) {
     *p = old > v ? old : v;
     return old;
 }
+inline int atomicAdd(int* p, int v) {
+    const int old = *p;
+    *p = old + v;
+    return old;
+}
 inline int atomicOr(int* p, int v) {
     const int old = *p;
     *p = old | v;
@@ -73,25 +86,58 @@ cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
     // an H100 block's limit
     return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16,
+                      cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr,
+                                          int) {
+    *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
+    return cudaSuccess;
+}
+// blocks of `threads` and `bytes` of dynamic shared memory an SM holds:
+// 228 KB of shared memory (1 KB of it reserved a block), 2,048 threads
+// and 32 blocks an SM
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F,
+                                                          int threads,
+                                                          size_t bytes) {
+    int n = (int)(233472 / (bytes + 1024));
+    if (n > 2048 / threads) n = 2048 / threads;
+    *blocks = n > 32 ? 32 : n;
+    return cudaSuccess;
+}
 
 namespace warp_host {
 
 constexpr int kLanes = 32;
 constexpr size_t kStack = 256 * 1024;
-enum Op { kNone, kShfl, kShflUp, kReduceMax, kReduceMin, kBallot, kSync,
-          kDone };
+enum Op { kNone, kShfl, kShflUp, kReduceMax, kReduceMin, kReduceAdd,
+          kBallot, kSync, kDone };
 
 inline bool reverse = false;  // run the lanes 31..0
 inline int launches = 0;      // kernel launches made
 
+// Built with AddressSanitizer a lane switch is swapcontext, which ASan
+// follows from stack to stack.  Without it (a fast build for large
+// counts) a lane starts on its stack with setcontext once and then
+// switches by _setjmp/_longjmp, which unlike swapcontext makes no system
+// call (the build must not fortify longjmp: -U_FORTIFY_SOURCE).
+#if defined(__SANITIZE_ADDRESS__)
+#define TPUBWA_WARP_HOST_UCONTEXT 1
+#endif
+
 struct Warp {
     ucontext_t sched, ctx[kLanes];
+    jmp_buf sched_jb, lane_jb[kLanes];
+    bool started[kLanes];
     std::vector<char> stack[kLanes];
     int at[kLanes];        // the operation a lane waits at, kDone once out
     int count[kLanes];     // operations a lane has passed
     int xch[2][kLanes];    // operands, double-buffered by count parity
     int cur = 0;
     const std::function<void()>* kernel = nullptr;
+    size_t launch_bytes = 0;      // the launch's dynamic shared memory
+    char* shared = nullptr;       // the warp's slice (warp_shared)
+    size_t shared_bytes = 0;
 };
 inline Warp g;
 
@@ -103,7 +149,32 @@ inline Warp g;
 inline void entry() {
     (*g.kernel)();
     g.at[g.cur] = kDone;
+#ifndef TPUBWA_WARP_HOST_UCONTEXT
+    _longjmp(g.sched_jb, 1);
+#endif
     // uc_link returns to the scheduler
+}
+
+// from the running lane back to the scheduler
+inline void yield() {
+#ifdef TPUBWA_WARP_HOST_UCONTEXT
+    if (swapcontext(&g.ctx[g.cur], &g.sched) != 0) die("swapcontext");
+#else
+    if (!_setjmp(g.lane_jb[g.cur])) _longjmp(g.sched_jb, 1);
+#endif
+}
+
+// from the scheduler into lane l, until it yields or leaves the kernel
+inline void resume(int l) {
+#ifdef TPUBWA_WARP_HOST_UCONTEXT
+    if (swapcontext(&g.sched, &g.ctx[l]) != 0) die("swapcontext");
+#else
+    if (_setjmp(g.sched_jb)) return;
+    if (g.started[l]) _longjmp(g.lane_jb[l], 1);
+    g.started[l] = true;
+    setcontext(&g.ctx[l]);  // the lane's first entry, on its own stack
+    die("setcontext");
+#endif
 }
 
 // leave `value` for the others and wait for all 32; returns the buffer
@@ -113,7 +184,7 @@ inline const int* arrive(int op, int value) {
     buf[me] = value;
     g.count[me]++;
     g.at[me] = op;
-    if (swapcontext(&g.ctx[me], &g.sched) != 0) die("swapcontext");
+    yield();
     return buf;
 }
 
@@ -128,13 +199,20 @@ inline void run_warp(const std::function<void()>& kernel, unsigned warp) {
         makecontext(&g.ctx[l], entry, 0);
         g.at[l] = kNone;
         g.count[l] = 0;
+        g.started[l] = false;
     }
+    struct Slice {  // the warp's shared slice lives as long as the warp
+        ~Slice() {
+            std::free(g.shared);
+            g.shared = nullptr;
+        }
+    } slice;
     for (;;) {
         for (int k = 0; k < kLanes; ++k) {
             const int l = reverse ? kLanes - 1 - k : k;
             g.cur = l;
             threadIdx.x = warp * kLanes + l;
-            if (swapcontext(&g.sched, &g.ctx[l]) != 0) die("swapcontext");
+            resume(l);
         }
         for (int l = 1; l < kLanes; ++l)
             if (g.at[l] != g.at[0] || g.count[l] != g.count[0])
@@ -149,6 +227,7 @@ inline void launch(int blocks, int threads, size_t bytes,
     if (threads % kLanes) die("block size must be a multiple of 32");
     ++launches;
     blockDim.x = threads;
+    g.launch_bytes = bytes;
     for (int b = 0; b < blocks; ++b) {
         // exactly the launch's bytes, so a read past them is caught
         char* mem = static_cast<char*>(std::malloc(bytes ? bytes : 1));
@@ -162,6 +241,22 @@ inline void launch(int blocks, int threads, size_t bytes,
 
 inline void full(unsigned mask) {
     if (mask != 0xffffffffu) die("only full-mask warp operations");
+}
+
+// the running warp's slice of `bytes` of the block's dynamic shared
+// memory: a heap block of exactly that size, poisoned, the same for all
+// its lanes and for the warp's life
+inline void* warp_shared(size_t bytes) {
+    if (!g.shared) {
+        if (bytes * (blockDim.x / kLanes) > g.launch_bytes)
+            die("the warps' shared slices exceed the launch's bytes");
+        g.shared = static_cast<char*>(std::malloc(bytes ? bytes : 1));
+        std::memset(g.shared, 0x5b, bytes);
+        g.shared_bytes = bytes;
+    } else if (bytes != g.shared_bytes) {
+        die("a warp asked for shared slices of two sizes");
+    }
+    return g.shared;
 }
 
 }  // namespace warp_host
@@ -190,6 +285,14 @@ inline int __reduce_max_sync(unsigned mask, int v) {
     return m;
 }
 
+inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
+    warp_host::full(mask);
+    const int* buf = warp_host::arrive(warp_host::kReduceAdd, (int)v);
+    unsigned sum = 0;
+    for (int l = 0; l < warp_host::kLanes; ++l) sum += (unsigned)buf[l];
+    return sum;
+}
+
 inline int __reduce_min_sync(unsigned mask, int v) {
     warp_host::full(mask);
     const int* buf = warp_host::arrive(warp_host::kReduceMin, v);
@@ -213,6 +316,18 @@ inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 // unsigned operands, as the CUDA headers' overloads take them
 inline unsigned __shfl_sync(unsigned mask, unsigned v, int src) {
     return (unsigned)__shfl_sync(mask, (int)v, src);
+}
+
+// 64-bit operands: two 32-bit shuffles, low half first
+inline long long __shfl_sync(unsigned mask, long long v, int src) {
+    const unsigned lo = __shfl_sync(mask, (unsigned)v, src);
+    const unsigned hi =
+        __shfl_sync(mask, (unsigned)((unsigned long long)v >> 32), src);
+    return (long long)((unsigned long long)hi << 32 | lo);
+}
+
+inline long __shfl_sync(unsigned mask, long v, int src) {
+    return (long)__shfl_sync(mask, (long long)v, src);
 }
 
 inline unsigned __shfl_up_sync(unsigned mask, unsigned v, unsigned d) {

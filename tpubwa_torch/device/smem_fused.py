@@ -9,19 +9,25 @@ Two versions, bit-identical by test:
   for the tests and ``chip_smoke.py``'s phase 3h (it steps one interval
   at a time, far too slow for a chunk);
 * K2, the hand-written CUDA kernel ``collect12_kernel`` of
-  ``csrc/smem.cu`` (one read a thread over ``csrc/smem.cuh``), reached
-  through ``rounds12_megaq`` for CUDA tensors.
+  ``csrc/smem.cu`` (a warp a read from a read queue, over
+  ``csrc/smem.cuh``), reached through ``rounds12_megaq`` for CUDA
+  tensors.
 
 ``rounds12_megaq`` routes by the tensors' device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.  Nothing
-falls back from one to the other, and no row is seeded on the host.
+falls back from one to the other, and no row is seeded on the host.  K2
+keeps a read's stacks in shared memory, so it takes reads of at most
+``k2_max_len`` bases; both routes refuse longer ones.
 
 Unlike tpubwa's lockstep machine, K2 follows bwa's scalar protocol read
 by read (the port's native seeder, ``native/smem.cpp``): every bound
 comes from the read's length, so no lane overflows, and there is no
 retry machine, host tail or SA fusion.  A read's rows go to a fixed
 number of row slots; a read with more is counted exactly and re-run in
-a second launch with room for the largest count (``collect12``).
+a second launch with room for the largest count (``collect12``).  The
+plain version counts what the kernel's warp does one step after
+another (``stats["chain"]``: forward steps, and backward strips of up
+to 32 intervals).
 """
 
 from __future__ import annotations
@@ -39,17 +45,25 @@ from .occ import (DeviceIndex, I64, _kernel_route, _raise_on,
 # time is its reads' chains (PERF.md §6: at 32 slots, two reads of 33
 # rows cost a third of the chunk's first launch)
 K2_SLOTS = 64
-# K2's scratch a read: curr, prev, a call's rows and round 1's rows
+# K2's stacks a read, in its warp's shared memory: curr, prev, a call's
+# rows and round 1's rows, L + 1 intervals each
 K2_STACKS = 4
+# a block's shared memory on an H100 (the card K2 is written for): the
+# CPU route refuses what the card refuses
+H100_BLOCK_SMEM = 232448
+# lanes a warp: a backward strip
+WARP = 32
 
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # (occ, L2, primary, seq_len, idx64, q, L, lens, rids, n,
-    #  min_seed_len, split_len, split_width, slots, scratch, rows,
-    #  counts, steps, device, stream) -> cudaError_t
+    #  min_seed_len, split_len, split_width, slots, queue, rows,
+    #  counts, steps, chain, device, stream) -> cudaError_t
     "tpubwa_smem_rounds12": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP,
                                    _VP, _CL, _CI, _CI, _CL, _CI, _VP, _VP,
-                                   _VP, _VP, _CI, _VP]),
+                                   _VP, _VP, _VP, _CI, _VP]),
+    # (idx64, L, device, out int64[5]) -> cudaError_t
+    "tpubwa_smem_rounds12_shape": (_CI, [_CI, _CL, _CI, _VP]),
     # (occ, L2, primary, seq_len, idx64, q, L, lens, n, min_len,
     #  max_intv, maxh, hits, n_hits, steps, device, stream)
     "tpubwa_seed_strategy": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP,
@@ -142,11 +156,22 @@ def base_intervals(didx: DeviceIndex):
     return [tuple(v) for v in set_intv(didx, torch.arange(4)).tolist()]
 
 
-def smem1a_plain(base, q, x: int, min_intv: int):
+def new_tally():
+    """What K2's warp does with a read, counted by the plain version:
+    ``chain`` (forward steps, plus backward strips of up to ``WARP``
+    intervals: the rounds of bwt_extend calls made one after another),
+    ``widest`` (the most intervals one backward step extends) and
+    ``late`` (backward steps whose first failing interval follows a
+    survivor, where without the survivor it would be emitted: none on an
+    index, where the sizes grow along the stack)."""
+    return {"chain": 0, "widest": 0, "late": 0}
+
+
+def smem1a_plain(base, q, x: int, min_intv: int, tally):
     """bwt_smem1a with max_intv = 0 (ref/smem.py:smem1a), a generator
     over ``run_reads``: the SMEMs of q (a list of codes) covering x, as
     [x0, x1, size, qb, qe] by query start, and the next x.  ``base``:
-    ``base_intervals``."""
+    ``base_intervals``; ``tally`` (``new_tally``) is added to."""
     n = len(q)
     if q[x] > 3:
         return [], x + 1
@@ -160,6 +185,7 @@ def smem1a_plain(base, q, x: int, min_intv: int):
             break
         # forward extension reads the complement's slot
         ok = [*(yield (ik[:3], 3 - q[i], False)), ik[3], ik[4]]
+        tally["chain"] += 1
         if ok[2] != ik[2]:
             curr.append(ik)
             if ok[2] < min_intv:
@@ -175,11 +201,17 @@ def smem1a_plain(base, q, x: int, min_intv: int):
     i = x - 1
     while i >= -1:
         c = -1 if i < 0 or q[i] > 3 else q[i]
-        curr = []
+        if c >= 0:
+            tally["chain"] += -(-len(prev) // WARP)
+            tally["widest"] = max(tally["widest"], len(prev))
+        curr, failed = [], False
         for p in prev:
             ok = (yield (p[:3], c, True)) if c >= 0 else None
             if c < 0 or ok[2] < min_intv:
-                if not curr and (not mem or i + 1 < mem[-1][3]):
+                emits = not mem or i + 1 < mem[-1][3]
+                tally["late"] += bool(curr) and emits and not failed
+                failed = True
+                if not curr and emits:
                     mem.append([p[0], p[1], p[2], i + 1, p[4]])
             elif not curr or ok[2] != curr[-1][2]:
                 curr.append([*ok, p[3], p[4]])
@@ -192,24 +224,25 @@ def smem1a_plain(base, q, x: int, min_intv: int):
 
 
 def collect12_read(base, q, min_seed_len: int, split_len: int,
-                   split_width: int):
+                   split_width: int, tally):
     """Rounds 1 and 2 of one read (native/smem.cpp:468-485), a generator
     over ``run_reads``: the round-1 rows of at least min_seed_len bases,
-    then the round-2 rows of each re-seeded round-1 row in turn."""
+    then the round-2 rows of each re-seeded round-1 row in turn.
+    ``tally`` (``new_tally``) is added to."""
     r1 = []
     x = 0
     while x < len(q):
         if q[x] > 3:
             x += 1
             continue
-        mem, x = yield from smem1a_plain(base, q, x, 1)
+        mem, x = yield from smem1a_plain(base, q, x, 1, tally)
         r1 += [m for m in mem if m[4] - m[3] >= min_seed_len]
     r2 = []
     for p in r1:
         if p[4] - p[3] < split_len or p[2] > split_width:
             continue
         mem, _ = yield from smem1a_plain(base, q, (p[3] + p[4]) >> 1,
-                                         p[2] + 1)
+                                         p[2] + 1, tally)
         r2 += [m for m in mem if m[4] - m[3] >= min_seed_len]
     return r1 + r2
 
@@ -225,17 +258,23 @@ def rounds12_plain(opt, didx: DeviceIndex, qd: torch.Tensor,
     """K2's contract, read by read: (rows idt [n, 5] (x0, x1, size, qb,
     qe), rids int64 [n]), read-major, each read's rows in the order
     found.  A ``stats`` dict gets ``steps`` (int32 [B], the bwt_extend
-    calls a read) and ``second_launch_reads`` (0: the plain version has
-    no slots)."""
+    calls a read), ``chain``, ``widest`` and ``late`` (int32 [B] each,
+    see ``new_tally``) and ``second_launch_reads`` (0: the plain version
+    has no slots)."""
     check_reads(didx, qd, ld)
     base = base_intervals(didx)
+    reads = read_lists(qd, ld)
+    tallies = [new_tally() for _ in reads]
     got, steps = run_reads(didx, [
         collect12_read(base, q, opt.min_seed_len, split_len_of(opt),
-                       opt.split_width) for q in read_lists(qd, ld)])
+                       opt.split_width, t) for q, t in zip(reads, tallies)])
     rows = [row for rs in got for row in rs]
     rids = [r for r, rs in enumerate(got) for _ in rs]
     if stats is not None:
         stats["steps"] = torch.tensor(steps, dtype=torch.int32)
+        for key in new_tally():
+            stats[key] = torch.tensor([t[key] for t in tallies],
+                                      dtype=torch.int32)
         stats["second_launch_reads"] = 0
     return (torch.tensor(rows, dtype=didx.idt).reshape(-1, 5).to(qd.device),
             torch.tensor(rids, dtype=I64, device=qd.device))
@@ -244,23 +283,41 @@ def rounds12_plain(opt, didx: DeviceIndex, qd: torch.Tensor,
 # ---------------------------------------------------------------------
 # the kernel
 
+def k2_max_len(idt) -> int:
+    """The longest read K2 takes on an H100 with ranks of ``idt``: its
+    warp's stacks, ``K2_STACKS`` x (L + 1) intervals of five ranks, must
+    fit a block's shared memory."""
+    return H100_BLOCK_SMEM // (K2_STACKS * 5 * idt.itemsize) - 1
+
+
+def check_k2_len(L: int, idt, max_len: int):
+    """Raise RuntimeError, naming the limit, where reads of ``L`` bases
+    are longer than ``max_len`` (``k2_max_len``)."""
+    if L > max_len:
+        raise RuntimeError(
+            f"K2 takes reads of at most {max_len} bases with {idt} ranks "
+            f"(its {K2_STACKS} stacks of L + 1 intervals a read live in a "
+            f"block's shared memory), got L = {L}")
+
+
 def collect12(launch, n_reads: int, slots: int, device, stats=None):
     """K2's launches: ``launch(rids, slots)`` seeds the reads ``rids``
     (int32 [n]) with ``slots`` row slots each and returns (rows idt
-    [n, slots, 5], counts int32 [n], steps int32 [n]); a count past
-    ``slots`` is exact, its rows past the slots unwritten.  The first
-    launch seeds every read; the second, only where it runs, the reads
-    whose count passed ``slots``, with as many slots as the largest
-    count.  Returns (rows idt [n, 5], rids int64 [n]), read-major."""
+    [n, slots, 5], counts int32 [n], steps int32 [n], chain int32 [n]); a
+    count past ``slots`` is exact, its rows past the slots unwritten.
+    The first launch seeds every read; the second, only where it runs,
+    the reads whose count passed ``slots``, with as many slots as the
+    largest count.  Returns (rows idt [n, 5], rids int64 [n]),
+    read-major."""
     rids = torch.arange(n_reads, dtype=torch.int32, device=device)
-    rows, counts, steps = launch(rids, slots)
+    rows, counts, steps, chain = launch(rids, slots)
     over = counts > slots
     n_over = int(over.sum())
     parts = [(rids, rows, torch.where(over, 0, counts), slots)]
     if n_over:
         again = rids[over]
         most = int(counts.max())
-        rows2, counts2, _ = launch(again, most)
+        rows2, counts2, _, _ = launch(again, most)
         parts.append((again, rows2, counts2, most))
     out_rows, out_rids = [], []
     for r, x, c, width in parts:
@@ -273,8 +330,20 @@ def collect12(launch, n_reads: int, slots: int, device, stats=None):
         rows, rids = rows[order], rids[order]
     if stats is not None:
         stats["steps"] = steps
+        stats["chain"] = chain
         stats["second_launch_reads"] = n_over
     return rows, rids
+
+
+def k2_shape(lib, idx64: bool, L: int, device_index: int):
+    """(cudaError, {warp_bytes, warps, blocks_per_sm, sms, max_len}): K2's
+    launch shape for reads of ``L`` bases on the card (the C entry
+    ``tpubwa_smem_rounds12_shape``); the error is the one a launch at
+    ``L`` returns before it runs."""
+    out = (ctypes.c_int64 * 5)()
+    rc = lib.tpubwa_smem_rounds12_shape(int(idx64), L, device_index, out)
+    return rc, dict(zip(("warp_bytes", "warps", "blocks_per_sm", "sms",
+                         "max_len"), list(out)))
 
 
 def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
@@ -285,35 +354,42 @@ def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
     round-2 rows in the order found (the native seeder's).  CPU tensors
     run ``rounds12_plain``; CUDA tensors launch K2 (``csrc/smem.cu``),
     with ``slots`` row slots a read in the first launch
-    (``rounds12_megaq.launches`` counts the launches).  A ``stats`` dict
-    gets ``steps`` (int32 [B], bwt_extend calls a read) and
+    (``rounds12_megaq.launches`` counts the launches).  Reads longer than
+    K2 takes raise RuntimeError on both routes (``k2_max_len``: on the
+    card the card's own limit, which the launch reports by refusing).  A
+    ``stats`` dict gets ``steps`` and ``chain`` (int32 [B], bwt_extend
+    calls a read and the rounds of them made one after another) and
     ``second_launch_reads``."""
     B, L = check_reads(didx, qd, ld)
     if slots < 1:
         raise ValueError(f"slots must be positive, got {slots}")
     if not _kernel_route(qd):
+        check_k2_len(L, didx.idt, k2_max_len(didx.idt))
         return rounds12_plain(opt, didx, qd, ld, stats=stats)
     lib = _build.load("smem", _SIGNATURES)
     index = index_args(didx)
     dev, idt = qd.device, didx.idt
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
 
     def launch(rids, width):
         n = len(rids)
-        scratch = torch.empty((n, K2_STACKS, L + 1, 5), dtype=idt, device=dev)
         rows = torch.empty((n, width, 5), dtype=idt, device=dev)
         counts = torch.empty(n, dtype=torch.int32, device=dev)
         steps = torch.empty(n, dtype=torch.int32, device=dev)
+        chain = torch.empty(n, dtype=torch.int32, device=dev)
         rc = lib.tpubwa_smem_rounds12(
             *index, qd.data_ptr(), L, ld.data_ptr(), rids.data_ptr(), n,
             opt.min_seed_len, split_len_of(opt), opt.split_width, width,
-            scratch.data_ptr(), rows.data_ptr(), counts.data_ptr(),
-            steps.data_ptr(), dev.index, stream_of(qd))
+            queue.data_ptr(), rows.data_ptr(), counts.data_ptr(),
+            steps.data_ptr(), chain.data_ptr(), dev.index, stream_of(qd))
+        if rc:
+            _, shape = k2_shape(lib, idt == I64, L, dev.index)
+            check_k2_len(L, idt, shape["max_len"])
         _raise_on(rc, "smem_rounds12")
         rounds12_megaq.launches += 1
-        return rows, counts, steps
+        return rows, counts, steps, chain
 
     return collect12(launch, B, slots, dev, stats=stats)
 
 
 rounds12_megaq.launches = 0
-

@@ -46,8 +46,9 @@ SOURCES = {"extend_host": ("extend_host.cpp", "extend.cu", "warp_host.h"),
 FLAGS = ["-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined"]
 # without the sanitizers, for a count over a large input (smem_host's
-# count_rows on the card's machine)
-FAST_FLAGS = ["-std=c++17", "-O2"]
+# count_rows on the card's machine); lanes then switch by _longjmp,
+# which a fortified build refuses across stacks
+FAST_FLAGS = ["-std=c++17", "-O2", "-U_FORTIFY_SOURCE"]
 # the intrinsics of extend16_host --ops, in its order
 INTRINSICS16 = ("__vadd2", "__vmaxs2", "__vimin_s16x2_relu",
                 "__viaddmin_s16x2", "__viaddmax_s16x2",
@@ -205,18 +206,21 @@ def occ_host(arrays, ranks, ik):
 
 
 def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
-              count_rows=False, sanitize=True):
+              count_rows=False, sanitize=True, reverse=False):
     """One launch of csrc/smem.cu's K2 (``kernel`` 0,
     ``tpubwa_smem_rounds12``, on the reads ``rids`` with ``slots`` row
-    slots each) or K3 (1, ``tpubwa_seed_strategy``, on every read) on the
-    host.  ``arrays`` maps ``occ_blocks`` (uint32), ``L2`` (the rank
-    type, int32 or int64) and ``primary``, ``seq_len``; ``reads`` uint8
-    [B, L], ``lens`` int32 [B]; ``params`` (min_seed_len, split_len,
-    split_width, max_intv, maxh).  Returns int64 arrays: (rows [n,
-    slots, 5], counts [n], steps [n]) for K2, (hits [B, maxh, 5], n_hits
+    slots each, a warp a read) or K3 (1, ``tpubwa_seed_strategy``, on
+    every read) on the host.  ``arrays`` maps ``occ_blocks`` (uint32),
+    ``L2`` (the rank type, int32 or int64) and ``primary``, ``seq_len``;
+    ``reads`` uint8 [B, L], ``lens`` int32 [B]; ``params`` (min_seed_len,
+    split_len, split_width, max_intv, maxh).  ``reverse`` runs each
+    warp's lanes 31..0.  Returns int64 arrays: (rows [n, slots, 5],
+    counts [n], steps [n], chain [n]) for K2, (hits [B, maxh, 5], n_hits
     [B], steps [B]) for K3, and with ``count_rows`` the distinct occ rows
     the launch read, ascending.  Raises RuntimeError with the harness's
-    report if a sanitizer stops it or the entry returns an error."""
+    report if a sanitizer or the lockstep check stops it or the entry
+    returns an error (K2 refuses reads too long for a block's shared
+    memory)."""
     L2 = np.asarray(arrays["L2"])
     if L2.dtype not in (np.int32, np.int64):
         raise TypeError(f"rank type {L2.dtype}")
@@ -230,14 +234,18 @@ def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
     head = np.asarray([kernel, len(occ), arrays["primary"],
                        arrays["seq_len"], L2.dtype == np.int64, B, L, n,
                        min_seed_len, split_len, split_width, slots,
-                       max_intv, maxh, int(count_rows)], np.int64)
+                       max_intv, maxh, int(count_rows), int(reverse)],
+                      np.int64)
     got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
         lens, np.int32), *((rids,) if kernel == 0 else ())),
         dtype=np.int64, sanitize=sanitize)
     width = slots if kernel == 0 else maxh
     k = n * width * 5
-    out = (got[:k].reshape(n, width, 5), got[k:k + n], got[k + n:k + 2 * n])
+    n_out = 3 if kernel == 0 else 2  # the per-read outputs after the rows
+    out = (got[:k].reshape(n, width, 5), *(
+        got[k + i * n:k + (i + 1) * n] for i in range(n_out)))
     if count_rows:
-        m = int(got[k + 2 * n])
-        out += (got[k + 2 * n + 1:k + 2 * n + 1 + m],)
+        at = k + n_out * n
+        m = int(got[at])
+        out += (got[at + 1:at + 1 + m],)
     return out
