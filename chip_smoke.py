@@ -93,17 +93,24 @@ Phases, one output line each (a failing phase raises, exit != 0):
      SAM must equal phase 5's byte for byte; K-sa must launch, the
      extension kernel K-ext must not.  Reads/s, the SA stage's wall
      (the GPU bracketed by synchronize), the ranks walked, and the
-     first launch's ranks again: K-sa alone beside its plain version
-     and its bound;
+     first launch's ranks again: K-sa alone (its C entry) and through
+     its wrapper in interleaved passes, alone after a 64 MB write that
+     flushes L2 (cold), beside its plain version and its bound, with
+     the LF steps of its longest walk and the time a step of that walk
+     takes, its grid (blocks, warps an SM) and registers, and the SASS
+     loads of one LF step in both walks (how many rounds they issue
+     in);
  3g. (after 5b, whose index it uses) K-sa and K-ext == their plain
      versions in every instantiation (marked and rank-sampled walk,
      backward and forward extension, int32 and int64 ranks) on the
      3,000-base test genome and on phase 5's 64 Mbp index (2^16
      random ranks and the edge ranks; intervals from set_intv, then a
      backward and a forward step), K-sa == the native walk on the
-     marked 64 Mbp index, each 64 Mbp instantiation timed alone in
-     interleaved passes, with the LF steps a rank and a warp; then the
-     extension path driven once with the counts at 0;
+     marked 64 Mbp index, each 64 Mbp instantiation timed alone (its C
+     entry) in interleaved passes (K-sa also cold, K-ext also through
+     its wrapper), with the LF steps a rank and a warp; K-sa's C entry
+     must refuse 2^31 - 1 ranks (its rank queue's range) before it
+     runs; then the extension path driven once with the counts at 0;
  5c. phase 5's 2 x 8,192 pairs through the port's aligner on cuda with
      TPUBWA_SEED_MODE=megaq (as `mem` runs it): every seeding row from
      K2 and K3 (csrc/smem.cu), with the counts at 0 just before the run.
@@ -125,7 +132,11 @@ Phases, one output line each (a failing phase raises, exit != 0):
      (a warp a read) the chain a read (forward steps plus backward
      strips), its launch shape (warps a block and an SM) and registers;
      K2 must refuse reads one base past its limit, in the C entry and the
-     wrapper; and the global loads of K2's and K3's SASS.
+     wrapper; and the global loads of K2's and K3's SASS;
+ 5d. phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa index: K2 and
+     K3 seed every read and K-sa walks every SA position in one run,
+     with the counts at 0 just before it.  Its SAM must equal phase 5's
+     byte for byte, and K2, K3 and K-sa must each launch.
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
@@ -1572,6 +1583,25 @@ def sass_loops(text, function):
                 inner_candidates=len(found))
 
 
+def ldg_width(op):
+    """The width in bits of a global load (``LDG``), None for any other
+    SASS instruction."""
+    mnem = _GUARD.sub("", op.strip()).split()[0]
+    if not mnem.startswith("LDG"):
+        return None
+    return 128 if ".128" in mnem else 64 if ".64" in mnem else 32
+
+
+def ldg_counts(ops):
+    """{width in bits (a string): global loads} of the instructions."""
+    out = {}
+    for op in ops:
+        w = ldg_width(op)
+        if w:
+            out[str(w)] = out.get(str(w), 0) + 1
+    return out
+
+
 def sass_loads(text, function):
     """The global loads of the one function in ``cuobjdump -sass``
     output whose mangled name matches the regex ``function``, as
@@ -1581,39 +1611,24 @@ def sass_loads(text, function):
     each trip's load waits for the last trip's, so the loop's loads
     issue one after another)."""
     name, ins, loops = sass_function(text, function)
-
-    def width(op):
-        mnem = _GUARD.sub("", op.strip()).split()[0]
-        if not mnem.startswith("LDG"):
-            return None
-        return 128 if ".128" in mnem else 64 if ".64" in mnem else 32
-
-    def counted(ops):
-        out = {}
-        for op in ops:
-            w = width(op)
-            if w:
-                out[str(w)] = out.get(str(w), 0) + 1
-        return out
-
     inner = [lp for lp in loops
              if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
                         for o in loops)]
     found = []
     for lo, hi, _ in inner:
         body = [op for a, op in ins if lo <= a <= hi]
-        if not counted(body):
+        if not ldg_counts(body):
             continue
         waits = False
         for k, op in enumerate(body):
-            if width(op):
+            if ldg_width(op):
                 dest = set(def_use(op)[0])
                 waits |= any(dest & set(r for part in def_use(later)[1:3]
                                         for r in part)
                              for later in body[k + 1:])
         found.append({"at": hex(lo), "instructions": len(body),
-                      "ldg": counted(body), "waits": waits})
-    return {"function": name, "ldg": counted(op for _, op in ins),
+                      "ldg": ldg_counts(body), "waits": waits})
+    return {"function": name, "ldg": ldg_counts(op for _, op in ins),
             "loops": found}
 
 
@@ -1810,23 +1825,186 @@ def bytes_bound(case):
     return t, "bytes", {"bytes_ms": t}
 
 
-def walk_case(torch, np, didx, ranks, ms, plain_ms, stats):
-    """A K-sa case: its times, the LF steps a rank and a warp (32
-    consecutive ranks, one warp of the kernel) and the bytes of its
-    walk (from the plain version's reads, ``stats``)."""
+def walk_case(torch, np, didx, ranks, ms, plain_ms, stats, cold_ms=None):
+    """A K-sa case: its times (``ms`` warm, ``cold_ms`` after a write
+    that flushes L2), the LF steps a rank and a warp (32 consecutive
+    ranks, one warp of the first form), the time a step of the longest
+    walk takes (``us_per_step_longest``: the launch over its longest
+    walk's steps, the chain no design can shorten), the 64-byte HBM
+    units all its steps read (``step_atoms``, and ``atoms_ms``, their
+    time at HBM's peak rate were none in L2) and the bytes of its walk
+    (the distinct sectors; from the plain version's reads, ``stats``)."""
     isz = 8 if didx.idt == torch.int64 else 4
     steps = stats["steps"].cpu().numpy()
     pad = np.zeros(-len(steps) % 32, steps.dtype)
     warp_max = np.concatenate([steps, pad]).reshape(-1, 32).max(1)
+    longest = int(steps.max())
+    # every step's reads in 64-byte units of HBM (two sectors), as if
+    # none were in L2: a 48-byte occ row spans one or two, a 32-byte
+    # mark row and a sample one
+    at = stats["occ_rows"].cpu().numpy().astype(np.int64) * OCC_ROW
+    atoms = int(((at + OCC_ROW - 1) // 64 - at // 64 + 1).sum()
+                + len(stats["mark_rows"]) + len(stats["samples"]))
     return {"n": len(ranks), "ms": ms and round(ms, 4),
+            "cold_ms": cold_ms and round(cold_ms, 4),
             "plain_ms": round(plain_ms, 3),
             "steps_mean": round(float(steps.mean()), 3),
-            "steps_max": int(steps.max()),
+            "steps_max": longest,
+            "us_per_step_longest": (round(ms * 1e3 / longest, 4)
+                                    if ms and longest else None),
             "warp_max_steps_mean": round(float(warp_max.mean()), 3),
+            "step_atoms": atoms,
+            "atoms_ms": round(atoms * 64 / HBM_BYTES_S * 1e3, 6),
             "bytes": fm_bytes(2 * isz * len(ranks), [
                 (stats["occ_rows"].cpu().numpy(), OCC_ROW),
                 (stats["mark_rows"].cpu().numpy(), MARK_ROW),
                 (stats["samples"].cpu().numpy(), isz)])}
+
+
+FLUSH_BYTES = 64 << 20  # a write past the H100's 50 MB L2
+
+
+def cold_ms(torch, fn, reps=8):
+    """The least device time of one call of ``fn`` right after a write of
+    FLUSH_BYTES, which leaves none of the index in L2: CUDA events around
+    the call alone, the stream held busy by a spin kernel while the host
+    queues it, so no host time falls inside the window."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    best = None
+    for r in range(reps):
+        flush.fill_(r + 1)
+        torch.cuda._sleep(1 << 18)
+        _, ms = timed_once(torch, fn)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def ksa_alone(torch, didx, ranks, lib=None, max_blocks=0, n=None):
+    """K-sa's C entry alone on preallocated buffers: a launch not counted
+    on the wrapper, which raises if the entry fails.  Its buffers live on
+    the returned function (``.buffers``: ranks, out, queue); its
+    ``.entry`` makes the call and returns the entry's code.  ``lib``:
+    another build of csrc/occ.cu's entries (the package's own where
+    None); ``n``: the count passed to the entry (len(ranks) where
+    None)."""
+    from tpubwa_torch.device import _build, occ
+    lib = lib or _build.load("occ", occ._SIGNATURES)
+    fm = didx.upload_fm()
+    out = torch.empty_like(ranks)
+    queue = torch.empty(1, dtype=torch.int32, device=ranks.device)
+    args = (fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(),
+            fm["mark_rows"].data_ptr(), fm["sa_marked"].data_ptr(),
+            fm["sa_sample"].data_ptr(), didx.primary, didx.seq_len,
+            didx.mark_D, int(didx.idt == torch.int64), ranks.data_ptr(),
+            out.data_ptr(), len(ranks) if n is None else n, queue.data_ptr(),
+            None, max_blocks, ranks.device.index,
+            torch.cuda.current_stream(ranks.device).cuda_stream)
+
+    def launch():
+        if launch.entry():
+            raise AssertionError("K-sa's launch failed")
+    launch.entry = lambda: lib.tpubwa_sa_lookup(*args)
+    launch.buffers = (ranks, out, queue)
+    return launch
+
+
+def kext_alone(torch, didx, ik, is_back):
+    """K-ext's C entry alone on preallocated buffers (``.buffers``: ik,
+    out), a launch not counted on the wrapper."""
+    from tpubwa_torch.device import _build, occ
+    lib = _build.load("occ", occ._SIGNATURES)
+    fm = didx.upload_fm()
+    out = torch.empty((len(ik), 4, 3), dtype=ik.dtype, device=ik.device)
+    args = (fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
+            didx.seq_len, int(didx.idt == torch.int64), int(bool(is_back)),
+            ik.data_ptr(), out.data_ptr(), len(ik), ik.device.index,
+            torch.cuda.current_stream(ik.device).cuda_stream)
+
+    def launch():
+        if lib.tpubwa_bwt_extend(*args):
+            raise AssertionError("K-ext's launch failed")
+    launch.buffers = (ik, out)
+    return launch
+
+
+def ksa_launch_facts(torch, didx, n):
+    """K-sa's launch for ``n`` ranks on this card: the blocks of 128
+    threads an SM holds (the occupancy query), the grid's blocks and the
+    warps an SM, and each instantiation's registers from ptxas."""
+    from tpubwa_torch.device import _build, occ
+    lib = _build.load("occ", occ._SIGNATURES)
+    rc, shape = occ.sa_lookup_shape(lib, didx, n,
+                                    torch.cuda.current_device())
+    if rc:
+        raise AssertionError(f"K-sa refuses {n} ranks")
+    report = _build.build_info["occ"]["ptxas"]
+    return {"launch": dict(shape, warps_per_sm=shape["blocks_per_sm"] * 4),
+            "ptxas": {f"{walk}/{dt}": ptxas_usage(
+                report, rf"sa_lookup_kernelI{m}Lb{b}EE")
+                for walk, b in (("sampled", 0), ("marked", 1))
+                for dt, m in (("int32", "i"), ("int64", "l"))}}
+
+
+def ksa_refusal(torch, didx):
+    """K-sa's C entry called with 2^31 - 1 ranks (4 in the tensor): it
+    must refuse before anything runs (a nonzero cudaError, the queue word
+    not zeroed, no position written)."""
+    n = (1 << 31) - 1
+    call = ksa_alone(torch, didx, torch.zeros(4, dtype=didx.idt, device=DEV),
+                     n=n)
+    _, out, queue = call.buffers
+    out.fill_(-7)
+    queue.fill_(-7)
+    rc = call.entry()
+    torch.cuda.synchronize()
+    if rc == 0 or bool((out != -7).any() | (queue != -7).any()):
+        raise AssertionError(f"K-sa ran {n} ranks")
+    return {"n": n, "refused_rc": rc}
+
+
+def load_rounds(text, function):
+    """The row loads of one step of a walk in ``cuobjdump -sass`` output:
+    of the one function whose mangled name matches the regex
+    ``function``, the innermost loop that holds the most 128-bit global
+    loads, its loads by width, and the rounds its 128-bit loads issue in.
+    A round ends where an instruction reads a register that a load of the
+    round wrote, so one round means that every row of the step is
+    requested before any is used: a step is one trip to memory."""
+    name, ins, loops = sass_function(text, function)
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                        for o in loops)]
+
+    best = None
+    for lo, hi, _ in inner:
+        body = [op for a, op in ins if lo <= a <= hi]
+        n128 = sum(ldg_width(op) == 128 for op in body)
+        if n128 and (best is None or n128 > best[2]):
+            best = (lo, body, n128)
+    if best is None:
+        raise AssertionError(f"{name}: no loop with a 128-bit load")
+    lo, body, n128 = best
+    rounds, pending = 0, set()
+    for op in body:
+        writes, addr, reads, _ = def_use(op)
+        if pending & set(addr + reads):
+            pending = set()
+        if ldg_width(op) == 128:
+            rounds += not pending
+            pending |= set(writes)
+    return {"function": name, "loop_at": hex(lo), "instructions": len(body),
+            "ldg": ldg_counts(body), "ldg128": n128, "rounds_128": rounds}
+
+
+def ksa_sass():
+    """K-sa's global loads in both walks (int32): ``sass_loads`` of each
+    instantiation and the row loads of one step (``load_rounds``)."""
+    from tpubwa_torch.device import _build
+    text = _run([_cuobjdump(), "-sass", _build.build_info["occ"]["so"]])
+    return {walk: {"sass_loads": sass_loads(text, fn),
+                   "step": load_rounds(text, fn)}
+            for walk, fn in (("sampled", r"sa_lookup_kernelIiLb0EE"),
+                             ("marked", r"sa_lookup_kernelIiLb1EE"))}
 
 
 def extend_case(torch, didx, ik, ms, plain_ms, stats):
@@ -1905,7 +2083,7 @@ def fm_checks(torch, np, label, variants, rng, n):
             step = "back" if is_back else "fwd"
             bad, err = held_fm(torch, f"{tag} bwt_extend {step}", got, want)
             case = {"mismatches": bad, "max_abs_err": err, "didx": didx,
-                    "ik": ik, "is_back": is_back}
+                    "ik": ik, "is_back": is_back, "got": got}
             case.update(extend_case(torch, didx, ik, None, plain_ms,
                                     stats))
             out[f"{tag}/bwt_extend_{step}"] = case
@@ -1963,19 +2141,35 @@ def phase_occ(torch, np, fmi, stock):
     if native_mismatches:
         raise AssertionError(f"K-sa != the native walk on "
                              f"{native_mismatches} ranks")
-    # times: every 64 Mbp instantiation, alone, in interleaved passes
+    # times: every 64 Mbp instantiation alone (its C entry on its own
+    # buffers) in interleaved passes, K-ext through its wrapper too (a
+    # call costs the host about as long as the kernel runs), and K-sa
+    # once more after a write that flushes L2
     fns = {}
     for key, c in cases.items():
         if not key.startswith(f"{GENOME_MB} Mbp"):
             continue
         if "ranks" in c:
-            fns[key] = (lambda x, r: lambda: occ.sa_lookup(x, r))(
-                c["didx"], c["ranks"])
+            fns[key] = ksa_alone(torch, c["didx"], c["ranks"])
         else:
-            fns[key] = (lambda x, ik, b: lambda: occ.bwt_extend(x, ik, b))(
-                c["didx"], c["ik"], c["is_back"])
-    for key, ms in interleaved_min(fns, 20, 4, torch.device(DEV)).items():
-        cases[key]["ms"] = round(ms, 4)
+            fns[key] = kext_alone(torch, c["didx"], c["ik"], c["is_back"])
+            fns[f"{key} wrapper"] = (
+                lambda x, ik, b: lambda: occ.bwt_extend(x, ik, b))(
+                    c["didx"], c["ik"], c["is_back"])
+    best = interleaved_min(fns, 20, 4, torch.device(DEV))
+    for key, ms in best.items():
+        if key.endswith(" wrapper"):
+            continue
+        c = cases[key]
+        c["ms"] = round(ms, 4)
+        if not torch.equal(fns[key].buffers[1], c["got"]):
+            raise AssertionError(f"{key}: alone != its wrapper")
+        if "ranks" in c:
+            c["cold_ms"] = round(cold_ms(torch, fns[key]), 4)
+            if c["steps_max"]:
+                c["us_per_step_longest"] = round(ms * 1e3 / c["steps_max"], 4)
+        else:
+            c["wrapper_ms"] = round(best[f"{key} wrapper"], 4)
     # the extension path, its launches counted: set_intv, then a
     # backward and a forward step, each on a random base of the last
     didx = big["marked"]
@@ -1997,6 +2191,8 @@ def phase_occ(torch, np, fmi, stock):
     print("[3g occ] " + json.dumps({
         "tolerance": 0, "cases": shown,
         "native_walk": {"ranks": len(ranks), "mismatches": native_mismatches},
+        "sa_lookup_refusal": {dt: ksa_refusal(torch, x) for dt, x in (
+            ("int32", didx), ("int64", int64_twin(torch, didx)))},
         "extension_path_launches": ext_launches}), flush=True)
     row = cases[f"{GENOME_MB} Mbp/marked/int32/bwt_extend_fwd"]
     err = {name: max(c["max_abs_err"] for k, c in cases.items()
@@ -2012,7 +2208,8 @@ def phase_stock_bwa(torch, np, main):
     phase 5's 2 x 8,192
     pairs through the port's aligner on cuda: the SA positions come
     from K-sa.  Its SAM must equal phase 5's byte for byte.  Returns
-    (the stock index, the sa_lookup row's case, K-sa's launches)."""
+    (the stock index, the sa_lookup row's case, K-sa's launches, and the
+    first launch's (index, ranks))."""
     import tempfile
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.device import occ
@@ -2089,19 +2286,26 @@ def phase_stock_bwa(torch, np, main):
                    if a != b) if len(lines) == len(main["sam"]) else -1
         raise AssertionError(f"5b SAM != phase 5's ({len(lines)} vs "
                              f"{len(main['sam'])} lines, first diff {bad})")
-    # the first launch's ranks again: K-sa alone in interleaved passes,
-    # the plain version, the bytes of the walk
+    # the first launch's ranks again: K-sa alone (its C entry) and
+    # through its wrapper in interleaved passes, alone once more after a
+    # write that flushes L2, the plain version, the bytes of the walk
     didx, ranks = aligner.didx, seen[0]
     got = occ.sa_lookup(didx, ranks)
     stats = {}
     want, plain_ms = timed_once(
         torch, lambda: occ.sa_lookup_plain(didx, ranks, stats=stats))
     _, err = held_fm(torch, "5b's K-sa launch", got, want)
-    ms = interleaved_min({"k": lambda: occ.sa_lookup(didx, ranks)}, 20, 4,
-                         torch.device(DEV))["k"]
-    case = walk_case(torch, np, didx, ranks.cpu().numpy(), ms, plain_ms,
-                     stats)
-    case.update(bound_ms=round(bytes_bound(case)[0], 6), max_abs_err=err)
+    alone = ksa_alone(torch, didx, ranks)
+    best = interleaved_min({
+        "alone": alone, "wrapper": lambda: occ.sa_lookup(didx, ranks)}, 20,
+        4, torch.device(DEV))
+    cold = cold_ms(torch, alone)
+    held_fm(torch, "5b's K-sa launch alone", alone.buffers[1], want)
+    case = walk_case(torch, np, didx, ranks.cpu().numpy(), best["alone"],
+                     plain_ms, stats, cold_ms=cold)
+    case.update(wrapper_ms=round(best["wrapper"], 4),
+                bound_ms=round(bytes_bound(case)[0], 6), max_abs_err=err,
+                **ksa_launch_facts(torch, didx, len(ranks)))
     n_reads = sum(len(b) for b in batches)
     print("[5b stock-bwa] " + json.dumps({
         "index": "phase 5's, save_bwa + .alt, cli.load_index (no "
@@ -2113,8 +2317,9 @@ def phase_stock_bwa(torch, np, main):
         "sam_lines": len(lines), "sam_equal_to_phase5": True,
         "sa_stage_s": round(sa["s"], 3), "ranks_walked": sa["ranks"],
         "sa_lookup_launches": launches, "bwt_extend_launches": ext_launches,
-        "k1_launches": k1_launches, "sa_launch": case}), flush=True)
-    return stock, case, launches
+        "k1_launches": k1_launches, "sa_launch": case,
+        "sass": ksa_sass()}), flush=True)
+    return stock, case, launches, (didx, ranks)
 
 
 def busy_share(torch, fn):
@@ -2264,6 +2469,56 @@ def phase_megaq(torch, np, main):
              "first_batch_pass": busy}
     print("[5c megaq] " + json.dumps(facts), flush=True)
     return dict(facts, chunk=seen["calls"][0])
+
+
+def phase_megaq_stock(torch, np, main, stock):
+    """[5d megaq-stock]: phase 5's 2 x 8,192 pairs through the port's
+    aligner on cuda with TPUBWA_SEED_MODE=megaq on 5b's stock-bwa index
+    (``stock``, no text-position marks): K2 and K3 seed every read and
+    K-sa walks every SA position, all three on one run.  Its SAM must
+    equal phase 5's byte for byte; K2, K3 and K-sa must each launch, with
+    the counts at 0 just before the run."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ, smem, smem_fused
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    opt, batches = main["opt"], main["batches"]
+    aligner = megaq_aligner(opt, stock)
+    warm = simulate_pe(stock.bnt, 1024, 100, np.random.default_rng(2))
+    for _ in process_batches(opt, stock, iter([warm]), 0, align_fn=aligner):
+        pass
+    smem_fused.rounds12_megaq.launches = 0
+    smem._seed_strategy_scan.launches = 0
+    occ.sa_lookup.launches = occ.bwt_extend.launches = 0
+    ek.extend_batch.launches = 0
+    torch.cuda.synchronize()
+    with SeedTimer(torch) as seeding:
+        t0 = time.perf_counter()
+        lines = [l for _, ls in process_batches(
+            opt, stock, iter(batches), 0, align_fn=aligner) for l in ls]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = {"smem_rounds12": smem_fused.rounds12_megaq.launches,
+                "seed_strategy": smem._seed_strategy_scan.launches,
+                "sa_lookup": occ.sa_lookup.launches,
+                "bwt_extend": occ.bwt_extend.launches,
+                "ksw_extend": ek.extend_batch.launches}
+    if not all(launches[k] for k in ("smem_rounds12", "seed_strategy",
+                                     "sa_lookup")):
+        raise AssertionError(f"5d launched {launches}")
+    if lines != main["sam"]:
+        bad = next(i for i, (a, b) in enumerate(zip(lines, main["sam"]))
+                   if a != b) if len(lines) == len(main["sam"]) else -1
+        raise AssertionError(f"5d SAM != phase 5's ({len(lines)} vs "
+                             f"{len(main['sam'])} lines, first diff {bad})")
+    n_reads = sum(len(b) for b in batches)
+    facts = {"index": "5b's (stock bwa files, no marks)", "reads": n_reads,
+             "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
+             "phase5_reads_per_s": round(main["reads_per_s"], 1),
+             "seeding_s": round(seeding.s, 3), "sam_lines": len(lines),
+             "sam_equal_to_phase5": True, "launches": launches}
+    print("[5d megaq-stock] " + json.dumps(facts), flush=True)
+    return facts
 
 
 def edge_reads(np, text, rng):
@@ -2628,12 +2883,13 @@ def main() -> int:
     phase_golden(torch)
     main_path = phase_main_path(torch, np)
     launches = main_path["launches"]
-    stock, sa_case, sa_launches = phase_stock_bwa(torch, np, main_path)
+    stock, sa_case, sa_launches, _ = phase_stock_bwa(torch, np, main_path)
     ext_case, ext_launches, sa_err = phase_occ(torch, np, main_path["fmi"],
                                                stock)
     sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
     megaq = phase_megaq(torch, np, main_path)
     seeding = phase_seeding(torch, np, main_path, megaq)
+    phase_megaq_stock(torch, np, main_path, stock)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
     if bad:

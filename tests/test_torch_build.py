@@ -108,3 +108,25 @@ def test_the_seeding_kernels_are_keyed_by_their_headers():
     fm.cuh (the repo's own sources)."""
     assert [p.name for p in _build._sources(_build.CSRC / "smem.cu")] == [
         "smem.cu", "warp_host.h", "smem.cuh", "fm.cuh"]
+
+
+def test_build_edited_applies_each_edit_once(fake_toolchain, monkeypatch):
+    """An experiment's form: csrc/<name>.cu and the headers it includes,
+    copied into its own directory with the form's edits applied, built
+    with the package's flags; an edit whose text is not there once is
+    refused before nvcc runs."""
+    csrc = fake_toolchain / "csrc"
+    (csrc / "k1.cu").write_text('#include "a.cuh"\nint x = 1;\n')
+    (csrc / "a.cuh").write_text("int y = 2; int z = 2;\n")
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    out = fake_toolchain / "forms" / "f"
+    so, regs = _build.build_edited(
+        "k1", [("k1.cu", "x = 1", "x = 3"), ("a.cuh", "y = 2", "y = 4")],
+        out, {})
+    assert so == str(out / "k1.so") and "Used 40 registers" in regs[0]
+    assert (out / "k1.cu").read_text().endswith("int x = 3;\n")
+    assert (out / "a.cuh").read_text() == "int y = 4; int z = 2;\n"
+    assert (csrc / "a.cuh").read_text() == "int y = 2; int z = 2;\n"
+    for edit in (("a.cuh", "= 2", "= 5"), ("k1.cu", "w = 1", "w = 2")):
+        with pytest.raises(RuntimeError, match="once"):
+            _build.build_edited("k1", [edit], fake_toolchain / "g", {})

@@ -125,3 +125,72 @@ def test_extension_reads_counts_past_2_31_as_unsigned():
         didx, torch.from_numpy(ik), False).numpy())
     # new_piv = L2[c] + 1 + a count past 2^31 (x0 - 1 = -1 reads none)
     assert (want[[0, 1, 3], :, 0] > big).all()
+
+
+def edge_ranks(fmi, rng, n=160):
+    """K-sa's rank set for the queue: 0, primary and its neighbours,
+    seq_len, multiples of 32 (walks that end at once), ranks clamped
+    from outside [0, seq_len], then random ones."""
+    p, sl = fmi.primary, fmi.seq_len
+    edges = [0, 1, p - 1, p, p + 1, sl - 1, sl, -1, -40, sl + 1, sl + 33]
+    return np.concatenate([edges, np.arange(0, sl + 1, 32)[:40],
+                           rng.integers(0, sl + 1, n)])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("max_blocks", [1, 2])
+@pytest.mark.parametrize("marks", ["marked", "unmarked"])
+def test_walk_on_a_capped_grid(indexes, marks, max_blocks, reverse):
+    """K-sa's rank queue: on a grid of one or two blocks each lane walks
+    rank after rank (the thread that walked each rank, ``lanes``), in
+    both lane orders, and every position equals the plain walk's, on
+    the edge ranks, the multiples of 32 and clamped ranks."""
+    fmi = indexes[marks]
+    didx = DeviceIndex.from_fmindex(fmi, "cpu")
+    ranks = edge_ranks(fmi, np.random.default_rng(5))
+    stats = {}
+    pos, _, _ = warp_host.occ_host(host_arrays(didx), ranks,
+                                   np.zeros((0, 3)), max_blocks=max_blocks,
+                                   reverse=reverse, stats=stats)
+    want = tocc.sa_lookup_plain(didx, torch.from_numpy(ranks.astype(
+        np.int32)))
+    assert np.array_equal(pos, want.numpy())
+    lanes = stats["lanes"]
+    assert lanes.min() >= 0 and lanes.max() < 128 * max_blocks
+    taken = np.bincount(lanes)
+    taken = taken[taken > 0]
+    # the harness runs a launch's warps one after another: the first
+    # warp's 32 lanes drain the queue, each taking rank after rank
+    assert len(taken) == 32 and len(ranks) == taken.sum()
+    assert taken.min() >= 2 and taken.max() >= 6
+
+
+@pytest.mark.parametrize("idt", [np.int32, np.int64])
+def test_sa_lookup_refuses_n_past_the_queue(indexes, idt):
+    """An n whose rank queue (an int32 counter, which each warp may pass
+    n by one tile) could overflow is refused before anything runs: a
+    nonzero return, the queue word not zeroed, no position written.  On
+    the harness's H100 a grid holds 132 x 16 blocks of 4 warps."""
+    didx = DeviceIndex.from_fmindex(indexes["unmarked"], "cpu")
+    arrays = host_arrays(didx)
+    for k in ("sa_sample", "L2", "sa_marked"):
+        arrays[k] = arrays[k].astype(idt)
+    limit = (1 << 31) - 1 - 32 * (132 * 16 * 4 + 1)
+    for n_call in (limit + 1, (1 << 31) - 1, 1 << 40):
+        rc, queue, pos = warp_host.sa_lookup_refusal(arrays, np.zeros(
+            4, idt), n_call)
+        assert rc != 0 and queue == -77 and (pos == -77).all(), n_call
+
+
+def test_ksa_forms_edit_the_sources_once():
+    """scripts/exp_ksa_forms.py's forms are the sources with named edits,
+    each of which must find its text exactly once (the script refuses
+    otherwise, on the card)."""
+    from tpubwa_torch.device import _build
+    from tpubwa_torch.scripts import exp_ksa_forms
+    assert exp_ksa_forms.FORMS["current"] == []
+    for form, edits in exp_ksa_forms.FORMS.items():
+        for name, old, new in edits:
+            text = (_build.CSRC / name).read_text()
+            assert name in exp_ksa_forms.SOURCES, form
+            assert text.count(old) == 1 and new not in text, (form, old)

@@ -242,27 +242,47 @@ def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index,
                            + fqs)
 
 
+@pytest.mark.parametrize("index", ["alt", "golden-bwa"])
 @pytest.mark.parametrize("paired", [False, True])
-def test_cli_mem_cpu_megaq_equals_host_and_tpubwa(alt_index, monkeypatch,
-                                                 paired):
+def test_cli_mem_cpu_megaq_equals_host_and_tpubwa(alt_index,
+                                                 golden_bwa_index,
+                                                 monkeypatch, paired, index):
     """`mem --device cpu` with TPUBWA_SEED_MODE=megaq (K2's and K3's plain
     versions seed every read; the native seeder is never called): SAM
-    byte-equal to host mode's and to tpubwa's scalar pipeline."""
+    byte-equal to host mode's and to tpubwa's scalar pipeline, on an
+    index with ALT contigs and on a stock-bwa index, where the SA walk
+    is occ.sa_lookup's too (K2, K3 and K-sa in one run on the card)."""
+    from tpubwa_torch.device import occ as tocc
     from tpubwa_torch.device import smem as tsmem
-    prefix, d = alt_index
-    fqs = [str(d / f) for f in (["pe1.fq", "pe2.fq"] if paired
-                                else ["se.fq"])]
+    if index == "alt":
+        prefix, d = alt_index
+        fqs = [str(d / f) for f in (["pe1.fq", "pe2.fq"] if paired
+                                    else ["se.fq"])]
+    else:
+        prefix = golden_bwa_index
+        fqs = [os.path.join(GOLD, f) for f in (
+            ["pe1.fq", "pe2.fq"] if paired else ["se.fq"])]
     host = _sam(main_mem, ["--device", "cpu", prefix] + fqs)
     want = _sam(tpubwa_main_mem, ["--device", "scalar", prefix] + fqs)
 
     def no_host_seeding(*a, **k):
         raise AssertionError("a megaq chunk was seeded on the host")
 
+    walked = []
+
+    def counted(*a, **k):
+        walked.append(1)
+        return walk(*a, **k)
+
+    walk = tocc.sa_lookup_plain
     monkeypatch.setattr(tsmem, "smem_collect_batch_native", no_host_seeding)
+    monkeypatch.setattr(tocc, "sa_lookup_plain", counted)
     monkeypatch.setenv("TPUBWA_SEED_MODE", "megaq")
     got = _sam(main_mem, ["--device", "cpu", prefix] + fqs)
     assert len(got) > len(fqs) * 40
     assert got == host == want
+    # the stock index has no text-position marks: its SA walk is K-sa's
+    assert bool(walked) == (index == "golden-bwa")
 
 
 def test_no_jax_import():

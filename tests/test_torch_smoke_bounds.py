@@ -354,3 +354,44 @@ def test_sass_loads_counts_widths_and_loops_that_wait():
     assert got["loops"] == [
         {"at": "0x10", "instructions": 6, "ldg": {"32": 1}, "waits": True},
         {"at": "0xa0", "instructions": 4, "ldg": {"32": 1}, "waits": False}]
+
+
+# one LF step a trip of a walk loop: in _Z3onePj the row's three 16-byte
+# loads are issued before any is read (one round); in _Z3twoPj the
+# second load's address is read off the first's result (two rounds)
+ROUNDS = """
+        Function : _Z3onePj
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.128.CONSTANT R16, desc[UR4][R2.64+0x10] ;
+        /*0030*/                   LDG.E.128.CONSTANT R20, desc[UR4][R2.64+0x20] ;
+        /*0040*/                   LOP3.LUT R9, R16, R12, RZ, 0x3c, !PT ;
+        /*0050*/                   POPC R9, R9 ;
+        /*0060*/                   IMAD.WIDE R2, R9, 0x30, R4 ;
+        /*0070*/                   ISETP.NE.AND P3, PT, R9, RZ, PT ;
+        /*0080*/               @P3 BRA `(.L_x_0) ;
+        /*0090*/                   LDG.E R8, desc[UR4][R6.64] ;
+        /*00a0*/                   EXIT ;
+        Function : _Z3twoPj
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+.L_x_1:
+        /*0000*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64] ;
+        /*0010*/                   LDG.E R8, desc[UR4][R6.64] ;
+        /*0020*/                   IMAD.WIDE R4, R13, 0x30, R10 ;
+        /*0030*/                   LDG.E.128.CONSTANT R16, desc[UR4][R4.64] ;
+        /*0040*/                   IADD3 R2, R16, R8, RZ ;
+        /*0050*/                   ISETP.NE.AND P3, PT, R2, RZ, PT ;
+        /*0060*/               @P3 BRA `(.L_x_1) ;
+        /*0070*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("function,rounds,ldg", [
+    (r"_Z3onePj", 1, {"128": 3}), (r"_Z3twoPj", 2, {"128": 2, "32": 1})])
+def test_load_rounds_counts_the_trips_of_a_step(function, rounds, ldg):
+    got = c.load_rounds(ROUNDS, function)
+    assert got["rounds_128"] == rounds and got["ldg"] == ldg
+    assert got["ldg128"] == ldg["128"] and got["loop_at"] == (
+        "0x10" if rounds == 1 else "0x0")

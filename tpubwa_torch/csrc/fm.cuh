@@ -23,7 +23,12 @@
 // registers, where a loop over the row's words, its trip count the
 // rank's, would load them one at a time; bwt_extend loads the rows of
 // both its queries before it counts either, and one row where both fall
-// in the same 128-base block (bwa's bwt_2occ4).  With TPUBWA_WARP_HOST
+// in the same 128-base block (bwa's bwt_2occ4).  An LF step (inv_psi) is
+// one such row: its base, its checkpoint count and L2 are picked from
+// registers, so a step is one trip to memory, not a word load and then
+// the loads that its base selects; a mark row is two 16-byte loads
+// (load_mark_row), which the marked walk issues beside the occ row of
+// the same rank (csrc/occ.cu).  With TPUBWA_WARP_HOST
 // defined (the host harness of csrc/warp_host.h) __popc, __ldg and the
 // 16-byte load are their host equivalents (the last checks its
 // alignment), and a harness may set fm::read_rows to collect the occ row
@@ -63,8 +68,9 @@ struct Index {
     Idx primary;          // conceptual row of the sentinel
     Idx seq_len;          // doubled text length
     // L2's values, which a kernel loads once (with_l2) and reads where
-    // the base is a constant after unrolling, so that they stay in
-    // registers; a base known only at run time reads L2
+    // the base is a constant after unrolling, or picks among by selects
+    // (lf_row's base, known only at run time), so that they stay in
+    // registers; set_intv still reads L2
     Idx l2[5];
 };
 
@@ -80,11 +86,6 @@ __device__ __forceinline__ Index<Idx> with_l2(Index<Idx> f) {
 __device__ __forceinline__ uint32_t match(uint32_t w, int c) {
     const uint32_t x = ~(w ^ (uint32_t)c * 0x55555555u);
     return x & (x >> 1) & 0x55555555u;
-}
-
-// the pairs of the first cov bases of a word (cov in [1, 16])
-__device__ __forceinline__ uint32_t cover(int cov) {
-    return cov >= 16 ? 0xffffffffu : 0xffffffffu << (2 * (16 - cov));
 }
 
 // the occ row of stored BWT index x
@@ -212,49 +213,102 @@ __device__ __forceinline__ Idx occ1(const Index<Idx>& f, Idx k, int c) {
     return cnt[c];
 }
 
-// LF mapping on conceptual rows k in [0, seq_len] (bwt.h:bwt_invPsi):
-// x = k - (k > primary) equals occ4's kk except at k == primary (whose
-// result is 0), so one row serves the BWT code and its count.  The
-// words below x's base are read once each.
+// inv_psi's stored row for conceptual row k: x = k - (k > primary),
+// clamped into the stored rows.  It equals occ4's kk except at k ==
+// primary (whose LF is 0), so one row serves the BWT code and its count.
+template <class Idx>
+__device__ __forceinline__ Idx lf_x(const Index<Idx>& f, Idx k) {
+    const Idx x = k > f.primary ? k - 1 : k;
+    return x < 0 ? 0 : x > f.seq_len - 1 ? f.seq_len - 1 : x;
+}
+
+// lane c (0-3, known at run time) of v, by selects: an index into a
+// register array by a run-time value would put the array in local memory
+template <class T>
+__device__ __forceinline__ T pick4(T a, T b, T c, T d, int i) {
+    return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+// LF of conceptual row k (bwt.h:bwt_invPsi) from registers: r is the occ
+// row of x = lf_x(f, k).  x's base c is read from its word (picked by
+// selects), its count is c's checkpoint count plus the matches of c
+// among the block's first within + 1 bases (a run-time cover over the
+// eight words, as row_occ4 counts), and L2[c] comes from f.l2 (with_l2).
+//
+// gate holds a word of each other row the step loaded (0 where none).
+// L2[0] is 0 (no base sorts before A), so the word XOR (gate ^ the
+// counts' first word) & L2[0] is the word itself; but the compiler
+// cannot know it, so the word's first use waits for every row of the
+// step and all their loads are issued before any is used.  Without it
+// ptxas loaded the counts (and the marked walk's mark row) only after
+// the words were counted: two trips a step.
+template <class Idx>
+__device__ __forceinline__ Idx lf_row(const Index<Idx>& f, const Row& r,
+                                      Idx k, Idx x, uint32_t gate = 0) {
+    const uint32_t w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w,
+                           r.hi.x, r.hi.y, r.hi.z, r.hi.w};
+    const int within = (int)(x & 127), wi = within >> 4;
+    uint32_t word = w[0];
+#pragma unroll
+    for (int i = 1; i < 8; ++i) word = i == wi ? w[i] : word;
+    word ^= (gate ^ r.cnt.x) & (uint32_t)f.l2[0];
+    const int c = (int)(word >> ((15 - (within & 15)) << 1)) & 3;
+    uint32_t n = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+        n += __popc(match(w[i], c) & low_cover(within + 1 - 16 * i));
+    const Idx lf = pick4(f.l2[0], f.l2[1], f.l2[2], f.l2[3], c) +
+                   (Idx)pick4(r.cnt.x, r.cnt.y, r.cnt.z, r.cnt.w, c) +
+                   (Idx)n;
+    return k == f.primary ? (Idx)0 : lf;
+}
+
+// LF mapping on conceptual rows k in [0, seq_len]: one trip to memory,
+// x's whole row as three 16-byte loads issued together (load_row), then
+// everything from registers (lf_row).  f.l2 must be loaded (with_l2).
 template <class Idx>
 __device__ __forceinline__ Idx inv_psi(const Index<Idx>& f, Idx k) {
-    if (k == f.primary) return 0;
-    Idx x = k > f.primary ? k - 1 : k;
-    x = x < 0 ? 0 : x > f.seq_len - 1 ? f.seq_len - 1 : x;
-    const uint32_t* row = occ_row(f, x);
-    const int within = (int)(x & 127), wi = within >> 4;
-    const uint32_t w = __ldg(row + 4 + wi);
-    const int c = (int)(w >> ((15 - (within & 15)) << 1)) & 3;
-    uint32_t n = __popc(match(w, c) & cover((within & 15) + 1));
-    for (int i = 0; i < wi; ++i) n += __popc(match(__ldg(row + 4 + i), c));
-    return __ldg(f.L2 + c) + (Idx)__ldg(row + c) + (Idx)n;
+    const Idx x = lf_x(f, k);
+    return lf_row(f, load_row(f, x), k, x);
 }
 
-// the mark row of conceptual rank k
+// a mark row: the count of marked ranks before its block and the first
+// three bit words (a), the fourth bit word and the pad (b)
+struct MarkRow {
+    uint4 a, b;
+};
+
+// the mark row of conceptual rank k, as two 16-byte loads issued
+// together (a mark row is 32 bytes, the array's start 16-byte aligned)
 template <class Idx>
-__device__ __forceinline__ const uint32_t* mark_row(const uint32_t* marks,
-                                                    Idx k) {
-    return marks + (int64_t)(k >> 7) * kMarkWords;
+__device__ __forceinline__ MarkRow load_mark_row(const uint32_t* marks,
+                                                 Idx k) {
+    const uint32_t* row = marks + (int64_t)(k >> 7) * kMarkWords;
+    return MarkRow{load16(row), load16(row + 4)};
 }
 
-// k's text-position mark
+// k's text-position mark, from its mark row m: rank r at word
+// (r & 127) >> 5, bit 31 - (r & 31)
 template <class Idx>
-__device__ __forceinline__ bool mark_bit(const uint32_t* marks, Idx k) {
+__device__ __forceinline__ bool mark_bit(const MarkRow& m, Idx k) {
     const int within = (int)(k & 127);
-    const uint32_t w = __ldg(mark_row(marks, k) + 1 + (within >> 5));
+    const uint32_t w = pick4(m.a.y, m.a.z, m.a.w, m.b.x, within >> 5);
     return (w >> (31 - (within & 31))) & 1u;
 }
 
-// # of marked ranks before k (k itself marked): k's index in sa_marked
+// # of marked ranks before k (k itself marked), from its mark row m: k's
+// index in sa_marked.  The words below k's count whole, k's own word its
+// bits above k's (marked ranks earlier in the word).
 template <class Idx>
-__device__ __forceinline__ int64_t mark_index(const uint32_t* marks, Idx k) {
-    const uint32_t* row = mark_row(marks, k);
+__device__ __forceinline__ int64_t mark_index(const MarkRow& m, Idx k) {
     const int within = (int)(k & 127), wi = within >> 5,
               bp = 31 - (within & 31);
-    int64_t idx = __ldg(row);
-    for (int i = 0; i < wi; ++i) idx += __popc(__ldg(row + 1 + i));
-    // bits above bp in k's own word: marked ranks earlier in the word
-    if (bp < 31) idx += __popc(__ldg(row + 1 + wi) >> (bp + 1));
+    const uint32_t w[4] = {m.a.y, m.a.z, m.a.w, m.b.x};
+    const uint32_t own = bp == 31 ? 0u : 0xffffffffu << (bp + 1);
+    int64_t idx = m.a.x;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        idx += __popc(w[j] & (j < wi ? 0xffffffffu : j == wi ? own : 0u));
     return idx;
 }
 

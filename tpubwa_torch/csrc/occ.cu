@@ -1,6 +1,7 @@
 // The SA walk (bwt_sa) and the bidirectional interval extension
-// (bwt_extend) over the FM index, for Hopper (sm_90a), one query a
-// thread, over the device functions of csrc/fm.cuh.
+// (bwt_extend) over the FM index, for Hopper (sm_90a), over the device
+// functions of csrc/fm.cuh: K-sa on a persistent grid whose lanes take
+// ranks from a rank queue, K-ext one query a thread.
 //
 // K-sa replaces tpubwa/device/occ.py:sa_lookup (:303-341, a fori_loop /
 // while_loop over inv_psi :226); the wrapper is
@@ -19,29 +20,60 @@
 // :155); the wrapper is tpubwa_torch/device/occ.py:bwt_extend.  ik idt
 // [n, 3] (x0, x1, size) -> idt [n, 4, 3].
 //
-// What bounds them on this card: bytes, and under them the latency of
-// dependent loads.  An LF step is one 48-byte occ row (two 32-byte
-// sectors), read at a rank that the previous step computed; the marked
-// walk adds one 32-byte mark row a step.  The rows lie anywhere in an
-// index of hundreds of MB, far past the 50 MB L2, so a step is a trip to
-// HBM, and a walk of s steps is s such trips in a chain.  The least time
-// for a launch is the bytes of the distinct sectors it touches over
-// 3.35 TB/s (chip_smoke.py counts them from the plain version's reads).
-// An extension is two independent rows.
+// What bounds K-sa on this card is not the distinct bytes it reads.  An
+// LF step reads one 48-byte occ row at a rank the step before computed;
+// the marked walk adds a 32-byte mark row.  The distinct sectors a
+// launch reads over 3.35 TB/s (chip_smoke.py counts them from the plain
+// version's reads) is a bound no walk can reach, for two reasons:
+//   * the chain: a rank-sampled walk is geometric with mean 32, so the
+//     longest of a launch's n walks takes about 32 ln n steps (348 of
+//     77,830 random ranks on the 64 Mbp index), and the launch cannot
+//     end before that walk's chain of dependent trips has; a launch
+//     with fewer ranks than the grid has lanes ends with it (smoke 3g:
+//     0.73 us a step of the longest walk);
+//   * the traffic: every step reads its row again, anywhere in an index
+//     far larger than what L2 keeps of it (a warm launch reads as long
+//     as one after a 64 MB write), so a launch moves its steps' rows,
+//     one or two 64-byte units of HBM each (a 48-byte row spans two in
+//     half the blocks), not its distinct sectors: 5b's first launch,
+//     506,727 ranks and 15.6M steps, needs ~1.5 GB, ~0.45 ms at HBM's
+//     peak rate, and takes ~0.51 ms.
+// K-ext is two independent rows a query, bound by the latency of one
+// trip.
 //
-// What the design does about it: one thread a query, and nothing shared,
-// so every query of a launch is in flight at once and the card holds as
-// many chains as it has ranks; each thread walks on its own and leaves
-// when its walk ends (the JAX loops step every lane until the slowest
-// lane ends, a lockstep of the TPU, not copied).  An LF step reads only
-// the words it needs: x's word, the words below it and one count.  Lanes
-// of a warp whose walks end early idle until the warp's longest walk
-// ends; chip_smoke.py reports the mean and the largest steps a warp.
+// What K-sa's design does about it:
+//   * a step is one trip to memory: inv_psi loads its row as three
+//     16-byte loads issued together and picks the base, its count and
+//     L2 from registers (fm.cuh:lf_row); the marked walk loads the mark
+//     row and the occ row of the same rank together, and takes the mark
+//     bit and index from the mark row's registers, so at most one row is
+//     loaded in vain, on the step that ends the walk;
+//   * no lane idles while ranks are left: a persistent grid, as many
+//     blocks as the card holds at once (the occupancy query at launch,
+//     capped by the ranks, or by the caller's max_blocks), each lane
+//     walking one rank, writing its position when the walk ends and
+//     taking the next rank at once.  Lane 0 of a warp takes a tile of
+//     kTile ranks from the rank queue (an int32 counter the entry
+//     zeroes) with one atomicAdd, and the warp's idle lanes share it out
+//     by __ballot_sync/__popc, so a launch makes about n / 32 atomics,
+//     not one a walk.  A long walk no longer holds its warp's other 31
+//     lanes, nor its block's other warps (one rank a thread, the first
+//     form, made a warp wait for its longest walk, 4.1 times the mean,
+//     and a block for its slowest warp).
+// The queue is what a traffic-bound launch gains from: the rows of all
+// its steps are in flight at once until the ranks run out.  The one-trip
+// step is what a chain-bound launch gains from.  Neither cuts the
+// traffic (tpubwa_torch/scripts/exp_ksa_forms.py times each alone).
+// The counter must not pass 2^31 - 1: each warp takes at most one tile
+// past n, so the entry refuses an n above 2^31 - 1 - kTile * (warps + 1)
+// (cudaErrorInvalidValue, before anything runs).
 //
 // With TPUBWA_WARP_HOST defined the file compiles as plain C++ against
 // warp_host.h (csrc/occ_host.cpp), so the tests hold it to the plain
-// versions, under the sanitizers, on a machine with no card.
+// versions, under the sanitizers, in both lane orders, on a machine with
+// no card.
 
+#include <algorithm>
 #include <cstdint>
 #ifdef TPUBWA_WARP_HOST
 #include "warp_host.h"
@@ -54,28 +86,94 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // queries a block
+constexpr int kThreads = 128;  // threads a block
+constexpr int kTile = 32;      // ranks a warp takes from the queue at once
+constexpr unsigned kFull = 0xffffffffu;
 
+// one step of a lane's walk of rank i, now at k after `steps` LF steps:
+// the rows of k loaded together, then the walk ends (its position
+// written, i set to -1) or takes an LF step
+template <class Idx, bool Marked>
+__device__ __forceinline__ void walk_step(
+    const fm::Index<Idx>& f, const uint32_t* __restrict__ marks,
+    const Idx* __restrict__ sa_marked, int mark_D,
+    const Idx* __restrict__ sa_sample, Idx* __restrict__ out, int& i, Idx& k,
+    Idx& steps) {
+    if (Marked) {
+        const fm::MarkRow m = fm::load_mark_row(marks, k);
+        const Idx x = fm::lf_x(f, k);
+        const fm::Row row = fm::load_row(f, x);
+        const bool ends = steps >= mark_D - 1 || fm::mark_bit(m, k);
+        // LF is taken whether or not the walk ends and then kept or not
+        // by a select, and waits for the mark row too (lf_row's gate),
+        // so the step's five loads are issued together
+        const Idx lf = fm::lf_row(f, row, k, x, m.a.x ^ m.b.x);
+        if (ends) {
+            out[i] = steps + __ldg(sa_marked + fm::mark_index(m, k));
+            i = -1;
+        }
+        k = ends ? k : lf;
+        steps += ends ? 0 : 1;
+    } else if ((k & (fm::kSaIntv - 1)) == 0 || steps > f.seq_len) {
+        out[i] = steps + __ldg(sa_sample + (k >> 5));
+        i = -1;
+    } else {
+        k = fm::inv_psi(f, k);
+        ++steps;
+    }
+}
+
+// K-sa: each lane walks one rank at a time, from the rank queue (*queue,
+// zero at launch); lanes[i] (where not null) gets the global index of
+// the thread that walked rank i
 template <class Idx, bool Marked>
 __global__ void __launch_bounds__(kThreads)
 sa_lookup_kernel(fm::Index<Idx> f, const uint32_t* __restrict__ marks,
                  const Idx* __restrict__ sa_marked, int mark_D,
                  const Idx* __restrict__ sa_sample,
                  const Idx* __restrict__ ranks, Idx* __restrict__ out,
-                 int64_t n) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    Idx k = ranks[i];
-    k = k < 0 ? 0 : k > f.seq_len ? f.seq_len : k;
-    Idx steps = 0;
-    if (Marked) {
-        for (; steps < mark_D - 1 && !fm::mark_bit(marks, k); ++steps)
-            k = fm::inv_psi(f, k);
-        out[i] = steps + __ldg(sa_marked + fm::mark_index(marks, k));
-    } else {
-        for (; (k & (fm::kSaIntv - 1)) != 0 && steps <= f.seq_len; ++steps)
-            k = fm::inv_psi(f, k);
-        out[i] = steps + __ldg(sa_sample + (k >> 5));
+                 int n, int32_t* __restrict__ queue,
+                 int32_t* __restrict__ lanes) {
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    f = fm::with_l2(f);
+    int i = -1;              // the lane's rank, -1: none
+    Idx k = 0, steps = 0;    // where its walk is, and its LF steps so far
+    int next = 0, end = 0;   // the warp's tile: ranks [next, end) untaken
+    bool drained = false;    // the queue has no rank left for the warp
+    for (;;) {
+        // the idle lanes take ranks: what is left of the warp's tile,
+        // then a new tile where lanes are still idle (32 serve them all)
+        unsigned idle = __ballot_sync(kFull, i < 0);
+#pragma unroll
+        for (int round = 0; round < 2; ++round) {
+            if (!idle || drained) break;
+            if (next == end) {
+                int t = 0;
+                if (lane == 0) t = atomicAdd(queue, kTile);
+                t = __shfl_sync(kFull, t, 0);
+                if (t >= n) {
+                    drained = true;
+                    break;
+                }
+                next = t;
+                end = n - t < kTile ? n : t + kTile;
+            }
+            const int at = __popc(idle & below), left = end - next;
+            if (i < 0 && at < left) {
+                i = next + at;
+                const Idx r = ranks[i];
+                k = r < 0 ? 0 : r > f.seq_len ? f.seq_len : r;
+                steps = 0;
+                if (lanes) lanes[i] = (int32_t)(blockIdx.x * blockDim.x +
+                                                threadIdx.x);
+            }
+            next += __popc(idle) < left ? __popc(idle) : left;
+            idle = __ballot_sync(kFull, i < 0);
+        }
+        if (drained && idle == kFull) break;  // every walk written
+        if (i >= 0) walk_step<Idx, Marked>(f, marks, sa_marked, mark_D,
+                                           sa_sample, out, i, k, steps);
     }
 }
 
@@ -103,20 +201,55 @@ fm::Index<Idx> index_of(const void* occ, const void* L2, int64_t primary,
                           (Idx)primary, (Idx)seq_len};
 }
 
-template <class Idx>
+// K-sa's launch for n ranks: the blocks an SM holds (the occupancy
+// query), the card's SMs, and the grid: what the card holds at once,
+// capped by the ranks (a thread a rank at most) and, where max_blocks >
+// 0, by max_blocks
+struct ShapeSa {
+    int blocks_per_sm = 0, sms = 0;
+    int64_t blocks = 0;
+};
+
+template <class Idx, bool Marked>
+cudaError_t shape_sa(int64_t n, int max_blocks, int device, ShapeSa* s) {
+    cudaError_t err = cudaDeviceGetAttribute(
+        &s->sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &s->blocks_per_sm, sa_lookup_kernel<Idx, Marked>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    int64_t blocks = (int64_t)s->blocks_per_sm * s->sms;
+    if (max_blocks > 0 && max_blocks < blocks) blocks = max_blocks;
+    s->blocks = std::min<int64_t>(blocks, blocks_for(n));
+    // the queue's counter ends below n + kTile * (warps + 1)
+    const int64_t warps = s->blocks * (kThreads / 32);
+    if (n > INT32_MAX - kTile * (warps + 1)) return cudaErrorInvalidValue;
+    return s->blocks > 0 || n == 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class Idx, bool Marked>
 cudaError_t launch_sa(const void* occ, const void* L2, const void* marks,
                       const void* sa_marked, const void* sa_sample,
                       int64_t primary, int64_t seq_len, int mark_D,
-                      const void* ranks, void* out, int64_t n,
+                      const void* ranks, void* out, int64_t n, void* queue,
+                      void* lanes, int max_blocks, int device,
                       cudaStream_t stream) {
+    ShapeSa s;
+    cudaError_t err = shape_sa<Idx, Marked>(n, max_blocks, device, &s);
+    if (err != cudaSuccess) return err;  // refused: no launch is made
+    // the rows' 16-byte loads (fm.cuh:load16)
+    if ((uintptr_t)occ & 15 || (Marked && (uintptr_t)marks & 15))
+        return cudaErrorInvalidValue;
+    if (n <= 0) return cudaSuccess;
+    err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
+    if (err != cudaSuccess) return err;
     const fm::Index<Idx> f = index_of<Idx>(occ, L2, primary, seq_len);
-    // one pointer type for both walks (a template-id's comma would split
-    // the launch macro's arguments)
-    const auto kernel = mark_D > 0 ? sa_lookup_kernel<Idx, true>
-                                   : sa_lookup_kernel<Idx, false>;
-    TPUBWA_LAUNCH(kernel, blocks_for(n), kThreads, 0, stream, f,
+    // (a template-id's comma would split the launch macro's arguments)
+    const auto kernel = sa_lookup_kernel<Idx, Marked>;
+    TPUBWA_LAUNCH(kernel, (int)s.blocks, kThreads, 0, stream, f,
                   (const uint32_t*)marks, (const Idx*)sa_marked, mark_D,
-                  (const Idx*)sa_sample, (const Idx*)ranks, (Idx*)out, n);
+                  (const Idx*)sa_sample, (const Idx*)ranks, (Idx*)out, (int)n,
+                  (int32_t*)queue, (int32_t*)lanes);
     return cudaGetLastError();
 }
 
@@ -135,27 +268,56 @@ cudaError_t launch_extend(const void* occ, const void* L2, int64_t primary,
 }  // namespace
 
 // C entry points for ctypes.  Pointers are device pointers from
-// torch.Tensor.data_ptr() (occ and marks uint32 rows, the rest Idx:
-// int64_t where idx64, else int32_t); stream is torch's current
-// cudaStream_t.  Each launches on that stream without synchronising and
-// returns cudaGetLastError() (0 on success).
+// torch.Tensor.data_ptr() (occ and marks uint32 rows, 16-byte aligned,
+// the rest Idx: int64_t where idx64, else int32_t); stream is torch's
+// current cudaStream_t.  Each launches on that stream without
+// synchronising and returns cudaGetLastError() (0 on success).
 
 // K-sa: positions of n ranks; the marked walk where mark_D > 0 (marks
 // and sa_marked read), else the rank-sampled one (sa_sample read).
+// queue is an int32 the entry zeroes on the stream first (the rank
+// queue); lanes (int32 [n], the thread that walked each rank) may be
+// null.  max_blocks > 0 caps the grid below what the card holds.  An n
+// past the queue's range (see the header) is refused before anything
+// runs.
 extern "C" int tpubwa_sa_lookup(const void* occ, const void* L2,
                                 const void* marks, const void* sa_marked,
                                 const void* sa_sample, int64_t primary,
                                 int64_t seq_len, int mark_D, int idx64,
                                 const void* ranks, void* out, int64_t n,
+                                void* queue, void* lanes, int max_blocks,
                                 int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return 0;
-    return (int)(idx64 ? launch_sa<int64_t>
-                       : launch_sa<int32_t>)(occ, L2, marks, sa_marked,
-                                             sa_sample, primary, seq_len,
-                                             mark_D, ranks, out, n,
-                                             (cudaStream_t)stream);
+    const auto launch =
+        idx64 ? (mark_D > 0 ? launch_sa<int64_t, true>
+                            : launch_sa<int64_t, false>)
+              : (mark_D > 0 ? launch_sa<int32_t, true>
+                            : launch_sa<int32_t, false>);
+    return (int)launch(occ, L2, marks, sa_marked, sa_sample, primary,
+                       seq_len, mark_D, ranks, out, n, queue, lanes,
+                       max_blocks, device, (cudaStream_t)stream);
+}
+
+// K-sa's launch for n ranks into out[3] (a host array): the blocks an SM
+// holds, the card's SMs and the grid's blocks (max_blocks as in
+// tpubwa_sa_lookup); returns the error a launch of n ranks would return
+// before it runs.
+extern "C" int tpubwa_sa_lookup_shape(int idx64, int marked, int64_t n,
+                                      int max_blocks, int device,
+                                      int64_t* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    ShapeSa s;
+    const auto shape = idx64 ? (marked ? shape_sa<int64_t, true>
+                                       : shape_sa<int64_t, false>)
+                             : (marked ? shape_sa<int32_t, true>
+                                       : shape_sa<int32_t, false>);
+    err = shape(n, max_blocks, device, &s);
+    out[0] = s.blocks_per_sm;
+    out[1] = s.sms;
+    out[2] = s.blocks;
+    return (int)err;
 }
 
 // K-ext: the [n, 4, 3] extensions of n intervals [n, 3], backward

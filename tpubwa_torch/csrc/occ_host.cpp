@@ -5,16 +5,22 @@
 //   occ_host INDEX OUT
 //
 // INDEX: int64 header (n_blocks, n_mark_blocks, n_marked, n_sample,
-// primary, seq_len, mark_D, idx64, n_ranks, n_ik), then occ uint32
-// [n_blocks, 12], mark rows uint32 [n_mark_blocks, 8], then, of the rank
-// type (int64 where idx64, else int32): L2 [5], sa_marked [n_marked],
-// sa_sample [n_sample], ranks [n_ranks] and ik [n_ik, 3].  OUT gets, of
-// the rank type, the positions of the ranks (tpubwa_sa_lookup: the marked
-// walk where mark_D > 0, else the rank-sampled one), then the backward
-// and then the forward extensions of ik, [n_ik, 4, 3] each
-// (tpubwa_bwt_extend).  Each input is a heap block of its exact size,
-// and each output starts as -77, so a read past an array is the
-// sanitizer's and an output never written shows in the result.  A
+// primary, seq_len, mark_D, idx64, n_ranks, n_ik, max_blocks, reverse,
+// n_call), then occ uint32 [n_blocks, 12], mark rows uint32
+// [n_mark_blocks, 8], then, of the rank type (int64 where idx64, else
+// int32): L2 [5], sa_marked [n_marked], sa_sample [n_sample], ranks
+// [n_ranks] and ik [n_ik, 3].  OUT gets, of the rank type, the positions
+// of the ranks (tpubwa_sa_lookup: the marked walk where mark_D > 0, else
+// the rank-sampled one, on a grid capped at max_blocks where > 0, each
+// warp's lanes run 31..0 where reverse), the thread that walked each
+// rank, then the backward and then the forward extensions of ik,
+// [n_ik, 4, 3] each (tpubwa_bwt_extend).  Each input is a heap block of
+// its exact size, and each output starts as -77, so a read past an array
+// is the sanitizer's and an output never written shows in the result.
+// n_call >= 0 calls tpubwa_sa_lookup with that n in place of n_ranks
+// (the refusal case: an n past the rank queue's range, which the entry
+// must refuse before it touches anything) and writes only its return
+// code, the queue word (-77 before the call) and the positions.  A
 // launch that returns an error exits with 3.
 
 #define TPUBWA_WARP_HOST
@@ -41,7 +47,8 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     const int64_t n_blocks = h[0], n_mark_blocks = h[1], n_marked = h[2],
                   n_sample = h[3], primary = h[4], seq_len = h[5],
                   n_ranks = h[8], n_ik = h[9];
-    const int mark_D = (int)h[6];
+    const int mark_D = (int)h[6], max_blocks = (int)h[10];
+    warp_host::reverse = h[11] != 0;
     const auto occ = read_array<uint32_t>(f, n_blocks * 12);
     const auto marks = read_array<uint32_t>(f, n_mark_blocks * 8);
     const auto L2 = read_array<Idx>(f, 5);
@@ -50,15 +57,25 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     const auto ranks = read_array<Idx>(f, n_ranks);
     const auto ik = read_array<Idx>(f, n_ik * 3);
     std::vector<Idx> pos((size_t)n_ranks, (Idx)-77);
+    std::vector<int32_t> lanes((size_t)n_ranks, -77);
+    int32_t queue = -77;
     int rc = tpubwa_sa_lookup(occ.data(), L2.data(), marks.data(),
                               sa_marked.data(), sa_sample.data(), primary,
                               seq_len, mark_D, sizeof(Idx) == 8,
-                              ranks.data(), pos.data(), n_ranks, 0, nullptr);
+                              ranks.data(), pos.data(),
+                              h[12] >= 0 ? h[12] : n_ranks, &queue,
+                              lanes.data(), max_blocks, 0, nullptr);
+    if (h[12] >= 0) {  // the refusal case: rc, the queue, the positions
+        write_array(o, std::vector<Idx>{(Idx)rc, (Idx)queue});
+        write_array(o, pos);
+        return 0;
+    }
     if (rc != 0) {
         std::fprintf(stderr, "occ_host: tpubwa_sa_lookup returned %d\n", rc);
         return 3;
     }
     write_array(o, pos);
+    write_array(o, std::vector<Idx>(lanes.begin(), lanes.end()));
     for (int is_back : {1, 0}) {
         std::vector<Idx> ok((size_t)n_ik * 12, (Idx)-77);
         rc = tpubwa_bwt_extend(occ.data(), L2.data(), primary, seq_len,
@@ -78,7 +95,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: occ_host INDEX OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open INDEX");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 10);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 13);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[7] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

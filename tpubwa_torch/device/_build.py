@@ -119,3 +119,32 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
         return lib
+
+
+def build_edited(name: str, edits, out: Path, signatures: dict):
+    """(the ctypes handle, the assembler's register lines) of
+    ``csrc/<name>.cu`` built with ``NVCC_FLAGS`` into ``out`` from a copy
+    of its sources (it and the headers it includes) with ``edits``
+    applied: (file name, old text, new text), each of which must find its
+    text exactly once.  For experiments that time a kernel's forms side
+    by side; the package's own build is ``load``."""
+    out.mkdir(parents=True, exist_ok=True)
+    for src in _sources(CSRC / f"{name}.cu"):
+        shutil.copy(src, out / src.name)
+    for fname, old, new in edits:
+        text = (out / fname).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{old!r} is not in {fname} once")
+        (out / fname).write_text(text.replace(old, new))
+    so = out / f"{name}.so"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so),
+                          str(out / f"{name}.cu")], capture_output=True,
+                         text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {out / name}.cu:\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib, [line.strip() for line in res.stderr.splitlines()
+                 if "registers" in line]

@@ -11,8 +11,9 @@ test, as extend_kernel.py has them:
 * ``sa_lookup_plain`` and ``bwt_extend_plain``: PyTorch ops over the
   plain primitives below (``occ4``, ``inv_psi``, the mark-row lookups);
 * the hand-written CUDA kernels of ``csrc/occ.cu`` over the device
-  functions of ``csrc/fm.cuh``, reached through ``sa_lookup`` and
-  ``bwt_extend`` for CUDA tensors.
+  functions of ``csrc/fm.cuh``, reached through ``sa_lookup`` (K-sa, a
+  persistent grid whose lanes take ranks from a rank queue) and
+  ``bwt_extend`` (K-ext, one query a thread) for CUDA tensors.
 
 ``sa_lookup`` and ``bwt_extend`` route by the tensors' device: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
@@ -450,9 +451,12 @@ def get_ref_batch(didx: DeviceIndex, starts: torch.Tensor,
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # (occ, L2, mark_rows, sa_marked, sa_sample, primary, seq_len,
-    #  mark_D, idx64, ranks, out, n, device, stream) -> cudaError_t
+    #  mark_D, idx64, ranks, out, n, queue, lanes, max_blocks, device,
+    #  stream) -> cudaError_t
     "tpubwa_sa_lookup": (_CI, [_VP] * 5 + [_CL, _CL, _CI, _CI, _VP, _VP,
-                                          _CL, _CI, _VP]),
+                                          _CL, _VP, _VP, _CI, _CI, _VP]),
+    # (idx64, marked, n, max_blocks, device, out[3]) -> cudaError_t
+    "tpubwa_sa_lookup_shape": (_CI, [_CI, _CI, _CL, _CI, _CI, _VP]),
     # (occ, L2, primary, seq_len, idx64, is_back, ik, out, n, device,
     #  stream) -> cudaError_t
     "tpubwa_bwt_extend": (_CI, [_VP, _VP, _CL, _CL, _CI, _CI, _VP, _VP,
@@ -493,7 +497,10 @@ def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
     text positions idt [n].  CPU tensors run ``sa_lookup_plain``; CUDA
     tensors launch csrc/occ.cu's walk (``sa_lookup.launches`` counts
     its launches): the marked walk where the index has marks, else the
-    rank-sampled one."""
+    rank-sampled one, on a persistent grid whose lanes take ranks from a
+    rank queue (an int32 allocated here).  Raises RuntimeError where the
+    launch fails or the entry refuses it (n past the queue's range,
+    about 2^31 ranks)."""
     _check(didx, ranks, "ranks", ())
     if not _kernel_route(ranks):
         return sa_lookup_plain(didx, ranks)
@@ -503,16 +510,30 @@ def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(ranks)
     if not len(ranks):
         return out
+    queue = torch.empty(1, dtype=torch.int32, device=ranks.device)
     rc = lib.tpubwa_sa_lookup(
         fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(),
         fm["mark_rows"].data_ptr(), fm["sa_marked"].data_ptr(),
         fm["sa_sample"].data_ptr(), didx.primary, didx.seq_len,
         didx.mark_D, int(didx.idt == I64), ranks.data_ptr(),
-        out.data_ptr(), len(ranks), ranks.device.index,
+        out.data_ptr(), len(ranks), queue.data_ptr(), None, 0,
+        ranks.device.index,
         torch.cuda.current_stream(ranks.device).cuda_stream)
     _raise_on(rc, "sa_lookup")
     sa_lookup.launches += 1
     return out
+
+
+def sa_lookup_shape(lib, didx: DeviceIndex, n: int, device_index: int,
+                    max_blocks: int = 0):
+    """(the error a launch of ``n`` ranks would return before it runs,
+    {"blocks_per_sm", "sms", "blocks"}): K-sa's grid on this card, from
+    ``lib``'s ``tpubwa_sa_lookup_shape``."""
+    out = (ctypes.c_int64 * 3)()
+    rc = lib.tpubwa_sa_lookup_shape(int(didx.idt == I64),
+                                    int(didx.mark_D > 0), n, max_blocks,
+                                    device_index, out)
+    return rc, dict(zip(("blocks_per_sm", "sms", "blocks"), out))
 
 
 def bwt_extend(didx: DeviceIndex, ik: torch.Tensor,

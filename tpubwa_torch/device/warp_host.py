@@ -11,7 +11,8 @@ one harness (``csrc/extend_host.cpp``, ``csrc/extend16_host.cpp``,
 into ``build/host`` in the checkout (or ``$TPUBWA_TORCH_HOST_BUILD``),
 keyed by a hash of its sources; ``extend_host`` (K1 and K1-floor),
 ``extend_real_host`` (K1-real), ``extend16_host`` (K1-i16),
-``extend_bd_host`` (K1-bd, both passes), ``occ_host`` (K-sa and K-ext)
+``extend_bd_host`` (K1-bd, both passes), ``occ_host`` (K-sa and K-ext;
+``sa_lookup_refusal``, K-sa's refusal of an n past its rank queue)
 and ``smem_host`` (K2 and K3) run one on a set of jobs, and
 ``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
@@ -176,16 +177,8 @@ def intrinsics16_host(a, b, c):
     return dict(zip(INTRINSICS16, got.reshape(len(INTRINSICS16), len(a))))
 
 
-def occ_host(arrays, ranks, ik):
-    """csrc/occ.cu's C entries on the host, on a tpubwa-layout index:
-    ``arrays`` maps ``occ_blocks``, ``mark_rows`` (uint32), ``L2``,
-    ``sa_marked``, ``sa_sample`` (the rank type, int32 or int64, taken
-    from ``sa_sample``) and ``primary``, ``seq_len``, ``mark_D``.
-    Returns (positions [n] of ``ranks`` through ``tpubwa_sa_lookup``,
-    the backward and the forward extensions [m, 4, 3] of ``ik`` [m, 3]
-    through ``tpubwa_bwt_extend``), of the rank type.  Raises
-    RuntimeError with the harness's report if a sanitizer stops it or
-    an entry returns an error."""
+def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call):
+    """(rank type, the occ_host input arrays)."""
     dt = np.asarray(arrays["sa_sample"]).dtype
     if dt not in (np.int32, np.int64):
         raise TypeError(f"rank type {dt}")
@@ -196,13 +189,44 @@ def occ_host(arrays, ranks, ik):
     head = np.asarray([len(occ), len(marks), len(arrays["sa_marked"]),
                        len(arrays["sa_sample"]), arrays["primary"],
                        arrays["seq_len"], arrays["mark_D"], dt == np.int64,
-                       len(ranks), len(ik)], np.int64)
-    got = _exec("occ_host", (head, occ, marks, *(
+                       len(ranks), len(ik), max_blocks, int(reverse),
+                       n_call], np.int64)
+    return dt, (head, occ, marks, *(
         np.ascontiguousarray(arrays[k], dt)
-        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik), dtype=dt)
-    n, m = len(ranks), len(ik) * 12
-    return (got[:n], got[n:n + m].reshape(-1, 4, 3),
-            got[n + m:].reshape(-1, 4, 3))
+        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik)
+
+
+def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None):
+    """csrc/occ.cu's C entries on the host, on a tpubwa-layout index:
+    ``arrays`` maps ``occ_blocks``, ``mark_rows`` (uint32), ``L2``,
+    ``sa_marked``, ``sa_sample`` (the rank type, int32 or int64, taken
+    from ``sa_sample``) and ``primary``, ``seq_len``, ``mark_D``.
+    Returns (positions [n] of ``ranks`` through ``tpubwa_sa_lookup``,
+    the backward and the forward extensions [m, 4, 3] of ``ik`` [m, 3]
+    through ``tpubwa_bwt_extend``), of the rank type.  ``max_blocks`` > 0
+    caps K-sa's grid; ``reverse`` runs each warp's lanes 31..0; a
+    ``stats`` dict gets ``lanes``, the global thread index that walked
+    each rank.  Raises RuntimeError with the harness's report if a
+    sanitizer or the lockstep check stops it or an entry returns an
+    error."""
+    dt, inputs = _occ_input(arrays, ranks, ik, max_blocks, reverse, -1)
+    got = _exec("occ_host", inputs, dtype=dt)
+    n, m = len(inputs[-2]), len(inputs[-1]) * 12
+    if stats is not None:
+        stats["lanes"] = got[n:2 * n].astype(np.int64)
+    return (got[:n], got[2 * n:2 * n + m].reshape(-1, 4, 3),
+            got[2 * n + m:].reshape(-1, 4, 3))
+
+
+def sa_lookup_refusal(arrays, ranks, n_call):
+    """``tpubwa_sa_lookup`` on the host called with ``n_call`` ranks
+    (``ranks`` holds fewer): (its return code, the queue word after it,
+    -77 before; the positions, -77 each before).  The entry must refuse
+    an n past its rank queue's range before it touches anything."""
+    dt, inputs = _occ_input(arrays, ranks, np.zeros((0, 3)), 0, False,
+                            n_call)
+    got = _exec("occ_host", inputs, dtype=dt)
+    return int(got[0]), int(got[1]), got[2:]
 
 
 def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,

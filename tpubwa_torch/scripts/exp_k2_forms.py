@@ -28,10 +28,7 @@ Run it on a card, from the root of a checkout:
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import shutil
-import subprocess
 
 import numpy as np
 import torch
@@ -55,29 +52,11 @@ FORMS = {
 
 
 def build(form: str):
-    """The ctypes handle of ``form``'s build (its edits applied to a copy
-    of the sources; each edit must apply exactly once)."""
-    d = _build.BUILD.parent / "k2_forms" / form
-    d.mkdir(parents=True, exist_ok=True)
-    for name in SOURCES:
-        shutil.copy(_build.CSRC / name, d / name)
-    for name, old, new in FORMS[form]:
-        text = (d / name).read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{form}: {old!r} is not in {name} once")
-        (d / name).write_text(text.replace(old, new))
-    so = d / "smem.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                          str(d / "smem.cu")], capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed on {form}:\n{res.stderr}")
-    lib = ctypes.CDLL(str(so))
-    for fn, (restype, argtypes) in smem_fused._SIGNATURES.items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    regs = [line.strip() for line in res.stderr.splitlines()
-            if "registers" in line]
-    return lib, regs
+    """(the ctypes handle of ``form``'s build, its ptxas register
+    lines): its edits applied to a copy of the sources; each edit must
+    apply exactly once."""
+    return _build.build_edited("smem", FORMS[form], _build.BUILD.parent
+                               / "k2_forms" / form, smem_fused._SIGNATURES)
 
 
 def main(argv=None) -> int:
