@@ -120,18 +120,22 @@ Phases, one output line each (a failing phase raises, exit != 0):
      pass of the first batch;
  3h. (after 5c, whose first chunk it uses) K2 and K3 == their plain
      versions (on CPU copies of the index) in every instantiation, K2
-     also at one row slot a read (its second launch) and with its steps
-     and chain a read, on the 3,000-base genome and on 256 reads of 5c's
-     first chunk with the edge reads (across the sentinel's row both
-     ways, a repeat unit, random, one base, all N); megaq rows == the
-     native seeder's on all 32,768 of phase 5's reads, int32 and int64;
-     then each kernel alone on that chunk (16,384 reads, the main path's
-     launch) in interleaved passes, with its bwt_extend steps a read, the
-     sectors of the index it reads (counted by csrc/smem_host.cpp) and,
-     for K3 (a read a thread), the steps of a warp's longest read, for K2
-     (a warp a read) the chain a read (forward steps plus backward
-     strips), its launch shape (warps a block and an SM) and registers;
-     K2 must refuse reads one base past its limit, in the C entry and the
+     also at one row slot a read (its second launch), with their steps
+     and chain a read (K3's longest scan a read too), on the 3,000-base
+     genome and on 256 reads of 5c's first chunk with the edge reads
+     (across the sentinel's row both ways, a repeat unit, random, one
+     base, all N); megaq rows == the native seeder's on all 32,768 of
+     phase 5's reads, int32 and int64; then each kernel alone on that
+     chunk (16,384 reads, the main path's launch) in interleaved passes
+     (K3 in both instantiations), with its bwt_extend steps a read, the
+     sectors of the index it reads (counted by csrc/smem_host.cpp) and
+     its chain a read (K2, a warp a read: forward steps plus backward
+     strips; K3, a group of lanes a read: one step a round, with the
+     longest single scan and the time a step of the longest chain); K2's
+     launch shape (warps a block and an SM) and registers, K3's (lanes a
+     read, warps an SM, the grid), registers and stack frame in both
+     instantiations and the rounds of its step's row loads in SASS; K2
+     must refuse reads one base past its limit, in the C entry and the
      wrapper; and the global loads of K2's and K3's SASS;
  5d. phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa index: K2 and
      K3 seed every read and K-sa walks every SA position in one run,
@@ -1513,19 +1517,23 @@ def sass_strip_loop(text, function):
                         if m != "NOP"}}
 
 
-def ptxas_usage(report, function):
+def ptxas_usage(report, function, stack=False):
     """{"registers", "spill_bytes"} of the one function in a ``ptxas
-    -v`` report whose mangled name matches the regex ``function``."""
+    -v`` report whose mangled name matches the regex ``function``, and
+    its "stack_bytes" (stack frame) where ``stack``."""
     found = re.findall(
-        r"Function properties for (\S+)\s+\d+ bytes stack frame, (\d+) bytes "
-        r"spill stores, (\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) "
-        r"registers", report)
+        r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) "
+        r"bytes spill stores, (\d+) bytes spill loads\s+ptxas info\s*: Used "
+        r"(\d+) registers", report)
     found = [f for f in found if re.search(function, f[0])]
     if len(found) != 1:
         raise AssertionError(f"{len(found)} functions match {function!r} in "
                              "the ptxas report")
-    _, stores, loads, regs = found[0]
-    return {"registers": int(regs), "spill_bytes": int(stores) + int(loads)}
+    _, frame, stores, loads, regs = found[0]
+    out = {"registers": int(regs), "spill_bytes": int(stores) + int(loads)}
+    if stack:
+        out["stack_bytes"] = int(frame)
+    return out
 
 
 def sass_loops(text, function):
@@ -1962,14 +1970,16 @@ def ksa_refusal(torch, didx):
     return {"n": n, "refused_rc": rc}
 
 
-def load_rounds(text, function):
+def load_rounds(text, function, min_width=128):
     """The row loads of one step of a walk in ``cuobjdump -sass`` output:
     of the one function whose mangled name matches the regex
     ``function``, the innermost loop that holds the most 128-bit global
-    loads, its loads by width, and the rounds its 128-bit loads issue in.
-    A round ends where an instruction reads a register that a load of the
-    round wrote, so one round means that every row of the step is
-    requested before any is used: a step is one trip to memory."""
+    loads, its loads by width, and the rounds its 128-bit loads
+    (``rounds_128``) and its loads of at least ``min_width`` bits
+    (``rounds``) issue in.  A round ends where an instruction reads a
+    register that a load of the round wrote, so one round means that
+    every row of the step is requested before any is used: a step is one
+    trip to memory."""
     name, ins, loops = sass_function(text, function)
     inner = [lp for lp in loops
              if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
@@ -1984,16 +1994,22 @@ def load_rounds(text, function):
     if best is None:
         raise AssertionError(f"{name}: no loop with a 128-bit load")
     lo, body, n128 = best
-    rounds, pending = 0, set()
-    for op in body:
-        writes, addr, reads, _ = def_use(op)
-        if pending & set(addr + reads):
-            pending = set()
-        if ldg_width(op) == 128:
-            rounds += not pending
-            pending |= set(writes)
+
+    def count(widths):
+        rounds, pending = 0, set()
+        for op in body:
+            writes, addr, reads, _ = def_use(op)
+            if pending & set(addr + reads):
+                pending = set()
+            if widths(ldg_width(op)):
+                rounds += not pending
+                pending |= set(writes)
+        return rounds
+
     return {"function": name, "loop_at": hex(lo), "instructions": len(body),
-            "ldg": ldg_counts(body), "ldg128": n128, "rounds_128": rounds}
+            "ldg": ldg_counts(body), "ldg128": n128,
+            "rounds_128": count(lambda w: w == 128),
+            "rounds": count(lambda w: w is not None and w >= min_width)}
 
 
 def ksa_sass():
@@ -2562,8 +2578,10 @@ def seeding_checks(torch, np, label, fmi, arr, lens, opt):
         want = smem_fused.rounds12_plain(opt, c, q, ld, stats=want_stats)
         plain12 = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
+        want3_stats = {}
         want3 = smem._seed_strategy_scan_plain(c, q, ld, opt.min_seed_len,
-                                               opt.max_mem_intv)
+                                               opt.max_mem_intv,
+                                               stats=want3_stats)
         plain3 = (time.perf_counter() - t0) * 1e3
         second = 0
         for slots in (smem_fused.K2_SLOTS, 1):
@@ -2585,9 +2603,14 @@ def seeding_checks(torch, np, label, fmi, arr, lens, opt):
                         a.cpu().reshape(len(a), -1),
                         b.reshape(len(b), -1))
             second = max(second, stats["second_launch_reads"])
+        stats3 = {}
         got3 = smem._seed_strategy_scan(g, q.to(DEV), ld.to(DEV),
-                                        opt.min_seed_len, opt.max_mem_intv)
+                                        opt.min_seed_len, opt.max_mem_intv,
+                                        stats=stats3)
         torch.cuda.synchronize()
+        for key in ("steps", "chain", "longest"):
+            if not torch.equal(stats3[key].cpu(), want3_stats[key]):
+                raise AssertionError(f"{label}/{dt} K3 {key} != plain")
         for a, b, what in ((got3[0], want3[0], "hits"),
                            (got3[1], want3[1], "n_hits")):
             held_fm(torch, f"{label}/{dt} K3 {what}",
@@ -2696,23 +2719,32 @@ def k2_refusals(torch, didx, qd, ld, opt):
     return out
 
 
-def k3_alone(torch, opt, didx, qd, ld):
+def k3_alone(torch, opt, didx, qd, ld, lib=None):
     """K3's C entry alone on preallocated buffers, which live on the
-    returned function (``.buffers``: hits, n_hits)."""
+    returned function (``.buffers``: queue, hits, n_hits, steps, chain,
+    longest), as does the index whose device arrays it reads
+    (``.index``: an index made for the call, such as an int64 twin, would
+    free them when dropped).  ``lib``: another build of csrc/smem.cu's
+    entries (the package's own where None)."""
     from tpubwa_torch.device import _build, smem, smem_fused as sf
-    lib = _build.load("smem", sf._SIGNATURES)
+    lib = lib or _build.load("smem", sf._SIGNATURES)
     B, L = qd.shape
     maxh = smem.max_hits(L, opt.min_seed_len)
+    queue = torch.empty(1, dtype=torch.int32, device=DEV)
     hits = torch.zeros((B, maxh, 5), dtype=didx.idt, device=DEV)
-    n_hits = torch.empty(B, dtype=torch.int32, device=DEV)
+    n_hits, steps, chain, longest = (
+        torch.empty(B, dtype=torch.int32, device=DEV) for _ in range(4))
     args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(), B,
-            opt.min_seed_len, opt.max_mem_intv, maxh, hits.data_ptr(),
-            n_hits.data_ptr(), None, qd.device.index, sf.stream_of(qd))
+            opt.min_seed_len, opt.max_mem_intv, maxh, queue.data_ptr(),
+            hits.data_ptr(), n_hits.data_ptr(), steps.data_ptr(),
+            chain.data_ptr(), longest.data_ptr(), qd.device.index,
+            sf.stream_of(qd))
 
     def launch():
         if lib.tpubwa_seed_strategy(*args):
             raise AssertionError("K3's launch failed")
-    launch.buffers = (hits, n_hits)
+    launch.buffers = (queue, hits, n_hits, steps, chain, longest)
+    launch.index = didx
     return launch
 
 
@@ -2776,7 +2808,9 @@ def phase_seeding(torch, np, main, megaq):
                                             opt_.max_mem_intv, stats=stats3)
     torch.cuda.synchronize()
     alone = {"smem_rounds12": k2_alone(torch, opt_, didx, qd, ld),
-             "seed_strategy": k3_alone(torch, opt_, didx, qd, ld)}
+             "seed_strategy": k3_alone(torch, opt_, didx, qd, ld),
+             "seed_strategy int64": k3_alone(
+                 torch, opt_, int64_twin(torch, didx), qd, ld)}
     best = interleaved_min({
         **alone,
         "smem_rounds12 wrapper": lambda: smem_fused.rounds12_megaq(
@@ -2793,9 +2827,14 @@ def phase_seeding(torch, np, main, megaq):
             and torch.equal(chain, stats12["chain"])):
         raise AssertionError("K2 alone != its wrapper's counts, steps and "
                              "chain")
-    got_hits, got_n = alone["seed_strategy"].buffers
-    if not (torch.equal(got_hits, hits) and torch.equal(got_n, n_hits)):
-        raise AssertionError("K3 alone != its wrapper's hits")
+    for name in ("seed_strategy", "seed_strategy int64"):
+        _, got_hits, *got = alone[name].buffers
+        if not (torch.equal(got_hits.long(), hits.long()) and all(
+                torch.equal(a, b) for a, b in zip(got, (
+                    n_hits, *(stats3[k] for k in ("steps", "chain",
+                                                  "longest")))))):
+            raise AssertionError(f"{name} alone != its wrapper's hits, "
+                                 "counts, steps, chain and longest scan")
     # the plain versions step one interval at a time: timed on 256 of the
     # chunk's reads and the edge reads, not on the chunk
     plain256 = cases[f"{GENOME_MB} Mbp"]["int32"]["plain_ms"]
@@ -2815,19 +2854,23 @@ def phase_seeding(torch, np, main, megaq):
                 "steps_max": int(steps.max()),
                 "occ_rows_read": n_occ, "bytes": nbytes,
                 "max_abs_err": 0}
-        if kernel:  # K3, one read a thread: a warp waits for its longest
-            pad = np.zeros(-len(steps) % 32, steps.dtype)
-            warp_max = np.concatenate([steps, pad]).reshape(-1, 32).max(1)
-            case["warp_max_steps_mean"] = round(float(warp_max.mean()), 3)
-        else:  # K2, a warp a read: its chain is what it waits for
-            chain = stats["chain"].cpu().numpy()
-            case.update(chain_mean=round(float(chain.mean()), 3),
-                        chain_max=int(chain.max()))
+        # the rounds of dependent steps a read's warp (K2) or group of
+        # lanes (K3) made: what the launch waits for
+        chain = stats["chain"].cpu().numpy()
+        case.update(chain_mean=round(float(chain.mean()), 3),
+                    chain_max=int(chain.max()))
+        if kernel:  # K3: the launch over its longest chain, a step
+            case.update(
+                longest_scan=int(stats["longest"].max()),
+                us_per_step_longest_chain=round(
+                    best[name] * 1e3 / max(int(chain.max()), 1), 4),
+                int64_ms=round(best[f"{name} int64"], 4))
         case["bound_ms"] = round(bytes_bound(case)[0], 6)
         out[name] = case
     out["smem_rounds12"]["second_launch_reads"] = stats12[
         "second_launch_reads"]
     out["smem_rounds12"].update(k2_launch_facts(torch, didx, qd.shape[1]))
+    out["seed_strategy"].update(k3_launch_facts(torch, len(ld)))
     print("[3h seeding] " + json.dumps({
         "tolerance": 0, "cases": cases, "native_seeder": native,
         "main_launch": out, "card": "the first chunk of 5c (16,384 reads)",
@@ -2852,6 +2895,40 @@ def k2_launch_facts(torch, didx, L):
                            * shape["blocks_per_sm"]),
             "ptxas": {dt: ptxas_usage(report, rf"collect12_kernelI{m}E")
                       for dt, m in (("int32", "i"), ("int64", "l"))}}
+
+
+def k3_launch_facts(torch, n):
+    """K3's launch for ``n`` reads on this card: the lanes a read and
+    groups a warp, the blocks and warps an SM the occupancy query allows
+    and the grid's blocks and groups, each instantiation's registers and
+    stack frame from ptxas, and the loads of its step's loop in SASS
+    (``load_rounds``: the rounds its row loads, 8 bytes and wider, issue
+    in).  The entry must refuse 2^31 - 1 reads, which its read queue's
+    int32 counter cannot take (the shape query's error, as a launch
+    returns it before it runs)."""
+    from tpubwa_torch.device import _build, smem, smem_fused as sf
+    lib = _build.load("smem", sf._SIGNATURES)
+    launch = {}
+    for dt in ("int32", "int64"):
+        rc, shape = smem.k3_shape(lib, dt == "int64", n,
+                                  torch.cuda.current_device())
+        if rc:
+            raise AssertionError(f"K3 refuses {n} reads ({dt})")
+        launch[dt] = dict(shape, groups_per_warp=32 // shape["group"],
+                          warps_per_sm=4 * shape["blocks_per_sm"])
+        refused, _ = smem.k3_shape(lib, dt == "int64", (1 << 31) - 1,
+                                   torch.cuda.current_device())
+        if not refused:
+            raise AssertionError(f"K3 takes 2^31 - 1 reads ({dt})")
+        launch[dt]["refused_rc"] = refused
+    report = _build.build_info["smem"]["ptxas"]
+    text = _run([_cuobjdump(), "-sass", _build.build_info["smem"]["so"]])
+    return {"launch": launch,
+            "ptxas": {dt: ptxas_usage(report, rf"seed_strategy_kernelI{m}E",
+                                      stack=True)
+                      for dt, m in (("int32", "i"), ("int64", "l"))},
+            "step": load_rounds(text, r"seed_strategy_kernelIiE",
+                                min_width=64)}
 
 
 def seeding_sass():

@@ -1,8 +1,8 @@
 """csrc/smem.cu's kernels (K2, rounds 1+2, a warp a read from a read
-queue, and K3, round 3, one read a thread, over csrc/smem.cuh and
-csrc/fm.cuh), compiled for the host against csrc/warp_host.h under
-ASan/UBSan (csrc/smem_host.cpp), against their plain versions
-(device/smem_fused.py:rounds12_plain, device/smem.py:
+queue, and K3, round 3, a group of lanes a read from a read queue, over
+csrc/smem.cuh and csrc/fm.cuh), compiled for the host against
+csrc/warp_host.h under ASan/UBSan (csrc/smem_host.cpp), against their
+plain versions (device/smem_fused.py:rounds12_plain, device/smem.py:
 _seed_strategy_scan_plain) and, merged as mode megaq merges them,
 against tpubwa's scalar oracle ref.smem.collect_intv.  K2 goes through
 the wrapper's own two-launch protocol (smem_fused.collect12), with one
@@ -12,9 +12,14 @@ chain (forward steps plus backward strips) a read must equal the plain
 version's, also on reads whose backward stack passes a strip of 32
 intervals inside a run of equal sizes, and on an index whose counts do
 not nest, where a failing interval follows a survivor.  It refuses
-reads too long for a block's shared memory.  int32 and int64 ranks.
-Tolerance 0.  What the GPU's compiler makes of the source shows only on
-a card."""
+reads too long for a block's shared memory.  K3's hits, counts, steps,
+chain (one step a round of its group) and longest scan a read must
+equal the plain version's in both lane orders, on reads with N at their
+edges and inside a scan, reads no longer than min_seed_len, scans that
+run to a read's end, max_mem_intv 0, chunks that leave a warp's last
+groups without a read, and a grid capped so that groups take several
+reads from the queue.  int32 and int64 ranks.  Tolerance 0.  What the
+GPU's compiler makes of the source shows only on a card."""
 import dataclasses
 
 import numpy as np
@@ -220,22 +225,135 @@ def test_k2_refuses_reads_too_long_for_shared_memory(run_genome, idt):
                             params(MemOpt()), slots=smem_fused.K2_SLOTS)
 
 
-@pytest.mark.parametrize("name,idt", CASES)
-def test_k3_equals_plain(genomes, name, idt):
-    fmi, _, reads = genomes[name]
-    arr, lens = _pack(reads)
-    opt = MemOpt()
-    didx = _didx(fmi, idt)
+def k3_held_to_plain(didx, arr, lens, opt, reverse=False, card=(0, 0)):
+    """K3's C entry on the host == _seed_strategy_scan_plain: hits,
+    n_hits, steps and longest scan a read, and chain == steps (a group
+    makes one step a round).  Returns the plain version's (n_hits,
+    stats)."""
     stats = {}
     hits, n_hits = smem._seed_strategy_scan_plain(
         didx, torch.from_numpy(arr), torch.from_numpy(lens),
         opt.min_seed_len, opt.max_mem_intv, stats=stats)
-    got, got_n, steps = warp_host.smem_host(host_arrays(didx), arr, lens, 1,
-                                            params(opt))
+    got, got_n, steps, chain, longest = warp_host.smem_host(
+        host_arrays(didx), arr, lens, 1, params(opt), reverse=reverse,
+        card=card)
     assert np.array_equal(got, hits.numpy())
     assert np.array_equal(got_n, n_hits.numpy())
     assert np.array_equal(steps, stats["steps"].numpy())
-    assert got_n.sum() > 0
+    assert np.array_equal(chain, steps)
+    assert np.array_equal(longest, stats["longest"].numpy())
+    return n_hits, stats
+
+
+@pytest.mark.parametrize("name,idt", CASES)
+def test_k3_equals_plain(genomes, name, idt):
+    fmi, _, reads = genomes[name]
+    arr, lens = _pack(reads)
+    n_hits, _ = k3_held_to_plain(_didx(fmi, idt), arr, lens, MemOpt())
+    assert n_hits.sum() > 0
+
+
+@pytest.mark.parametrize("name,idt", CASES)
+def test_k3_lanes_reversed(genomes, name, idt):
+    """K3 with each warp's lanes run 31..0 == plain: the group's sums do
+    not depend on the order its lanes arrive in."""
+    fmi, _, reads = genomes[name]
+    arr, lens = _pack(reads)
+    k3_held_to_plain(_didx(fmi, idt), arr, lens, MemOpt(), reverse=True)
+
+
+def k3_edge_reads(fmi, run_reads, kind):
+    """(reads, opt) of one edge of K3's loop (min_seed_len 19)."""
+    text = fmi.bnt.doubled()
+    rng = np.random.default_rng(17)
+    win = [text[s:s + 100].copy()
+           for s in rng.integers(0, len(text) - 100, 6)]
+    opt = MemOpt()
+    if kind == "n-at-start":
+        reads = [np.concatenate([[4, 4], w[:98]]) for w in win]
+        reads.append(np.concatenate([[4], win[0][:40], [4, 4], win[1][:50]]))
+    elif kind == "n-at-end":
+        reads = [np.concatenate([w[:97], [4]]) for w in win]
+        reads.append(np.concatenate([win[2][:60], [4, 4, 4]]))
+    elif kind == "n-inside-a-scan":
+        # an N 5, 10 and 18 bases into the first scan, and one after a hit
+        reads = []
+        for j, w in enumerate(win):
+            w = w.copy()
+            w[[5, 10, 18, 45][j % 4]] = 4
+            reads.append(w)
+    elif kind == "no-longer-than-min-len":
+        reads = [win[0][:0], win[1][:1], win[2][:19], win[3][:20],
+                 win[4][:21], np.full(19, 4, np.uint8)]
+    elif kind == "scan-to-the-end":
+        reads = list(run_reads)
+    elif kind == "max-intv-0":
+        reads, opt = win, MemOpt(max_mem_intv=0)
+    elif kind == "fewer-reads-than-groups":
+        reads = win[:5]  # no multiple of 2, 4 or 32 reads a warp
+    return [np.asarray(r, np.uint8) for r in reads], opt
+
+
+K3_EDGES = ["n-at-start", "n-at-end", "n-inside-a-scan",
+            "no-longer-than-min-len", "scan-to-the-end", "max-intv-0",
+            "fewer-reads-than-groups"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", K3_EDGES)
+def test_k3_edges(genomes, run_genome, kind, reverse):
+    """K3 == plain on reads that take each path of its lockstep loop:
+    a restart past N (no step), a scan ended by an N, reads too short
+    for a hit, a scan that runs to the read's end in a run of A (the
+    run genome, whose own index it uses), no hit at all, and a launch
+    whose last warp has groups with no read."""
+    if kind == "scan-to-the-end":
+        fmi, reads = run_genome
+    else:
+        fmi = genomes["test"][0]
+    reads, opt = k3_edge_reads(fmi, run_genome[1], kind)
+    arr, lens = _pack(reads)
+    for idt in ("int32", "int64"):
+        n_hits, stats = k3_held_to_plain(_didx(fmi, idt), arr, lens, opt,
+                                         reverse=reverse)
+    if kind == "max-intv-0":
+        assert n_hits.sum() == 0 and stats["steps"].sum() > 0
+    if kind == "scan-to-the-end":  # a scan reaches the read's last base
+        assert bool((stats["longest"] > 40).any())
+    if kind == "no-longer-than-min-len":
+        assert n_hits[:3].sum() == 0 and n_hits[4] == 1
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("idt", ["int32", "int64"])
+def test_k3_capped_grid_takes_reads_from_the_queue(genomes, idt, reverse):
+    """On a card of one SM holding one block (128 threads: at most 128
+    groups), K3's groups take reads from the read queue as theirs end:
+    160 reads, == plain."""
+    fmi = genomes["sim1m"][0]
+    text = fmi.bnt.doubled()
+    rng = np.random.default_rng(23)
+    reads = [text[s:s + 100].copy()
+             for s in rng.integers(0, len(text) - 100, 160)]
+    for r in reads[:40]:
+        r[rng.integers(0, 100, 2)] = 4
+    arr, lens = _pack(reads)
+    k3_held_to_plain(_didx(fmi, idt), arr, lens, MemOpt(), reverse=reverse,
+                     card=(1, 1))
+
+
+def test_k3_fast_build_equals_the_sanitized_one(genomes):
+    """smem_host without the sanitizers (as chip_smoke.py counts the occ
+    rows of 5c's K3 launch with it) == the sanitized build: K3's hits,
+    counts, steps, chain, longest scan and the occ rows it reads."""
+    fmi, _, reads = genomes["sim1m"]
+    arr, lens = _pack(reads)
+    arrays, p = host_arrays(_didx(fmi, "int32")), params(MemOpt())
+    got, want = (warp_host.smem_host(arrays, arr, lens, 1, p,
+                                     count_rows=True, sanitize=s)
+                 for s in (False, True))
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert len(got) == 6 and len(got[-1]) > 0
 
 
 @pytest.mark.parametrize("max_mem_intv", [20, 0])
@@ -320,4 +438,19 @@ def test_k2_forms_edit_the_sources_once():
         for name, old, new in edits:
             text = (_build.CSRC / name).read_text()
             assert name in exp_k2_forms.SOURCES, form
+            assert text.count(old) == 1 and new not in text, (form, old)
+
+
+def test_k3_forms_edit_the_sources_once():
+    """scripts/exp_k3_forms.py's forms are the sources with named edits,
+    each of which must find its text exactly once (the script refuses
+    otherwise, on the card); the form the package ships has none."""
+    from tpubwa_torch.device import _build
+    from tpubwa_torch.scripts import exp_k3_forms
+    assert exp_k3_forms.FORMS[exp_k3_forms.SHIPPED] == []
+    assert set(exp_k3_forms.FORMS) == {"thread", "g4", "g8", "g16", "g32"}
+    for form, edits in exp_k3_forms.FORMS.items():
+        for name, old, new in edits:
+            text = (_build.CSRC / name).read_text()
+            assert name in exp_k3_forms.SOURCES, form
             assert text.count(old) == 1 and new not in text, (form, old)

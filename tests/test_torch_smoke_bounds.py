@@ -395,3 +395,34 @@ def test_load_rounds_counts_the_trips_of_a_step(function, rounds, ldg):
     assert got["rounds_128"] == rounds and got["ldg"] == ldg
     assert got["ldg128"] == ldg["128"] and got["loop_at"] == (
         "0x10" if rounds == 1 else "0x0")
+
+
+
+# a lockstep step: two 16-byte row loads and one 8-byte one, issued
+# before any is read, after the byte load of the step's base, which the
+# branch reads
+STEP = """
+        Function : _Z4stepPj
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+.L_x_0:
+        /*0000*/                   LDG.E.U8.CONSTANT R9, desc[UR4][R4.64] ;
+        /*0010*/                   ISETP.GT.AND P1, PT, R9, 0x3, PT ;
+        /*0020*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64] ;
+        /*0030*/                   LDG.E.128.CONSTANT R16, desc[UR4][R10.64] ;
+        /*0040*/                   LDG.E.64.CONSTANT R20, desc[UR4][R8.64] ;
+        /*0050*/                   LOP3.LUT R22, R20, R12, RZ, 0x3c, !PT ;
+        /*0060*/                   IADD3 R2, R22, R16, RZ ;
+        /*0070*/               @P0 BRA `(.L_x_0) ;
+        /*0080*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("min_width,rounds", [(128, 1), (64, 1), (32, 2)])
+def test_load_rounds_counts_the_loads_from_min_width(min_width, rounds):
+    """The 8-byte load joins the 16-byte ones' round from min_width 64
+    on; at 32 the byte load, read by the branch, is a round of its
+    own."""
+    got = c.load_rounds(STEP, r"_Z4stepPj", min_width=min_width)
+    assert got["loop_at"] == "0x0"
+    assert got["ldg"] == {"128": 2, "64": 1, "32": 1}
+    assert got["rounds_128"] == 1 and got["rounds"] == rounds

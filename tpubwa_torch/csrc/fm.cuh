@@ -46,6 +46,7 @@
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 #endif
 

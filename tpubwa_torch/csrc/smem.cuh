@@ -1,7 +1,9 @@
 // SMEM seeding device functions (bwt.c:bwt_smem1a and
 // bwt_seed_strategy1) over the FM-index functions of csrc/fm.cuh
 // (set_intv, bwt_extend), for the seeding kernels of csrc/smem.cu: smem1a
-// runs one read on a warp (K2), seed_strategy1 one read a thread (K3).
+// runs one read on a warp (K2); round 3 (K3) runs a read on a group of
+// G lanes, each forward step counted across the group
+// (bwt_extend_group), the scan itself in csrc/smem.cu.
 // They follow the port's native scalar seeder step for step
 // (tpubwa_torch/native/smem.cpp smem1a :235-318, seed_strategy1
 // :321-344), and so bwa's scalar protocol, not the lockstep machines of
@@ -53,6 +55,14 @@ __device__ __forceinline__ Intv<Idx> extend(const fm::Index<Idx>& f,
     return Intv<Idx>{ok[c][0], ok[c][1], ok[c][2], ik.qb, ik.qe};
 }
 
+// the packed counts (low, high and both bits of the pairs under the cover
+// of nb bases, a byte each) of BWT word wi (0-7) of a row
+__device__ __forceinline__ uint32_t word_bits(uint32_t w, int nb, int wi) {
+    const uint32_t m = fm::low_cover(nb - 16 * wi);
+    const uint32_t lo = w & m, hi = (w >> 1) & m;
+    return __popc(lo) | __popc(hi) << 8 | __popc(lo & hi) << 16;
+}
+
 // bwt_extend of ik on one warp: every lane gives the same ik and gets
 // the same ok.  Lanes 0-7 count one BWT word each of piv - 1's row, lanes
 // 8-15 one of piv - 1 + size's (a 32-bit load each, all issued at once,
@@ -78,11 +88,8 @@ __device__ __forceinline__ void bwt_extend_warp(const fm::Index<Idx>& f,
         w = __ldg(fm::occ_row(f, x) + 4 + (lane & 7));
     if (rk) ck = fm::load16(f.occ + (int64_t)(kk >> 7) * fm::kRowWords);
     if (rl) cl = fm::load16(f.occ + (int64_t)(ll >> 7) * fm::kRowWords);
-    const uint32_t m = fm::low_cover((int)(x & 127) + 1 - 16 * (lane & 7));
-    const uint32_t lo = w & m, hi = (w >> 1) & m;
-    const uint32_t bits = lane < 16 ? __popc(lo) | __popc(hi) << 8 |
-                                          __popc(lo & hi) << 16
-                                    : 0u;
+    const uint32_t bits =
+        lane < 16 ? word_bits(w, (int)(x & 127) + 1, lane & 7) : 0u;
     const uint32_t sk = __reduce_add_sync(kFull, of_l ? 0u : bits);
     const uint32_t sl = __reduce_add_sync(kFull, of_l ? bits : 0u);
     if (rk)
@@ -107,6 +114,116 @@ __device__ __forceinline__ Intv<Idx> extend_warp(const fm::Index<Idx>& f,
     Idx ok[4][3];
     bwt_extend_warp<Idx, IsBack>(f, in, ok);
     return Intv<Idx>{ok[c][0], ok[c][1], ok[c][2], ik.qb, ik.qe};
+}
+
+// the one-base interval of code c (0-3, known at run time) from f.l2
+// (with_l2), picked by selects: no load
+template <class Idx>
+__device__ __forceinline__ Intv<Idx> set_intv_l2(const fm::Index<Idx>& f,
+                                                 int c) {
+    const Idx* v = f.l2;
+    const Idx lo = fm::pick4(v[0], v[1], v[2], v[3], c);
+    return Intv<Idx>{lo + 1, fm::pick4(v[3], v[2], v[1], v[0], c) + 1,
+                     fm::pick4(v[1], v[2], v[3], v[4], c) - lo, 0, 0};
+}
+
+// the 8 bytes at p (8-byte aligned: two BWT words from an even word of a
+// row), one load
+__device__ __forceinline__ uint2 load8(const uint32_t* p) {
+#ifdef TPUBWA_WARP_HOST
+    if ((uintptr_t)p & 7) {
+        std::fprintf(stderr, "smem: an 8-byte load at a misaligned address\n");
+        std::abort();
+    }
+    uint2 v;
+    std::memcpy(&v, p, sizeof v);
+    return v;
+#else
+    return __ldg(reinterpret_cast<const uint2*>(p));
+#endif
+}
+
+// bwt_extend of ik on a group of G (4, 8 or 16) consecutive lanes,
+// aligned to G: every lane of the group gives the same ik and gets the
+// same ok.  The group's first G / 2 lanes count piv - 1's row, the others
+// piv - 1 + size's, 16 / G of the row's 8 BWT words a lane (one 16-, 8-
+// or 4-byte load, all issued at once, with every lane's broadcast loads
+// of both rows' checkpoint counts).  Each lane packs its words' counts
+// into bytes (word_bits: at most 16 each, 128 a row, no carry);
+// log2(G / 2) __shfl_xor_sync rounds sum a row's inside its half of the
+// group and one more swaps the halves.  The shuffles take every lane of the warp: a lane whose group
+// has no step to make calls it with live false, loads nothing, and its
+// ok is not to be used.  The same counts as fm::bwt_extend.
+template <int G, class Idx, bool IsBack>
+__device__ __forceinline__ void bwt_extend_group(const fm::Index<Idx>& f,
+                                                 const Idx ik[3], bool live,
+                                                 Idx ok[4][3]) {
+    static_assert(G == 4 || G == 8 || G == 16, "a group of 4, 8 or 16");
+    constexpr int kHalf = G / 2, kPer = 16 / G;  // lanes a row, words a lane
+    const int gl = threadIdx.x & (G - 1);
+    const Idx piv = IsBack ? ik[0] : ik[1];
+    const Idx k = piv - 1, l = piv - 1 + ik[2];
+    Idx kk, ll, tk[4], tl[4];
+    const bool rk = fm::occ4_kk(f, k, &kk), rl = fm::occ4_kk(f, l, &ll);
+    const bool of_l = gl >= kHalf;  // this lane's words are of l's row
+    const Idx x = of_l ? ll : kk;
+    const int wi = (gl & (kHalf - 1)) * kPer;  // its first word
+    const int nb = (int)(x & 127) + 1;
+    uint4 ck{}, cl{};
+    uint32_t bits = 0;
+    if (live && (of_l ? rl : rk)) {
+        const uint32_t* w = fm::occ_row(f, x) + 4 + wi;
+        if constexpr (kPer == 4) {
+            const uint4 v = fm::load16(w);
+            bits = word_bits(v.x, nb, wi) + word_bits(v.y, nb, wi + 1) +
+                   word_bits(v.z, nb, wi + 2) + word_bits(v.w, nb, wi + 3);
+        } else if constexpr (kPer == 2) {
+            const uint2 v = load8(w);
+            bits = word_bits(v.x, nb, wi) + word_bits(v.y, nb, wi + 1);
+        } else {
+            bits = word_bits(__ldg(w), nb, wi);
+        }
+    }
+    if (live && rk) ck = fm::load16(f.occ + (int64_t)(kk >> 7) * fm::kRowWords);
+    if (live && rl) cl = fm::load16(f.occ + (int64_t)(ll >> 7) * fm::kRowWords);
+#pragma unroll
+    for (int o = 1; o < kHalf; o <<= 1) bits += __shfl_xor_sync(kFull, bits, o);
+    const uint32_t other = __shfl_xor_sync(kFull, bits, kHalf);
+    const uint32_t sk = of_l ? other : bits, sl = of_l ? bits : other;
+    if (rk)
+        fm::bit_counts(ck, (int)(kk & 127) + 1, sk & 255u, sk >> 8 & 255u,
+                       sk >> 16, tk);
+    else
+        fm::occ4_edge(f, k, tk);
+    if (rl)
+        fm::bit_counts(cl, (int)(ll & 127) + 1, sl & 255u, sl >> 8 & 255u,
+                       sl >> 16, tl);
+    else
+        fm::occ4_edge(f, l, tl);
+    fm::extend_counts<Idx, IsBack>(f, ik, tk, tl, ok);
+}
+
+// ik extended forward by base c (0-3, known at run time) on a group of G
+// lanes: one read a thread (G 1, fm::bwt_extend; a lane with live false
+// must not call it), a group of 4, 8 or 16 (bwt_extend_group) or the warp
+// (G 32, bwt_extend_warp); ok[c] is picked by selects, so ok stays in
+// registers.  qb and qe are kept.
+template <int G, class Idx>
+__device__ __forceinline__ Intv<Idx> extend_fwd(const fm::Index<Idx>& f,
+                                                const Intv<Idx>& ik, int c,
+                                                bool live) {
+    const Idx in[3] = {ik.x0, ik.x1, ik.size};
+    Idx ok[4][3];
+    if constexpr (G == 1)
+        fm::bwt_extend<Idx, false>(f, in, ok);
+    else if constexpr (G == 32)
+        bwt_extend_warp<Idx, false>(f, in, ok);
+    else
+        bwt_extend_group<G, Idx, false>(f, in, live, ok);
+    return Intv<Idx>{fm::pick4(ok[0][0], ok[1][0], ok[2][0], ok[3][0], c),
+                     fm::pick4(ok[0][1], ok[1][1], ok[2][1], ok[3][1], c),
+                     fm::pick4(ok[0][2], ok[1][2], ok[2][2], ok[3][2], c),
+                     ik.qb, ik.qe};
 }
 
 // the lanes below `lane`
@@ -254,33 +371,6 @@ __device__ int smem1a(const fm::Index<Idx>& f, const uint8_t* q, int len,
     }
     __syncwarp();  // mem's rows are visible to every lane
     return ret;
-}
-
-// bwt_seed_strategy1, one read a thread: from x forward until the
-// interval falls below max_intv with at least min_len + 1 bases matched;
-// that interval is *m (qb = x) and *got set.  Counts the bwt_extend calls
-// in steps.  Returns the next x.
-template <class Idx>
-__device__ int seed_strategy1(const fm::Index<Idx>& f, const uint8_t* q,
-                              int len, int x, int min_len, Idx max_intv,
-                              Intv<Idx>* m, bool* got, int& steps) {
-    *got = false;
-    if (q[x] > 3) return x + 1;
-    Intv<Idx> ik = set_intv(f, q[x]);
-    for (int i = x + 1; i < len; ++i) {
-        if (q[i] > 3) return i + 1;
-        const Intv<Idx> ok = extend<Idx, false>(f, ik, 3 - q[i]);
-        ++steps;
-        if (ok.size < max_intv && i - x >= min_len) {
-            *m = ok;
-            m->qb = x;
-            m->qe = i + 1;
-            *got = true;
-            return i + 1;
-        }
-        ik = ok;
-    }
-    return len;
 }
 
 }  // namespace seed

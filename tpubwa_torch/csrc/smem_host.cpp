@@ -8,13 +8,18 @@
 // IN: int64 header (kernel: 0 for K2, tpubwa_smem_rounds12, 1 for K3,
 // tpubwa_seed_strategy; n_blocks, primary, seq_len, idx64, B, L, n,
 // min_seed_len, split_len, split_width, slots, max_intv, maxh,
-// count_rows, reverse), then occ uint32 [n_blocks, 12], L2 of the rank
+// count_rows, reverse, sms, blocks_per_sm), then occ uint32 [n_blocks,
+// 12], L2 of the rank
 // type (int64 where idx64, else int32) [5], reads uint8 [B, L], lens
 // int32 [B] and, for K2, rids int32 [n].  OUT gets int64 values: K2's
 // rows [n, slots, 5], counts [n], steps [n] and chain [n]; or K3's hits
-// [B, maxh, 5], n_hits [B] and steps [B]; then, where count_rows, the
-// number of distinct occ rows the launch read and those rows, ascending.
-// reverse runs each warp's lanes 31..0.  Every array is a heap block of
+// [B, maxh, 5], n_hits [B], steps [B], chain [B] and longest [B]; then,
+// where count_rows, the number of distinct occ rows the launch read and
+// those rows, ascending.  reverse runs each warp's lanes 31..0; sms and
+// blocks_per_sm, where > 0, make the attribute and occupancy queries
+// answer for a card of that many SMs holding that many blocks each (a
+// capped grid, whose groups take several reads).  Every array is a heap
+// block of
 // its exact size (each warp's shared slice too, warp_host.h), and the
 // outputs and the read queue start as -77 (K3's hits as zeros, as the
 // wrapper allocates them), so a read past an array is the sanitizer's
@@ -57,6 +62,8 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     std::vector<int64_t> rows_read;
     if (h[14]) fm::read_rows = &rows_read;
     warp_host::reverse = h[15] != 0;
+    if (h[16] > 0) warp_host::sms = (int)h[16];
+    if (h[17] > 0) warp_host::blocks_per_sm = (int)h[17];
     int rc;
     if (kernel == 0) {
         const auto rids = read_array<int32_t>(f, n);
@@ -77,14 +84,20 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     } else {
         // zeros, as the wrapper allocates them
         std::vector<Idx> hits((size_t)(B * maxh * 5), (Idx)0);
-        std::vector<int32_t> n_hits((size_t)B, -77), steps((size_t)B, -77);
+        std::vector<int32_t> queue(1, -77), n_hits((size_t)B, -77),
+            steps((size_t)B, -77), chain((size_t)B, -77),
+            longest((size_t)B, -77);
         rc = tpubwa_seed_strategy(occ.data(), L2.data(), primary, seq_len,
                                   sizeof(Idx) == 8, q.data(), L, lens.data(),
-                                  B, min_seed_len, max_intv, maxh, hits.data(),
-                                  n_hits.data(), steps.data(), 0, nullptr);
+                                  B, min_seed_len, max_intv, maxh,
+                                  queue.data(), hits.data(), n_hits.data(),
+                                  steps.data(), chain.data(), longest.data(),
+                                  0, nullptr);
         write_int64(o, hits);
         write_int64(o, n_hits);
         write_int64(o, steps);
+        write_int64(o, chain);
+        write_int64(o, longest);
     }
     fm::read_rows = nullptr;
     if (rc != 0) {
@@ -107,7 +120,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: smem_host IN OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open IN");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 16);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 18);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[4] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

@@ -8,7 +8,7 @@
 // one stream run in order, and an atomic is a plain read-modify-write.
 // The 32 lanes of a warp are 32 fibers (ucontext) that run the kernel in
 // lockstep: a lane runs until it reaches a warp operation (__shfl_sync,
-// __shfl_up_sync, __reduce_max_sync, __reduce_min_sync,
+// __shfl_up_sync, __shfl_xor_sync, __reduce_max_sync, __reduce_min_sync,
 // __reduce_add_sync, __ballot_sync, __syncwarp), leaves its operand in
 // an exchange array and yields; when all 32 have arrived the operation
 // is computed by a loop over that array and the lanes go on (a 64-bit
@@ -23,7 +23,9 @@
 // the warp's life, poisoned the same way (its warps times bytes must fit
 // the launch's), so a read past the slice is caught too.  The device
 // attributes and the occupancy query answer for an H100 (132 SMs, 227 KB
-// a block, 228 KB and 2,048 threads an SM; registers not counted).
+// a block, 228 KB and 2,048 threads an SM; registers not counted), or for
+// a smaller card where a test sets warp_host::sms and
+// warp_host::blocks_per_sm (a grid capped below the work it has).
 // Lanes run in order 0..31, or 31..0 with warp_host::reverse set: a
 // kernel whose result changes with the order is missing a __syncwarp.
 // There is no __syncthreads: warps of a block never meet.  The 16x2
@@ -88,9 +90,14 @@ cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
 }
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16,
                       cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+namespace warp_host {
+inline int sms = 132;           // the SMs the attribute query answers
+inline int blocks_per_sm = 0;   // > 0: caps the occupancy query's answer
+}  // namespace warp_host
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr,
                                           int) {
-    *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
+    *value = attr == cudaDevAttrMultiProcessorCount ? warp_host::sms
+                                                    : 232448;
     return cudaSuccess;
 }
 // blocks of `threads` and `bytes` of dynamic shared memory an SM holds:
@@ -102,6 +109,8 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F,
                                                           size_t bytes) {
     int n = (int)(233472 / (bytes + 1024));
     if (n > 2048 / threads) n = 2048 / threads;
+    if (warp_host::blocks_per_sm > 0 && n > warp_host::blocks_per_sm)
+        n = warp_host::blocks_per_sm;
     *blocks = n > 32 ? 32 : n;
     return cudaSuccess;
 }
@@ -110,8 +119,8 @@ namespace warp_host {
 
 constexpr int kLanes = 32;
 constexpr size_t kStack = 256 * 1024;
-enum Op { kNone, kShfl, kShflUp, kReduceMax, kReduceMin, kReduceAdd,
-          kBallot, kSync, kDone };
+enum Op { kNone, kShfl, kShflUp, kShflXor, kReduceMax, kReduceMin,
+          kReduceAdd, kBallot, kSync, kDone };
 
 inline bool reverse = false;  // run the lanes 31..0
 inline int launches = 0;      // kernel launches made
@@ -277,6 +286,13 @@ inline int __shfl_up_sync(unsigned mask, int v, unsigned d) {
     return me >= (int)d ? buf[me - d] : buf[me];
 }
 
+// lane ^ lane_mask's v (the width argument is the warp's, 32)
+inline int __shfl_xor_sync(unsigned mask, int v, int lane_mask) {
+    warp_host::full(mask);
+    const int me = warp_host::g.cur;
+    return warp_host::arrive(warp_host::kShflXor, v)[(me ^ lane_mask) & 31];
+}
+
 inline int __reduce_max_sync(unsigned mask, int v) {
     warp_host::full(mask);
     const int* buf = warp_host::arrive(warp_host::kReduceMax, v);
@@ -328,6 +344,10 @@ inline long long __shfl_sync(unsigned mask, long long v, int src) {
 
 inline long __shfl_sync(unsigned mask, long v, int src) {
     return (long)__shfl_sync(mask, (long long)v, src);
+}
+
+inline unsigned __shfl_xor_sync(unsigned mask, unsigned v, int lane_mask) {
+    return (unsigned)__shfl_xor_sync(mask, (int)v, lane_mask);
 }
 
 inline unsigned __shfl_up_sync(unsigned mask, unsigned v, unsigned d) {

@@ -18,6 +18,8 @@ modes are not ported on purpose (ROADMAP).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -43,33 +45,36 @@ def max_hits(L: int, min_len: int) -> int:
 def seed_strategy1_plain(base, q, x: int, min_len: int, max_intv: int):
     """bwt_seed_strategy1 (ref/smem.py:seed_strategy1), a generator over
     ``smem_fused.run_reads``: (the next x, the row [x0, x1, size, qb, qe]
-    or None)."""
+    or None, the bwt_extend calls the scan made)."""
     if q[x] > 3:
-        return x + 1, None
+        return x + 1, None, 0
     ik = base[q[x]]
     for i in range(x + 1, len(q)):
         if q[i] > 3:
-            return i + 1, None
+            return i + 1, None, i - x - 1
         ok = yield (ik, 3 - q[i], False)
         if ok[2] < max_intv and i - x >= min_len:
-            return i + 1, [*ok, x, i + 1]
+            return i + 1, [*ok, x, i + 1], i - x
         ik = ok
-    return len(q), None
+    return len(q), None, len(q) - x - 1
 
 
 def seed_strategy_read(base, q, min_len: int, max_intv: int):
     """Round 3 of one read (native/smem.cpp:486-497), a generator over
-    ``smem_fused.run_reads``: its hit rows in query order."""
-    hits = []
+    ``smem_fused.run_reads``: (its hit rows in query order, the most
+    bwt_extend calls of one scan)."""
+    hits, longest = [], 0
     x = 0
     while x < len(q):
         if q[x] > 3:
             x += 1
             continue
-        x, m = yield from seed_strategy1_plain(base, q, x, min_len, max_intv)
+        x, m, steps = yield from seed_strategy1_plain(base, q, x, min_len,
+                                                      max_intv)
+        longest = max(longest, steps)
         if m is not None and m[2] > 0:
             hits.append(m)
-    return hits
+    return hits, longest
 
 
 def _seed_strategy_scan_plain(didx: DeviceIndex, qd: torch.Tensor,
@@ -77,19 +82,25 @@ def _seed_strategy_scan_plain(didx: DeviceIndex, qd: torch.Tensor,
                               stats=None):
     """K3's contract, read by read: (hits idt [B, maxh, 5], zero past
     each read's n_hits, n_hits int32 [B]).  A ``stats`` dict gets
-    ``steps`` (int32 [B], the bwt_extend calls a read)."""
+    ``steps`` (int32 [B], the bwt_extend calls a read), ``chain`` (the
+    rounds of dependent steps a read's group of lanes makes in K3: one a
+    step) and ``longest`` (the most steps of one bwt_seed_strategy1
+    call in the read)."""
     B, L = check_reads(didx, qd, ld)
     base = base_intervals(didx)
     got, steps = run_reads(didx, [
         seed_strategy_read(base, q, min_len, max_intv)
         for q in read_lists(qd, ld)])
     hits = np.zeros((B, max_hits(L, min_len), 5), np.int64)
-    for r, rows in enumerate(got):
+    for r, (rows, _) in enumerate(got):
         hits[r, :len(rows)] = np.asarray(rows, np.int64).reshape(-1, 5)
     if stats is not None:
         stats["steps"] = torch.tensor(steps, dtype=torch.int32)
+        stats["chain"] = stats["steps"].clone()
+        stats["longest"] = torch.tensor([g[1] for g in got],
+                                        dtype=torch.int32)
     return (torch.from_numpy(hits).to(didx.idt).to(qd.device),
-            torch.tensor([len(g) for g in got], dtype=torch.int32,
+            torch.tensor([len(g[0]) for g in got], dtype=torch.int32,
                          device=qd.device))
 
 
@@ -101,8 +112,9 @@ def _seed_strategy_scan(didx: DeviceIndex, qd: torch.Tensor,
     maxh, 5] (x0, x1, size, qb, qe), zero past each read's count,
     n_hits int32 [B]), maxh = ``max_hits(L, min_len)``.  CPU tensors run
     ``_seed_strategy_scan_plain``; CUDA tensors launch K3
-    (``csrc/smem.cu``; ``_seed_strategy_scan.launches``).  A ``stats``
-    dict gets ``steps`` (int32 [B])."""
+    (``csrc/smem.cu``, a group of lanes a read; ``_seed_strategy_scan.
+    launches``).  A ``stats`` dict gets ``steps``, ``chain`` and
+    ``longest`` (int32 [B], as the plain version's)."""
     B, L = check_reads(didx, qd, ld)
     if not _kernel_route(qd):
         return _seed_strategy_scan_plain(didx, qd, ld, min_len, max_intv,
@@ -110,21 +122,37 @@ def _seed_strategy_scan(didx: DeviceIndex, qd: torch.Tensor,
     lib = _build.load("smem", _SIGNATURES)
     maxh = max_hits(L, min_len)
     dev = qd.device
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
     hits = torch.zeros((B, maxh, 5), dtype=didx.idt, device=dev)
     n_hits = torch.empty(B, dtype=torch.int32, device=dev)
-    steps = torch.empty(B, dtype=torch.int32, device=dev)
+    per_read = [torch.empty(B, dtype=torch.int32, device=dev)
+                for _ in range(3)] if stats is not None else [None] * 3
     rc = lib.tpubwa_seed_strategy(
         *index_args(didx), qd.data_ptr(), L, ld.data_ptr(), B, int(min_len),
-        int(max_intv), maxh, hits.data_ptr(), n_hits.data_ptr(),
-        steps.data_ptr(), dev.index, stream_of(qd))
+        int(max_intv), maxh, queue.data_ptr(), hits.data_ptr(),
+        n_hits.data_ptr(), *(x if x is None else x.data_ptr()
+                             for x in per_read), dev.index, stream_of(qd))
     _raise_on(rc, "seed_strategy")
     _seed_strategy_scan.launches += 1
     if stats is not None:
-        stats["steps"] = steps
+        stats.update(zip(("steps", "chain", "longest"), per_read))
     return hits, n_hits
 
 
 _seed_strategy_scan.launches = 0
+
+
+def k3_shape(lib, idx64: bool, n: int, device_index: int):
+    """(cudaError, {group, blocks_per_sm, sms, blocks, groups}): K3's
+    launch for ``n`` reads on the card (the C entry
+    ``tpubwa_seed_strategy_shape``): the lanes a read, the blocks of 128
+    threads an SM holds, the card's SMs, and the grid's blocks and groups
+    of lanes; the error is the one a launch of ``n`` reads returns before
+    it runs."""
+    out = (ctypes.c_int64 * 5)()
+    rc = lib.tpubwa_seed_strategy_shape(int(idx64), n, device_index, out)
+    return rc, dict(zip(("group", "blocks_per_sm", "sms", "blocks",
+                         "groups"), list(out)))
 
 
 def _package_rows(flat, frid, reads, device):

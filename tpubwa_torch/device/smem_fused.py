@@ -65,10 +65,13 @@ _SIGNATURES = {
     # (idx64, L, device, out int64[5]) -> cudaError_t
     "tpubwa_smem_rounds12_shape": (_CI, [_CI, _CL, _CI, _VP]),
     # (occ, L2, primary, seq_len, idx64, q, L, lens, n, min_len,
-    #  max_intv, maxh, hits, n_hits, steps, device, stream)
+    #  max_intv, maxh, queue, hits, n_hits, steps, chain, longest, device,
+    #  stream) -> cudaError_t
     "tpubwa_seed_strategy": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP,
-                                   _CL, _CI, _CL, _CI, _VP, _VP, _VP, _CI,
-                                   _VP]),
+                                   _CL, _CI, _CL, _CI, _VP, _VP, _VP, _VP,
+                                   _VP, _VP, _CI, _VP]),
+    # (idx64, n, device, out int64[5]) -> cudaError_t
+    "tpubwa_seed_strategy_shape": (_CI, [_CI, _CL, _CI, _VP]),
 }
 
 

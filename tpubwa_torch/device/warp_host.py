@@ -230,18 +230,21 @@ def sa_lookup_refusal(arrays, ranks, n_call):
 
 
 def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
-              count_rows=False, sanitize=True, reverse=False):
+              count_rows=False, sanitize=True, reverse=False, card=(0, 0)):
     """One launch of csrc/smem.cu's K2 (``kernel`` 0,
     ``tpubwa_smem_rounds12``, on the reads ``rids`` with ``slots`` row
     slots each, a warp a read) or K3 (1, ``tpubwa_seed_strategy``, on
-    every read) on the host.  ``arrays`` maps ``occ_blocks`` (uint32),
+    every read, a group of lanes a read) on the host.  ``arrays`` maps ``occ_blocks`` (uint32),
     ``L2`` (the rank type, int32 or int64) and ``primary``, ``seq_len``;
     ``reads`` uint8 [B, L], ``lens`` int32 [B]; ``params`` (min_seed_len,
     split_len, split_width, max_intv, maxh).  ``reverse`` runs each
-    warp's lanes 31..0.  Returns int64 arrays: (rows [n, slots, 5],
-    counts [n], steps [n], chain [n]) for K2, (hits [B, maxh, 5], n_hits
-    [B], steps [B]) for K3, and with ``count_rows`` the distinct occ rows
-    the launch read, ascending.  Raises RuntimeError with the harness's
+    warp's lanes 31..0; ``card`` (SMs, blocks an SM), where nonzero, makes
+    the attribute and occupancy queries answer for a smaller card than an
+    H100, so that a persistent grid holds fewer warps than the work.
+    Returns int64 arrays: (rows [n, slots, 5], counts [n], steps [n],
+    chain [n]) for K2, (hits [B, maxh, 5], n_hits [B], steps [B], chain
+    [B], longest [B]) for K3, and with ``count_rows`` the distinct occ
+    rows the launch read, ascending.  Raises RuntimeError with the harness's
     report if a sanitizer or the lockstep check stops it or the entry
     returns an error (K2 refuses reads too long for a block's shared
     memory)."""
@@ -258,14 +261,14 @@ def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
     head = np.asarray([kernel, len(occ), arrays["primary"],
                        arrays["seq_len"], L2.dtype == np.int64, B, L, n,
                        min_seed_len, split_len, split_width, slots,
-                       max_intv, maxh, int(count_rows), int(reverse)],
-                      np.int64)
+                       max_intv, maxh, int(count_rows), int(reverse),
+                       *card], np.int64)
     got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
         lens, np.int32), *((rids,) if kernel == 0 else ())),
         dtype=np.int64, sanitize=sanitize)
     width = slots if kernel == 0 else maxh
     k = n * width * 5
-    n_out = 3 if kernel == 0 else 2  # the per-read outputs after the rows
+    n_out = 3 if kernel == 0 else 4  # the per-read outputs after the rows
     out = (got[:k].reshape(n, width, 5), *(
         got[k + i * n:k + (i + 1) * n] for i in range(n_out)))
     if count_rows:
