@@ -141,6 +141,15 @@ Phases, one output line each (a failing phase raises, exit != 0):
      K3 seed every read and K-sa walks every SA position in one run,
      with the counts at 0 just before it.  Its SAM must equal phase 5's
      byte for byte, and K2, K3 and K-sa must each launch.
+ 5e. phase 5's 2 x 8,192 pairs with TPUBWA_SEED_MODE=hybrid (tpubwa's
+     defaults: share 0.25 at first, the balancer on, floor 64): each
+     chunk's first k reads on K2 and K3 beside the native seeder on the
+     rest, in two passes (16,384-read chunks, then 4,096), each with a
+     new balancer and the counts at 0 just before it.  Each pass's SAM
+     must equal phase 5's byte for byte, K2 and K3 must launch, and every
+     chunk of at least k_floor / f reads must be split (0 < k < B); each
+     chunk's (B, k, t_dev, t_host, f) and each pass's reads/s and seeding
+     stage beside phase 5's and 5c's.
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
@@ -150,7 +159,7 @@ with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), a JSON line
 of the kernels (launches on each kernel's path: K1
-in phase 5, K-sa in 5b, K2 and K3 in 5c, the int16 kernel in the
+in phase 5, K-sa in 5b, K2 and K3 in 5c and 5e, the int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
 K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
 bounds) and, last,
@@ -2298,10 +2307,9 @@ def phase_stock_bwa(torch, np, main):
         raise AssertionError(f"5b launched the extension {ext_launches} "
                              "times (it is not on mem)")
     if lines != main["sam"]:
-        bad = next(i for i, (a, b) in enumerate(zip(lines, main["sam"]))
-                   if a != b) if len(lines) == len(main["sam"]) else -1
         raise AssertionError(f"5b SAM != phase 5's ({len(lines)} vs "
-                             f"{len(main['sam'])} lines, first diff {bad})")
+                             f"{len(main['sam'])} lines, first diff "
+                             f"{sam_diff(lines, main['sam'])})")
     # the first launch's ranks again: K-sa alone (its C entry) and
     # through its wrapper in interleaved passes, alone once more after a
     # write that flushes L2, the plain version, the bytes of the walk
@@ -2391,12 +2399,12 @@ class SeedTimer:
         self.dp.collect_intv_device = self.real
 
 
-def megaq_aligner(opt, fmi):
+def seed_aligner(opt, fmi, mode):
     """The port's aligner on the card as `mem` makes it with
-    TPUBWA_SEED_MODE=megaq (the mode is read when it is made)."""
+    TPUBWA_SEED_MODE=``mode`` (the mode is read when it is made)."""
     from tpubwa_torch.device.pipeline import make_device_aligner
     old = os.environ.get("TPUBWA_SEED_MODE")
-    os.environ["TPUBWA_SEED_MODE"] = "megaq"
+    os.environ["TPUBWA_SEED_MODE"] = mode
     try:
         aligner = make_device_aligner(opt, fmi, device=DEV)
     finally:
@@ -2404,7 +2412,7 @@ def megaq_aligner(opt, fmi):
             del os.environ["TPUBWA_SEED_MODE"]
         else:
             os.environ["TPUBWA_SEED_MODE"] = old
-    if aligner.seed_mode != "megaq":
+    if aligner.seed_mode != mode:
         raise AssertionError("the aligner did not take TPUBWA_SEED_MODE")
     return aligner
 
@@ -2423,7 +2431,7 @@ def phase_megaq(torch, np, main):
     from tpubwa_torch.host.pipeline import process_batches
     from tpubwa_torch.sim import simulate_pe
     fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
-    aligner = megaq_aligner(opt, fmi)
+    aligner = seed_aligner(opt, fmi, "megaq")
     warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
     for _ in process_batches(opt, fmi, iter([warm]), 0, align_fn=aligner):
         pass
@@ -2459,10 +2467,9 @@ def phase_megaq(torch, np, main):
     if not launches["smem_rounds12"] or not launches["seed_strategy"]:
         raise AssertionError(f"5c launched {launches}")
     if lines != main["sam"]:
-        bad = next(i for i, (a, b) in enumerate(zip(lines, main["sam"]))
-                   if a != b) if len(lines) == len(main["sam"]) else -1
         raise AssertionError(f"5c SAM != phase 5's ({len(lines)} vs "
-                             f"{len(main['sam'])} lines, first diff {bad})")
+                             f"{len(main['sam'])} lines, first diff "
+                             f"{sam_diff(lines, main['sam'])})")
     # each mode's busy share over one profiled pass of the first batch
     busy = {}
     for name, fn in (("phase5_host", main["aligner"]), ("megaq", aligner)):
@@ -2499,7 +2506,7 @@ def phase_megaq_stock(torch, np, main, stock):
     from tpubwa_torch.host.pipeline import process_batches
     from tpubwa_torch.sim import simulate_pe
     opt, batches = main["opt"], main["batches"]
-    aligner = megaq_aligner(opt, stock)
+    aligner = seed_aligner(opt, stock, "megaq")
     warm = simulate_pe(stock.bnt, 1024, 100, np.random.default_rng(2))
     for _ in process_batches(opt, stock, iter([warm]), 0, align_fn=aligner):
         pass
@@ -2523,10 +2530,9 @@ def phase_megaq_stock(torch, np, main, stock):
                                      "sa_lookup")):
         raise AssertionError(f"5d launched {launches}")
     if lines != main["sam"]:
-        bad = next(i for i, (a, b) in enumerate(zip(lines, main["sam"]))
-                   if a != b) if len(lines) == len(main["sam"]) else -1
         raise AssertionError(f"5d SAM != phase 5's ({len(lines)} vs "
-                             f"{len(main['sam'])} lines, first diff {bad})")
+                             f"{len(main['sam'])} lines, first diff "
+                             f"{sam_diff(lines, main['sam'])})")
     n_reads = sum(len(b) for b in batches)
     facts = {"index": "5b's (stock bwa files, no marks)", "reads": n_reads,
              "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
@@ -2534,6 +2540,88 @@ def phase_megaq_stock(torch, np, main, stock):
              "seeding_s": round(seeding.s, 3), "sam_lines": len(lines),
              "sam_equal_to_phase5": True, "launches": launches}
     print("[5d megaq-stock] " + json.dumps(facts), flush=True)
+    return facts
+
+
+def sam_diff(lines, want):
+    """Where two SAM texts part: the first differing line, or -1 where
+    their lengths differ."""
+    if len(lines) != len(want):
+        return -1
+    return next(i for i, (a, b) in enumerate(zip(lines, want)) if a != b)
+
+
+def phase_hybrid(torch, np, main, megaq):
+    """[5e hybrid]: phase 5's 2 x 8,192 pairs through the port's aligner
+    on cuda with TPUBWA_SEED_MODE=hybrid and the TPUBWA_HYBRID_* defaults
+    (as `mem` runs it): each chunk's first k reads on K2 and K3 beside
+    the native seeder on the rest, k from the balancer.  Pass 1 at the
+    aligner's chunk size (16,384 reads), pass 2 at 4,096 (eight chunks
+    for the balancer to move over), each with a new balancer (after the
+    warm-up, as a `mem` run starts) and the counts at 0 just before it.
+    Each pass's SAM must equal phase 5's byte for byte, K2 and K3 must
+    launch, and every chunk of at least k_floor / f reads must be seeded
+    on both sides (0 < k < B).  Prints each chunk's (B, k, t_dev, t_host,
+    f), reads/s and the seeding stage's wall beside phase 5's and 5c's.
+    Returns the facts, with both passes' launches summed."""
+    from tpubwa_torch.device import smem, smem_fused
+    from tpubwa_torch.device.smem import HybridSplit
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
+    aligner = seed_aligner(opt, fmi, "hybrid")
+    warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
+    for _ in process_batches(opt, fmi, iter([warm]), 0, align_fn=aligner):
+        pass
+    n_reads = sum(len(b) for b in batches)
+    launches = {"smem_rounds12": 0, "seed_strategy": 0}
+    facts = {"reads": n_reads,
+             "phase5_reads_per_s": round(main["reads_per_s"], 1),
+             "phase5_seeding_s": round(main["seeding_s"], 3),
+             "megaq_5c_reads_per_s": megaq["reads_per_s"],
+             "megaq_5c_seeding_s": megaq["seeding_s"]}
+    for name, chunk_reads in (("pass1", aligner.chunk_reads),
+                              ("pass2", 4096)):
+        aligner.chunk_reads = chunk_reads
+        aligner.hybrid = split = HybridSplit.from_env()
+        smem_fused.rounds12_megaq.launches = 0
+        smem._seed_strategy_scan.launches = 0
+        torch.cuda.synchronize()
+        with SeedTimer(torch) as seeding:
+            t0 = time.perf_counter()
+            lines = [l for _, ls in process_batches(
+                opt, fmi, iter(batches), 0, align_fn=aligner) for l in ls]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        got = {"smem_rounds12": smem_fused.rounds12_megaq.launches,
+               "seed_strategy": smem._seed_strategy_scan.launches}
+        if not all(got.values()):
+            raise AssertionError(f"5e {name} launched {got}")
+        if lines != main["sam"]:
+            raise AssertionError(
+                f"5e {name} SAM != phase 5's ({len(lines)} vs "
+                f"{len(main['sam'])} lines, first diff "
+                f"{sam_diff(lines, main['sam'])})")
+        chunks = [dict(zip(("B", "k", "t_dev", "t_host", "f"), h))
+                  for h in split.history]
+        if len(chunks) != seeding.calls:
+            raise AssertionError(f"5e {name}: {seeding.calls} chunks "
+                                 f"seeded, {len(chunks)} in the history")
+        for c in chunks:
+            if c["B"] * c["f"] >= split.k_floor and not 0 < c["k"] < c["B"]:
+                raise AssertionError(f"5e {name}: a chunk not split: {c}")
+        for k in launches:
+            launches[k] += got[k]
+        facts[name] = {
+            "chunk_reads": chunk_reads, "seconds": round(dt, 3),
+            "reads_per_s": round(n_reads / dt, 1),
+            "seeding_s": round(seeding.s, 3), "sam_lines": len(lines),
+            "sam_equal_to_phase5": True, "launches": got,
+            "k_floor": split.k_floor, "f_after": round(split.f, 6),
+            "chunks": [{k: round(v, 6) if k in ("t_dev", "t_host", "f")
+                        else v for k, v in c.items()} for c in chunks]}
+    facts["launches"] = launches
+    print("[5e hybrid] " + json.dumps(facts), flush=True)
     return facts
 
 
@@ -2967,6 +3055,7 @@ def main() -> int:
     megaq = phase_megaq(torch, np, main_path)
     seeding = phase_seeding(torch, np, main_path, megaq)
     phase_megaq_stock(torch, np, main_path, stock)
+    hybrid = phase_hybrid(torch, np, main_path, megaq)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
     if bad:
@@ -3028,7 +3117,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
-            "launches": megaq["launches"][name],
+            "launches": megaq["launches"][name] + hybrid["launches"][name],
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})

@@ -22,7 +22,6 @@ from tpubwa.cli import main_mem as tpubwa_main_mem
 from tpubwa.device.pipeline import make_device_aligner as jax_aligner
 from tpubwa_torch.cli import main_index, main_mem
 from tpubwa_torch.device import pipeline as tp
-from tpubwa_torch.device.smem import collect_intv_device
 from tpubwa_torch.index import FMIndex
 from tpubwa_torch.io.fastq import Read
 from tpubwa_torch.opts import MEM_F_PE, MemOpt
@@ -316,10 +315,6 @@ def test_missing_paths_raise_not_implemented(setup, monkeypatch):
     codes, fmi, _ = setup
     reads, _ = _reads([("r", "".join("ACGT"[c] for c in codes[300:400]))])
     aligner = tp.make_device_aligner(MemOpt(), fmi, device="cpu")
-    arr, lens = aligner._pack(reads, 32)
-    with pytest.raises(NotImplementedError, match=r"\[hybrid\]"):
-        collect_intv_device(MemOpt(), aligner.didx, arr, lens, fmi,
-                            mode="hybrid")
     monkeypatch.setenv("TPUBWA_NO_NATIVE_PLAN", "1")
     with pytest.raises(NotImplementedError, match=r"\[waves\]"):
         aligner(reads)

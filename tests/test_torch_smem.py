@@ -293,9 +293,6 @@ def test_other_seed_modes_raise(genomes):
     fmi, _, reads = genomes["test"]
     didx = _didx(fmi, "int32")
     arr, lens = _pack(reads[:2])
-    with pytest.raises(NotImplementedError, match=r"\[hybrid\]"):
-        smem.collect_intv_device(MemOpt(), didx, arr, lens, fmi,
-                                 mode="hybrid")
     for mode in ("mega", "fused", "split", "cursor", "reach"):
         with pytest.raises(NotImplementedError, match="on purpose"):
             smem.collect_intv_device(MemOpt(), didx, arr, lens, fmi,

@@ -1,11 +1,14 @@
 """Per-batch aligner with GPU seed extension, the counterpart of
-tpubwa/device/pipeline.py in its host-seeding and megaq configurations.
+tpubwa/device/pipeline.py in its host-seeding, megaq and hybrid
+configurations.
 
 Stage plan per chunk of reads:
   A. SMEM seeding                  (device/smem.py: native C++ on the
                                     host by default; with
                                     TPUBWA_SEED_MODE=megaq, K2 and K3 on
-                                    the device)
+                                    the device; with =hybrid, a share of
+                                    each chunk on K2 and K3 beside the
+                                    native seeder)
   B. SA positions                  (native bounded SA walk on the host
                                     over an index with text-position
                                     marks; else the SA walk on the
@@ -42,7 +45,7 @@ from ..utils import serial_pipeline
 from .extend_fused import extend_seed_desc_np
 from .extend_kernel import LANES, _mat_ab
 from .occ import DeviceIndex, sa_lookup
-from .smem import collect_intv_device
+from .smem import HybridSplit, collect_intv_device
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -69,8 +72,17 @@ class ExtendStats:
 
 
 class DeviceAligner:
-    """Seeding (host, or megaq on ``device``), SA and planning;
-    extension waves on ``device``."""
+    """Seeding (host, megaq on ``device``, or hybrid), SA and planning;
+    extension waves on ``device``.
+
+    The seed mode comes from TPUBWA_SEED_MODE when the aligner is made,
+    default ``host``.  tpubwa defaults to ``hybrid`` on an accelerator
+    (tpubwa/device/pipeline.py:138-148), from a reading on its TPU; the
+    port keeps ``host`` until a benchmark on the card (ROADMAP [bench])
+    measures the split against both modes.  In ``hybrid`` the aligner
+    owns one ``HybridSplit`` for its life (``hybrid``, read from
+    TPUBWA_HYBRID_* when it is made); chunks are seeded one at a time on
+    the prefetch thread, so it needs no lock."""
 
     def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda"):
         self.opt = opt
@@ -89,9 +101,11 @@ class DeviceAligner:
         # reads per seeding chunk (nothing is compiled per shape, so one
         # size serves every batch and both seed modes)
         self.chunk_reads = 16384
-        # 'host' (native seeding) or 'megaq' (K2 + K3 on the device);
-        # device/smem.py raises on the others
+        # 'host' (native seeding), 'megaq' (K2 + K3 on the device) or
+        # 'hybrid' (both, split by self.hybrid); device/smem.py raises
+        # on the others
         self.seed_mode = os.environ.get("TPUBWA_SEED_MODE", "host")
+        self.hybrid = HybridSplit.from_env()
 
     # -------------------------------------------------------------
     def _pack(self, reads: Sequence[Read], pad_to: int):
@@ -151,7 +165,8 @@ class DeviceAligner:
         arr, lens = self._pack(chunk, pad)
         flat, frid, qd = collect_intv_device(self.opt, self.didx, arr,
                                              lens, self.fmi,
-                                             mode=self.seed_mode)
+                                             mode=self.seed_mode,
+                                             split=self.hybrid)
         counts = np.bincount(frid, minlength=arr.shape[0])[:len(chunk)]
         intv = (flat, counts)
         # qd: the chunk's reads, resident for the descriptor extension

@@ -1,7 +1,7 @@
 """Batched SMEM seeding for a read chunk, the counterpart of
 tpubwa/device/smem.py:collect_intv_device.
 
-Two modes:
+Three modes:
 
 * ``host``: the native C++ seeder (tpubwa_torch/host/native_smem.py)
   runs the full 3-round mem_collect_intv protocol on the host, and the
@@ -10,15 +10,21 @@ Two modes:
   (``smem_fused.rounds12_megaq``) and round 3 in K3
   (``_seed_strategy_scan``), both hand-written CUDA in ``csrc/smem.cu``
   on CUDA tensors and their plain versions on CPU tensors.  Every row
-  comes from them; the host only merges.
+  comes from them; the host only merges;
+* ``hybrid``: the chunk's first k reads in megaq on a worker thread
+  while the calling thread seeds the rest in native C++, k set each
+  chunk by ``HybridSplit`` (tpubwa's equal-wall balancer).
 
-tpubwa's ``hybrid`` split is ROADMAP Queue 1 [hybrid]; its other machine
-modes are not ported on purpose (ROADMAP).
+tpubwa's other machine modes are not ported on purpose (ROADMAP).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -183,38 +189,132 @@ def merge_rounds(rows12, rids12, hits=None, n_hits=None):
     return flat[order], frid[order]
 
 
-def _collect_megaq(opt, didx: DeviceIndex, reads: np.ndarray,
-                   lens: np.ndarray):
-    """Mode megaq: the chunk's reads go up once, K2 seeds rounds 1+2 and
-    K3 round 3, and the host merges their rows (``merge_rounds``)."""
-    qd = torch.from_numpy(np.ascontiguousarray(reads, np.uint8)).to(
-        didx.device)
-    ld = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(
-        didx.device)
+def _upload(didx: DeviceIndex, reads: np.ndarray, lens: np.ndarray):
+    """The chunk's reads (uint8 [B, L]) and lens (int32 [B]) on the
+    index's device, uploaded once for seeding and the extension."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, t)).to(
+        didx.device) for x, t in ((reads, np.uint8), (lens, np.int32)))
+
+
+def _collect_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
+                   ld: torch.Tensor):
+    """Mode megaq on reads already on the device: K2 seeds rounds 1+2 and
+    K3 round 3, and the host merges their rows (``merge_rounds``).  The
+    ``.cpu()`` copies synchronise with the launches.  Returns (flat,
+    frid)."""
     rows12, rids12 = rounds12_megaq(opt, didx, qd, ld)
     round3 = ()
     if opt.max_mem_intv > 0:
         round3 = tuple(x.cpu() for x in _seed_strategy_scan(
             didx, qd, ld, opt.min_seed_len, opt.max_mem_intv))
-    return (*merge_rounds(rows12.cpu(), rids12.cpu(), *round3), qd)
+    return merge_rounds(rows12.cpu(), rids12.cpu(), *round3)
+
+
+@dataclass
+class HybridSplit:
+    """Mode hybrid's balancer (tpubwa/device/smem.py:489-628), owned by
+    the caller for a run of chunks.  A chunk of B reads sends its first
+    ``k_for(B)`` = int(B * f) to the device; below ``k_floor`` the whole
+    chunk is seeded in host mode.  With ``auto`` each split chunk's two
+    walls move f towards equal walls (``update``).  ``chunks`` counts
+    the chunks seeded on both sides; ``history`` holds (B, k, t_dev,
+    t_host, f) a chunk, f the share it was split at (k 0 for a chunk
+    seeded in host mode, k = B for one in megaq)."""
+    f: float = 0.25
+    auto: bool = True
+    k_floor: int = 64
+    chunks: int = 0
+    history: list = field(default_factory=list)
+
+    LO, HI = 0.02, 0.85       # the device share's clamps (tpubwa's)
+    MIN_WALL = 1e-4           # s: a shorter wall is not a measurement
+
+    @classmethod
+    def from_env(cls):
+        """tpubwa's knobs, with its defaults: TPUBWA_HYBRID_DEV_FRAC (the
+        first share), TPUBWA_HYBRID_AUTO (0 pins it), and
+        TPUBWA_HYBRID_K_FLOOR (the fewest device reads a split takes)."""
+        env = os.environ.get
+        return cls(f=float(env("TPUBWA_HYBRID_DEV_FRAC", "0.25")),
+                   auto=env("TPUBWA_HYBRID_AUTO", "1") != "0",
+                   k_floor=max(1, int(env("TPUBWA_HYBRID_K_FLOOR", "64"))))
+
+    def k_for(self, B: int) -> int:
+        return int(B * self.f)
+
+    def update(self, B: int, k: int, t_dev: float, t_host: float):
+        """Record a chunk; after a chunk seeded on both sides, move f by
+        tpubwa's rule: f* = rate_d / (rate_d + rate_h) equalises the
+        walls, and f <- clamp(f/2 + f*/2, LO, HI).  The first such chunk
+        is not used (it pays the kernels' build and the index's first
+        upload), nor are walls under MIN_WALL."""
+        self.history.append((B, k, t_dev, t_host, self.f))
+        if not 0 < k < B:
+            return
+        if (self.auto and self.chunks and t_dev > self.MIN_WALL
+                and t_host > self.MIN_WALL):
+            rate_d, rate_h = k / t_dev, (B - k) / t_host
+            f_star = rate_d / (rate_d + rate_h)
+            self.f = min(max(0.5 * self.f + 0.5 * f_star, self.LO),
+                         self.HI)
+        self.chunks += 1
+
+
+def _collect_hybrid(opt, didx: DeviceIndex, reads: np.ndarray,
+                    lens: np.ndarray, fmi, split: HybridSplit):
+    """Mode hybrid: reads [:k] through K2 and K3 on a worker thread (its
+    wall taken there, the synchronising copies included) while this
+    thread seeds reads [k:] in native C++ (ctypes releases the GIL);
+    the device rows first, then the host rows with rid + k.  An error in
+    the device share propagates: nothing reseeds it on the host."""
+    B = len(lens)
+    k = split.k_for(B)
+    t0 = time.perf_counter()
+    if smem_collect_batch_native(opt, fmi, reads[:0], lens[:0]) is None:
+        qd, ld = _upload(didx, reads, lens)
+        flat, frid = _collect_megaq(opt, didx, qd, ld)
+        split.update(B, B, time.perf_counter() - t0, 0.0)
+        return flat, frid, qd
+    if k < split.k_floor:
+        out = collect_intv_device(opt, didx, reads, lens, fmi, mode="host")
+        split.update(B, 0, 0.0, time.perf_counter() - t0)
+        return out
+    qd, ld = _upload(didx, reads, lens)
+
+    def device_share():
+        t = time.perf_counter()
+        rows = _collect_megaq(opt, didx, qd[:k], ld[:k])
+        return rows, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(device_share)
+        t = time.perf_counter()
+        host6 = smem_collect_batch_native(opt, fmi, reads[k:], lens[k:])
+        t_host = time.perf_counter() - t
+        (dflat, dfrid), t_dev = fut.result()
+    split.update(B, k, t_dev, t_host)
+    return (np.concatenate([dflat, host6[:, :5]]),
+            np.concatenate([dfrid, host6[:, 5] + k]), qd)
 
 
 def collect_intv_device(opt, didx: DeviceIndex, reads: np.ndarray,
-                        lens: np.ndarray, fmi, mode: str = "host"):
+                        lens: np.ndarray, fmi, mode: str = "host",
+                        split: HybridSplit = None):
     """Full 3-round mem_collect_intv for a packed chunk (uint8 reads
     [B, L], int32 lens [B]).  Returns (flat int64 [n, 5] rows (x0, x1,
     size, qb, qe), frid int64 [n] read ids, qd uint8 [B, L] on the
     index's device); rows are in (read, qb, qe) order, the
     ref.smem.collect_intv contract per read.  ``mode``: 'host' (the
-    native seeder on the host) or 'megaq' (K2 and K3 on the index's
-    device).  SA positions are left to the caller."""
+    native seeder on the host), 'megaq' (K2 and K3 on the index's
+    device) or 'hybrid' (a share of each, ``split`` the caller's
+    balancer; without one, a new ``HybridSplit.from_env()``).  SA
+    positions are left to the caller."""
     if mode == "megaq":
-        return _collect_megaq(opt, didx, reads, lens)
+        qd, ld = _upload(didx, reads, lens)
+        return (*_collect_megaq(opt, didx, qd, ld), qd)
     if mode == "hybrid":
-        raise NotImplementedError(
-            "seed mode 'hybrid' (a share of each chunk on the card beside "
-            "native host seeding) is ROADMAP Queue 1 [hybrid]; use 'megaq' "
-            "or 'host'")
+        return _collect_hybrid(opt, didx, reads, lens, fmi,
+                               split or HybridSplit.from_env())
     if mode in ("mega", "fused", "split", "cursor", "reach"):
         raise NotImplementedError(_NOT_PORTED.format(mode))
     if mode != "host":
