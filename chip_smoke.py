@@ -77,6 +77,10 @@ Phases, one output line each (a failing phase raises, exit != 0):
      131,072 jobs), whose K1-bd launches are counted;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
      the snapshots (tpubwa's own output), @PG stripped;
+ 4b. `mem --device cuda --shard i/3` on the golden SE reads, the three
+     shards merged by `merge`: the body equals phase 4's SE SAM byte for
+     byte; PE with `-I 350,30 --shard i/2` likewise against an unsharded
+     PE run with the same -I;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
      reads on the 64 Mbp repeat-realistic synthetic genome, through
      the port's process_batches with its aligner on cuda; the first 512
@@ -150,6 +154,17 @@ Phases, one output line each (a failing phase raises, exit != 0):
      chunk of at least k_floor / f reads must be split (0 < k < B); each
      chunk's (B, k, t_dev, t_host, f) and each pass's reads/s and seeding
      stage beside phase 5's and 5c's.
+ 5f. the first 1,024 pairs of phase 5's first batch, one batch, three
+     ways: native (the reference), TPUBWA_NO_NATIVE_PLAN=1 (the Python
+     planner, its extension waves through dispatch.WaveExtender) and
+     TPUBWA_NO_NATIVE=1 (megaq seeding, the marked SA walk on the card,
+     chaining, planning and emit in Python), a new aligner and the
+     native caches reset for each.  Both no-native SAMs must equal the
+     native run's byte for byte; K1 must launch on both, and K2, K3 and
+     the marked K-sa on the TPUBWA_NO_NATIVE run, with the counts at 0
+     just before each run.  Each run's launches, waves, jobs,
+     scalar-loop jobs, reads/s and wall beside the card's name and
+     power limit.
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
@@ -157,9 +172,10 @@ HBM bandwidth, whichever is larger.  The instructions per cell are
 constants of the recurrence, RECURRENCE_OPS, so the bound does not move
 with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
-version's reads touch, with their inputs and outputs), a JSON line
-of the kernels (launches on each kernel's path: K1
-in phase 5, K-sa in 5b, K2 and K3 in 5c and 5e, the int16 kernel in the
+version's reads touch, with their inputs and outputs), the smoke's
+wall, a JSON line of the kernels (launches on each kernel's paths: K1
+in phase 5 and 5f, K-sa in 5b and 5f, K2 and K3 in 5c, 5e and 5f, the
+int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
 K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
 bounds) and, last,
@@ -1706,6 +1722,62 @@ def phase_golden(torch):
           flush=True)
 
 
+def phase_shard(torch):
+    """[4b shard]: `mem --device cuda --shard i/3` on the golden SE reads
+    for i = 0, 1, 2, merged by `merge`: the body must equal the golden
+    SE SAM's (phase 4's unsharded run) byte for byte; PE with `-I
+    350,30 --shard i/2`, merged, must equal an unsharded PE run with the
+    same -I.  The FASTQs are copied next to the index first, so that the
+    record sidecars (<fastq>.tpubwa.fai) land in build/."""
+    import tempfile
+    from tpubwa_torch.cli import main as cli_main
+    from tpubwa_torch.device import extend_kernel as ek
+    gold = os.path.join(ROOT, "tests", "golden")
+    t0 = time.perf_counter()
+    res = {}
+    ek.extend_batch.launches = 0
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        prefix = os.path.join(d, "g")
+        assert cli_main(["index", os.path.join(gold, "ref.fa"), "-p",
+                         prefix]) == 0
+        for name in ("se.fq", "pe1.fq", "pe2.fq"):
+            shutil.copy(os.path.join(gold, name), d)
+
+        def body(path):
+            with open(path) as fh:
+                return "".join(l for l in fh if not l.startswith("@"))
+
+        def mem(out, fqs, *extra):
+            assert cli_main(["mem", "--device", DEV, *extra, prefix,
+                             *(os.path.join(d, f) for f in fqs), "-o",
+                             os.path.join(d, out)]) == 0
+            return os.path.join(d, out)
+
+        with open(os.path.join(gold, "se.sam")) as fh:
+            want = {"se": "".join(l for l in fh if not l.startswith("@"))}
+        want["pe"] = body(mem("pe_full.sam", ["pe1.fq", "pe2.fq"],
+                              "-I", "350,30"))
+        for kind, fqs, n, extra in (
+                ("se", ["se.fq"], 3, ()),
+                ("pe", ["pe1.fq", "pe2.fq"], 2, ("-I", "350,30"))):
+            shards = [mem(f"{kind}{i}.sam", fqs, *extra, "--shard",
+                          f"{i}/{n}") for i in range(n)]
+            merged = os.path.join(d, f"{kind}_merged.sam")
+            assert cli_main(["merge", "-o", merged, *shards]) == 0
+            got = body(merged)
+            if got != want[kind]:
+                raise AssertionError(f"4b: merged {kind} shards != the "
+                                     "unsharded run")
+            res[kind] = {"shards": n, "sam_lines": len(got.splitlines()),
+                         "byte_equal": True}
+    launches = ek.extend_batch.launches
+    if launches <= 0:
+        raise AssertionError("4b never launched the extension kernel")
+    res.update(ksw_extend_launches=launches,
+               seconds=round(time.perf_counter() - t0, 3))
+    print("[4b shard] " + json.dumps(res), flush=True)
+
+
 def phase_main_path(torch, np):
     from tpubwa_torch.host.pipeline import process_batches
     from tpubwa_torch.opts import MEM_F_PE, MemOpt
@@ -2625,6 +2697,92 @@ def phase_hybrid(torch, np, main, megaq):
     return facts
 
 
+# pairs of phase 5's first batch that 5f aligns: at 2,048 the Python path
+# under TPUBWA_NO_NATIVE took 152.9 s on an H100 host, past 5f's share of
+# the run's time limit
+NO_NATIVE_PAIRS = 1024
+
+
+def phase_no_native(torch, np, main):
+    """[5f no-native]: the first 1,024 pairs of phase 5's first batch, one
+    batch, through `mem`'s path on cuda three ways, each with a new
+    aligner and the native caches reset: native (the reference),
+    TPUBWA_NO_NATIVE_PLAN=1 (the Python planner's waves) and
+    TPUBWA_NO_NATIVE=1 (megaq seeding, the marked SA walk on the card,
+    chaining, planning and emit in Python).  Both no-native SAMs must
+    equal the native run's byte for byte; K1 must launch on both paths,
+    and K2, K3 and the marked K-sa on the TPUBWA_NO_NATIVE one, with the
+    counts at 0 just before each run.  Each run's launches, waves, jobs
+    and scalar-loop jobs, reads/s and wall, beside the card's name and
+    power limit.  Returns the launches of the two no-native runs,
+    summed."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ, smem, smem_fused
+    from tpubwa_torch.device.pipeline import (make_device_aligner,
+                                              reset_native_caches)
+    from tpubwa_torch.host.pipeline import process_batches
+    fmi, opt = main["fmi"], main["opt"]
+    batch = main["batches"][0][:2 * NO_NATIVE_PAIRS]
+    counters = {"ksw_extend": ek.extend_batch,
+                "smem_rounds12": smem_fused.rounds12_megaq,
+                "seed_strategy": smem._seed_strategy_scan,
+                "sa_lookup": occ.sa_lookup}
+    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+    facts = {"reads": len(batch), "card": card}
+    sams, total = {}, dict.fromkeys(counters, 0)
+    total["sa_lookup_marked"] = 0
+    for name, switch in (("native", None),
+                         ("no_native_plan", "TPUBWA_NO_NATIVE_PLAN"),
+                         ("no_native", "TPUBWA_NO_NATIVE")):
+        if switch:
+            os.environ[switch] = "1"
+        reset_native_caches()
+        try:
+            aligner = make_device_aligner(opt, fmi, device=DEV)
+            if switch == "TPUBWA_NO_NATIVE":
+                aligner.didx.upload_fm()   # the FM arrays, before the clock
+            for c in counters.values():
+                c.launches = 0
+            occ.sa_lookup.marked_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sams[name] = [l for _, ls in process_batches(
+                opt, fmi, iter([batch]), 0, align_fn=aligner) for l in ls]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {k: c.launches for k, c in counters.items()}
+            got["sa_lookup_marked"] = occ.sa_lookup.marked_launches
+        finally:
+            if switch:
+                del os.environ[switch]
+            reset_native_caches()
+        ext = aligner.extender
+        facts[name] = {
+            "seed_mode": aligner.seed_mode, "seconds": round(dt, 3),
+            "reads_per_s": round(len(batch) / dt, 1), "launches": got,
+            "n_waves": ext.n_waves, "n_jobs": ext.n_jobs,
+            "n_fallback": ext.n_fallback, "sam_lines": len(sams[name])}
+        if switch is None:
+            continue
+        need = ["ksw_extend"]
+        if switch == "TPUBWA_NO_NATIVE":
+            need += ["smem_rounds12", "seed_strategy", "sa_lookup_marked"]
+        if not all(got[k] > 0 for k in need):
+            raise AssertionError(f"5f {name} launched {got}")
+        if sams[name] != sams["native"]:
+            raise AssertionError(
+                f"5f {name} SAM != the native run's ({len(sams[name])} vs "
+                f"{len(sams['native'])} lines, first diff "
+                f"{sam_diff(sams[name], sams['native'])})")
+        facts[name]["sam_equal_to_native"] = True
+        for k in total:
+            total[k] += got[k]
+    facts["launches"] = total
+    print("[5f no-native] " + json.dumps(facts), flush=True)
+    return facts
+
+
 def edge_reads(np, text, rng):
     """Reads at the protocol's edges: across the sentinel's row both ways
     (30 random bases then the doubled text's first 70: a backward step
@@ -3030,6 +3188,7 @@ def seeding_sass():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
@@ -3046,6 +3205,7 @@ def main() -> int:
     phase_sanitizer()
     case_bd, err_bd, launches_bd = phase_kernel_bd(torch, np)
     phase_golden(torch)
+    phase_shard(torch)
     main_path = phase_main_path(torch, np)
     launches = main_path["launches"]
     stock, sa_case, sa_launches, _ = phase_stock_bwa(torch, np, main_path)
@@ -3056,6 +3216,7 @@ def main() -> int:
     seeding = phase_seeding(torch, np, main_path, megaq)
     phase_megaq_stock(torch, np, main_path, stock)
     hybrid = phase_hybrid(torch, np, main_path, megaq)
+    no_native = phase_no_native(torch, np, main_path)["launches"]
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
     if bad:
@@ -3063,7 +3224,8 @@ def main() -> int:
     from tpubwa_torch.device import _build
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
-    results = {"ksw_extend": (launches, max_err, main_case),
+    results = {"ksw_extend": (launches + no_native["ksw_extend"], max_err,
+                              main_case),
                "ksw_extend16": (launches16, err16, case16),
                "extend_real": (launches_real, err_real, case_real),
                "ksw_extend_floor": (launches_floor, err_floor, case_floor),
@@ -3092,7 +3254,8 @@ def main() -> int:
     # the FM-index rows: bound by bytes alone (the distinct sectors of
     # the index their run reads, from the plain version's reads)
     for name, replaces, n, case in (
-            ("sa_lookup", "tpubwa/device/occ.py:303", sa_launches, sa_case),
+            ("sa_lookup", "tpubwa/device/occ.py:303",
+             sa_launches + no_native["sa_lookup"], sa_case),
             ("bwt_extend", "tpubwa/device/occ.py:202", ext_launches,
              ext_case)):
         bound_ms, bound_by, parts = bytes_bound(case)
@@ -3117,13 +3280,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
-            "launches": megaq["launches"][name] + hybrid["launches"][name],
+            "launches": (megaq["launches"][name] + hybrid["launches"][name]
+                         + no_native[name]),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})
     print("[bounds] " + json.dumps({"card": rates, "hbm_bytes_s":
                                     HBM_BYTES_S, "kernels": sass}),
           flush=True)
+    print("[smoke] " + json.dumps(
+        {"wall_s": round(time.perf_counter() - t_start, 1)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -289,9 +289,6 @@ def main_mem(argv, out=None) -> int:
     if args.dist:
         raise NotImplementedError("--dist needs multi-GPU support "
                                   "(ROADMAP Queue 1 [dist])")
-    if args.shard:
-        raise NotImplementedError("--shard needs the record sharding of "
-                                  "tpubwa.dist (ROADMAP Queue 1 [shard])")
     # no fallback: a device that cannot be had raises before any work
     from .device.pipeline import make_device_aligner, resolve_device
     device = resolve_device(args.device)
@@ -348,12 +345,23 @@ def main_mem(argv, out=None) -> int:
 
     pes0 = parse_insert_spec(args.insert_spec) if args.insert_spec \
         else None
-    readers = [FastqReader(args.reads)]
-    if args.mates:
-        readers.append(FastqReader(args.mates))
+    if args.shard:
+        shard_i, shard_n = (int(x) for x in args.shard.split("/"))
+        from .dist.records import shard_readers
+        readers = shard_readers([args.reads] +
+                                ([args.mates] if args.mates else []),
+                                shard_i, shard_n)
+    else:
+        readers = [FastqReader(args.reads)]
+        if args.mates:
+            readers.append(FastqReader(args.mates))
     align_fn = make_device_aligner(opt, fmi, device=device)
     log.info("[tpubwa_torch] extension on %s", align_fn.device)
-    n_processed = 0
+    # a shard counts its reads from its first record's global index, so
+    # that mark_primary's read ids and the pair ids (the tie-breaks)
+    # equal the unsharded run's
+    base_offset = getattr(readers[0], "global_offset", 0)
+    n_processed = base_offset
     chunk = opt.chunk_size * opt.n_threads
     t0 = time.time()
     batch_id = 0
@@ -386,19 +394,20 @@ def main_mem(argv, out=None) -> int:
                 out.write("\n".join(lines) + "\n")
                 out.flush()
             n_processed += len(batch)
-            rate = n_processed / (time.time() - t0)
+            done = n_processed - base_offset
+            rate = done / (time.time() - t0)
             log.info("[M::mem] processed %d reads (%.1f reads/s)",
-                     n_processed, rate)
+                     done, rate)
             metrics.emit(event="batch", batch=batch_id,
                          reads=len(batch), reads_per_s=round(rate, 1))
             if journal is not None:
-                journal.mark(batch_id, n_processed, out.tell())
+                journal.mark(batch_id, done, out.tell())
             batch_id += 1
     for r in readers:
         r.close()
     log.info("[M::mem] stage times: %s", timers.report())
     log.info("%s", timers.final_lines())
-    metrics.emit(event="done", reads=n_processed,
+    metrics.emit(event="done", reads=n_processed - base_offset,
                  **{k: round(v, 3) for k, v in timers.wall.items()})
     if close_out:
         out.close()

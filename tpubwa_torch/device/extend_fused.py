@@ -226,6 +226,56 @@ def extend_seed_desc_np(didx, qd, jobs, mat, o_del, e_del, o_ins, e_ins,
     return out
 
 
+def extend_seed_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
+                         tmax, device, extend=extend_batch) -> np.ndarray:
+    """Sequence-tile jobs (qlenL, qL, tlenL, tL, qlenR, qR, tlenR, tR,
+    w, h0, pen5, pen3) -> np.int32 [n, 16] (layout above).
+
+    The jobs run sorted by total target length (stable); their four
+    tiles and meta columns are packed on the host, uploaded once to
+    ``device`` and run through ``_fused_passes`` (four extend launches),
+    and the rows come back in job order.  A longest side past the
+    kernel's lanes raises (the caller routes such jobs to the scalar
+    loops)."""
+    ab = _mat_ab(mat)
+    if ab is None:
+        raise ValueError("fused extension needs a "
+                         "bwa_fill_scmat-structured scoring matrix")
+    n = len(jobs)
+    if n == 0:
+        return np.zeros((0, 16), np.int32)
+    meta = np.array([(j[0], j[2], j[4], j[6], j[9], j[8], j[10], j[11])
+                     for j in jobs], np.int32).reshape(n, 8)
+    order = np.argsort(-(meta[:, 1].astype(np.int64) + meta[:, 3]),
+                       kind="stable")
+    qmax = int(max(meta[:, 0].max(), meta[:, 2].max()))
+    W = width_for(qmax)
+    if qmax >= W:
+        raise ValueError(f"a {qmax} bp extension side exceeds the kernel's "
+                         f"{W - 1} bp lanes")
+    tm = 128
+    while tm < max(int(meta[:, 1].max()), int(meta[:, 3].max())):
+        tm <<= 1
+    tm = min(tm, tmax)
+    # one int8 buffer [n, W | tm | W | tm]: qL, tL, qR, tR, padded with 4
+    tiles = np.full((n, 2 * (W + tm)), 4, np.int8)
+    offs = (0, W, W + tm, 2 * W + tm)
+    for slot, i in enumerate(order):
+        j = jobs[i]
+        for col, (length, seq) in zip(offs, ((j[0], j[1]), (j[2], j[3]),
+                                             (j[4], j[5]), (j[6], j[7]))):
+            tiles[slot, col:col + length] = seq[:length]
+    td = torch.from_numpy(tiles).to(device).to(I32)
+    md = torch.from_numpy(np.ascontiguousarray(meta[order])).to(device)
+    qL, tL, qR, tR = (td[:, c:c + w].contiguous() for c, w in
+                      zip(offs, (W, tm, W, tm)))
+    res = _fused_passes(qL, tL, qR, tR, *md.unbind(1), ab[0], ab[1],
+                        o_del, e_del, o_ins, e_ins, zdrop, extend=extend)
+    out = np.zeros((n, 16), np.int32)
+    out[order] = res.cpu().numpy()
+    return out
+
+
 def scalar_fused(job, mat, o_del, e_del, o_ins, e_ins, zdrop,
                  max_band_try=2):
     """Scalar oracle: the upstream trial loops with ref.ksw.ksw_extend.

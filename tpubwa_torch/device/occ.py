@@ -496,7 +496,8 @@ def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
     """tpubwa's sa_lookup contract: ranks idt [n] in [0, seq_len] ->
     text positions idt [n].  CPU tensors run ``sa_lookup_plain``; CUDA
     tensors launch csrc/occ.cu's walk (``sa_lookup.launches`` counts
-    its launches): the marked walk where the index has marks, else the
+    its launches, ``sa_lookup.marked_launches`` those of the marked
+    walk): the marked walk where the index has marks, else the
     rank-sampled one, on a persistent grid whose lanes take ranks from a
     rank queue (an int32 allocated here).  Raises RuntimeError where the
     launch fails or the entry refuses it (n past the queue's range,
@@ -521,6 +522,7 @@ def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(ranks.device).cuda_stream)
     _raise_on(rc, "sa_lookup")
     sa_lookup.launches += 1
+    sa_lookup.marked_launches += didx.mark_D > 0
     return out
 
 
@@ -561,4 +563,5 @@ def bwt_extend(didx: DeviceIndex, ik: torch.Tensor,
 
 
 sa_lookup.launches = 0
+sa_lookup.marked_launches = 0
 bwt_extend.launches = 0

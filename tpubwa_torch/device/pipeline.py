@@ -1,6 +1,6 @@
 """Per-batch aligner with GPU seed extension, the counterpart of
 tpubwa/device/pipeline.py in its host-seeding, megaq and hybrid
-configurations.
+configurations, with the native planner or the Python one.
 
 Stage plan per chunk of reads:
   A. SMEM seeding                  (device/smem.py: native C++ on the
@@ -14,10 +14,21 @@ Stage plan per chunk of reads:
                                     marks; else the SA walk on the
                                     device, occ.sa_lookup)
   C. chaining + extension planning (native planner,
-                                    host/native_emit.py:plan_batch_native)
+                                    host/native_emit.py:plan_batch_native;
+                                    without it, the native or Python
+                                    chainer and host/regions.py's
+                                    extension_plan generators)
   D. extension waves on the device (extend_fused.extend_seed_desc_np:
-                                    tile gather + the CUDA kernel)
-  E. region post                   (native planner)
+                                    tile gather + the CUDA kernel; the
+                                    Python planner's waves through
+                                    dispatch.WaveExtender)
+  E. region post                   (native planner, or
+                                    host/regions.py:sort_dedup_patch)
+
+TPUBWA_NO_NATIVE_PLAN takes the Python planner; TPUBWA_NO_NATIVE takes
+every native host stage away (seeding, SA walk, chaining, planning and
+emit), so that seeding runs in megaq (K2 and K3) and the SA walk on the
+device (K-sa), as in tpubwa.
 
 The regions equal tpubwa's DeviceAligner and the scalar host path
 (tests/test_torch_pipeline.py), so pairing, MAPQ and SAM are the host
@@ -28,22 +39,26 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from ..host.native_emit import FlatRegs, plan_batch_native
+from ..host import native_emit, native_smem
+from ..host.chain import chain_flt, flt_chained_seeds, mem_chain
+from ..host.native_emit import (FlatRegs, chain_batch_native,
+                                plan_batch_native)
 from ..host.native_smem import sa_positions_native
 from ..host.pipeline import align1_core
-from ..host.regions import AlnReg
+from ..host.regions import AlnReg, extension_plan, sort_dedup_patch
 from ..index.fmindex import FMIndex
 from ..io.fastq import Read
 from ..opts import MemOpt
+from ..ref import ksw
 from ..utils import serial_pipeline
+from .dispatch import WaveExtender
 from .extend_fused import extend_seed_desc_np
-from .extend_kernel import LANES, _mat_ab
+from .extend_kernel import _mat_ab
 from .occ import DeviceIndex, sa_lookup
 from .smem import HybridSplit, collect_intv_device
 
@@ -61,14 +76,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-@dataclass
-class ExtendStats:
-    """Extension limits handed to the planner, and the wave/job counts
-    that bench.py-style callers read through ``aligner.extender``."""
-    qmax: int = LANES - 1     # longest side the kernel takes (510 bp)
-    tmax: int = 1024          # longest reference window
-    n_waves: int = 0
-    n_jobs: int = 0
+def reset_native_caches() -> None:
+    """Forget the host bridges' native libraries (each caches its
+    ``dlopen`` in a module global), so that the next call reads
+    TPUBWA_NO_NATIVE* again: a switch set mid-process takes effect only
+    after this.  The libraries stay built and loaded in ``native``."""
+    native_emit._LIB = native_smem._LIB = None
+    ksw._NATIVE = None
 
 
 class DeviceAligner:
@@ -76,10 +90,13 @@ class DeviceAligner:
     extension waves on ``device``.
 
     The seed mode comes from TPUBWA_SEED_MODE when the aligner is made,
-    default ``host``.  tpubwa defaults to ``hybrid`` on an accelerator
-    (tpubwa/device/pipeline.py:138-148), from a reading on its TPU; the
-    port keeps ``host`` until a benchmark on the card (ROADMAP [bench])
-    measures the split against both modes.  In ``hybrid`` the aligner
+    default ``host``, or ``megaq`` where the native seeder is unavailable
+    (TPUBWA_NO_NATIVE, or no build), as in tpubwa; an explicit ``host``
+    with no seeder raises at the first chunk.  tpubwa defaults to
+    ``hybrid`` on an accelerator (tpubwa/device/pipeline.py:138-148),
+    from a reading on its TPU; the port keeps ``host`` until a benchmark
+    on the card (ROADMAP [bench]) measures the split against both
+    modes.  In ``hybrid`` the aligner
     owns one ``HybridSplit`` for its life (``hybrid``, read from
     TPUBWA_HYBRID_* when it is made); chunks are seeded one at a time on
     the prefetch thread, so it needs no lock."""
@@ -91,11 +108,10 @@ class DeviceAligner:
         if _mat_ab(self.mat) is None:
             raise NotImplementedError(
                 "a scoring matrix that is not bwa_fill_scmat-structured "
-                "needs the Python planner and WaveExtender (ROADMAP "
-                "Queue 1 [waves])")
+                "has no extension on the device (ROADMAP Queue 1 [scmat])")
         self.device = resolve_device(device)
         self.didx = DeviceIndex.from_fmindex(fmi, self.device)
-        self.extender = ExtendStats()
+        self.extender = WaveExtender(opt, self.mat, self.device)
         # longer reads go to the scalar path (the kernel's lane bound)
         self.read_len_cap = 510
         # reads per seeding chunk (nothing is compiled per shape, so one
@@ -104,7 +120,9 @@ class DeviceAligner:
         # 'host' (native seeding), 'megaq' (K2 + K3 on the device) or
         # 'hybrid' (both, split by self.hybrid); device/smem.py raises
         # on the others
-        self.seed_mode = os.environ.get("TPUBWA_SEED_MODE", "host")
+        default_mode = "host" if native_smem._lib() is not None \
+            else "megaq"
+        self.seed_mode = os.environ.get("TPUBWA_SEED_MODE") or default_mode
         self.hybrid = HybridSplit.from_env()
 
     # -------------------------------------------------------------
@@ -173,28 +191,65 @@ class DeviceAligner:
         return intv, self._sa_positions(intv), qd
 
     def _chunk_regs(self, chunk, intv_rows, positions, qd):
-        """Native chaining + planning, device extension waves, native
-        region post for one chunk; returns FlatRegs."""
-        opt = self.opt
+        """Chaining + planning, device extension waves and region post
+        for one chunk: the native planner's FlatRegs, or, without it,
+        per-read region lists from the Python planner."""
+        opt, fmi, mat = self.opt, self.fmi, self.mat
         ext = self.extender
+        # on this (the main) thread: the prefetch thread seeds the next
+        # chunk meanwhile
+        ext.set_chunk_ctx(self.didx, qd, chunk, fmi.bnt)
 
         def extend_fn(desc):
             return extend_seed_desc_np(
-                self.didx, qd, desc, self.mat, opt.o_del, opt.e_del,
+                self.didx, qd, desc, mat, opt.o_del, opt.e_del,
                 opt.o_ins, opt.e_ins, opt.zdrop, ext.tmax)
 
-        planned = plan_batch_native(opt, self.fmi, chunk, intv_rows,
+        planned = plan_batch_native(opt, fmi, chunk, intv_rows,
                                     positions, extend_fn, qmax=ext.qmax,
                                     tmax=ext.tmax, flat=True)
-        if planned is None:
-            raise NotImplementedError(
-                "the native planner is unavailable (TPUBWA_NO_NATIVE_PLAN "
-                "or no tpubwa_torch/native build); the Python planner with "
-                "WaveExtender is ROADMAP Queue 1 [waves]")
-        regs_flat, n_waves, n_jobs = planned
-        ext.n_waves += n_waves
-        ext.n_jobs += n_jobs
-        return regs_flat
+        if planned is not None:
+            regs_flat, n_waves, n_jobs = planned
+            ext.n_waves += n_waves
+            ext.n_jobs += n_jobs
+            return regs_flat
+        # the Python planner (tpubwa/device/pipeline.py:328-367): chains
+        # from the native chainer where it is built, else mem_chain
+        chains_per_read = chain_batch_native(opt, fmi, chunk, intv_rows,
+                                             positions)
+        if chains_per_read is None:
+            per_read_intv = _nest_intv(intv_rows)
+            nested = _nest_positions(per_read_intv, positions)
+        all_regs: List[List[AlnReg]] = []
+        plans_by_read = []
+        for ri, read in enumerate(chunk):
+            if chains_per_read is not None:
+                chains = chains_per_read[ri]
+            else:
+                chains = mem_chain(opt, fmi, read.seq,
+                                   intvs=per_read_intv[ri],
+                                   positions=nested[ri])
+                chains = chain_flt(opt, chains)
+                flt_chained_seeds(opt, fmi.bnt, read.l_seq, read.seq,
+                                  chains, mat)
+            regs: List[AlnReg] = []
+            all_regs.append(regs)
+            # chains of one read share `regs` and extend in order (the
+            # skip test reads earlier regions); reads extend side by
+            # side in waves, as descriptors of the resident reads
+            plans_by_read.append([
+                extension_plan(opt, fmi.bnt, read.l_seq, read.seq, c,
+                               regs, fused=True, read_row=ri)
+                for c in chains])
+        ext.run_fused(_serialize_per_read(plans_by_read))
+        out = []
+        for read, regs in zip(chunk, all_regs):
+            regs = sort_dedup_patch(opt, fmi.bnt, read.seq, regs, mat)
+            for r in regs:
+                if r.rid >= 0 and fmi.bnt.anns[r.rid].is_alt:
+                    r.is_alt = 1
+            out.append(regs)
+        return out
 
     def align_batch(self, reads: Sequence[Read]) -> List[List[AlnReg]]:
         if not reads:
@@ -216,7 +271,7 @@ class DeviceAligner:
         if len(chunks) == 1 or serial_pipeline():
             parts = [self._chunk_regs(c, *self._seed_chunk(c))
                      for c in chunks]
-            return parts[0] if len(parts) == 1 else FlatRegs.concat(parts)
+            return parts[0] if len(parts) == 1 else _concat_parts(parts)
         # double buffer: seed chunk i+1 on a worker thread while this
         # thread plans and extends chunk i (the native calls release
         # the GIL)
@@ -228,10 +283,59 @@ class DeviceAligner:
                 if i + 1 < len(chunks):
                     fut = ex.submit(self._seed_chunk, chunks[i + 1])
                 parts.append(self._chunk_regs(chunk, rows, positions, qd))
-        return FlatRegs.concat(parts)
+        return _concat_parts(parts)
 
     def __call__(self, reads: Sequence[Read]) -> List[List[AlnReg]]:
         return self.align_batch(reads)
+
+
+def _concat_parts(parts):
+    """One batch's regions from its chunks': FlatRegs where every chunk
+    was planned natively, else per-read lists."""
+    if all(isinstance(p, FlatRegs) for p in parts):
+        return FlatRegs.concat(parts)
+    out: List[List[AlnReg]] = []
+    for p in parts:
+        out.extend(list(p) if isinstance(p, FlatRegs) else p)
+    return out
+
+
+def _nest_intv(intv):
+    """Flat (rows, per-read counts) -> per-read row arrays (the
+    mem_chain contract)."""
+    flat, counts = intv
+    return np.split(flat, np.cumsum(counts)[:-1])
+
+
+def _nest_positions(per_read_intv, positions):
+    """Flat (pos, cnt) -> per-read lists of per-interval position
+    arrays (the mem_chain contract)."""
+    pos, cnt = positions
+    ends = np.cumsum(cnt)
+    out = []
+    ii = 0
+    for rows in per_read_intv:
+        per = []
+        for _ in range(len(rows)):
+            per.append(pos[int(ends[ii] - cnt[ii]):int(ends[ii])])
+            ii += 1
+        out.append(per)
+    return out
+
+
+def _serialize_per_read(plans_by_read):
+    """One generator a read that runs its chains' plans one after
+    another, passing each result to the plan that asked for it."""
+    def chain_gens(gens):
+        for g in gens:
+            try:
+                job = next(g)
+                while True:
+                    result = yield job
+                    job = g.send(result)
+            except StopIteration:
+                continue
+    return [chain_gens(gens) for gens in plans_by_read if gens]
 
 
 def make_device_aligner(opt: MemOpt, fmi: FMIndex,
