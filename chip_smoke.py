@@ -81,6 +81,16 @@ Phases, one output line each (a failing phase raises, exit != 0):
      shards merged by `merge`: the body equals phase 4's SE SAM byte for
      byte; PE with `-I 350,30 --shard i/2` likewise against an unsharded
      PE run with the same -I;
+ 4c. two `python -m tpubwa_torch mem --dist --device cuda` processes
+     (torch.distributed over gloo on 127.0.0.1 and a free port, RANK 0
+     and 1 of WORLD_SIZE 2, both on the one card), each with a timeout,
+     on the golden SE reads and on the PE reads with `-I 350,30`: rank
+     0's merged body equals phase 4's SE SAM, and the unsharded PE run
+     with the same -I, byte for byte; both shards are non-empty and rank
+     0's `dist_done` metric counts every read;
+ 4d. tpubwa_torch.dist.dryrun.dryrun_multidevice over [cuda:0, cuda:0]
+     at its 1.5 Mbp, 1,024-pair default: the aligner over two replicas
+     on the card (megaq) SAM-equal to the card alone (host seeding);
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
      reads on the 64 Mbp repeat-realistic synthetic genome, through
      the port's process_batches with its aligner on cuda; the first 512
@@ -145,6 +155,15 @@ Phases, one output line each (a failing phase raises, exit != 0):
      K3 seed every read and K-sa walks every SA position in one run,
      with the counts at 0 just before it.  Its SAM must equal phase 5's
      byte for byte, and K2, K3 and K-sa must each launch.
+ 5g. 5d through the aligner over a DataParallel([cuda:0, cuda:0]): two
+     replicas of the index on the card, each chunk's reads (K2, K3),
+     SA ranks (K-sa) and extension jobs (K1) split between them, each
+     replica on a worker thread and a stream of its own; again over
+     every card where torch sees more than one.  Its SAM must equal
+     phase 5's byte for byte, and K2, K3, K-sa and K1 must each launch
+     on both replicas (the replicas' tallies and the locked counts, at
+     0 just before the run).  Each replica's reads, ranks and jobs, and
+     reads/s beside phase 5's and 5d's.
  5e. phase 5's 2 x 8,192 pairs with TPUBWA_SEED_MODE=hybrid (tpubwa's
      defaults: share 0.25 at first, the balancer on, floor 64): each
      chunk's first k reads on K2 and K3 beside the native seeder on the
@@ -174,8 +193,8 @@ with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), the smoke's
 wall, a JSON line of the kernels (launches on each kernel's paths: K1
-in phase 5 and 5f, K-sa in 5b and 5f, K2 and K3 in 5c, 5e and 5f, the
-int16 kernel in the
+in phase 5, 5f and 5g, K-sa in 5b, 5f and 5g, K2 and K3 in 5c, 5e, 5f
+and 5g, the int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
 K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
 bounds) and, last,
@@ -1778,6 +1797,120 @@ def phase_shard(torch):
     print("[4b shard] " + json.dumps(res), flush=True)
 
 
+DIST_TIMEOUT = 300       # s a `mem --dist` process may take in 4c
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(torch):
+    """[4c dist]: two `python -m tpubwa_torch mem --dist --device cuda`
+    processes (RANK 0 and 1, WORLD_SIZE 2, gloo on 127.0.0.1 and a free
+    port, both on the one card) on the golden SE reads, and on the PE
+    reads with `-I 350,30`: rank 0 merges the two shards into -o.  The
+    SE body must equal the golden SE SAM's (phase 4's) byte for byte; the
+    PE body an unsharded PE run's with the same -I (without -I the
+    insert-size statistics are a batch's, as in stock bwa, and a shard is
+    a batch of its own; 4b likewise).  Both shards must be non-empty, and
+    rank 0's `dist_done` metric must count every read.  A process past
+    DIST_TIMEOUT is killed and fails the phase."""
+    import tempfile
+    from tpubwa_torch.cli import main as cli_main
+    gold = os.path.join(ROOT, "tests", "golden")
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        prefix = os.path.join(d, "g")
+        assert cli_main(["index", os.path.join(gold, "ref.fa"), "-p",
+                         prefix]) == 0
+        for name in ("se.fq", "pe1.fq", "pe2.fq"):
+            shutil.copy(os.path.join(gold, name), d)
+
+        def body(path):
+            with open(path) as fh:
+                return "".join(l for l in fh if not l.startswith("@"))
+
+        with open(os.path.join(gold, "se.sam")) as fh:
+            want = {"se": "".join(l for l in fh if not l.startswith("@"))}
+        pe = [os.path.join(d, f) for f in ("pe1.fq", "pe2.fq")]
+        assert cli_main(["mem", "--device", DEV, "-I", "350,30", prefix,
+                         *pe, "-o", os.path.join(d, "pe_full.sam")]) == 0
+        want["pe"] = body(os.path.join(d, "pe_full.sam"))
+        for kind, fqs, extra in (("se", ["se.fq"], []),
+                                 ("pe", ["pe1.fq", "pe2.fq"],
+                                  ["-I", "350,30"])):
+            out = os.path.join(d, f"{kind}.sam")
+            metrics = os.path.join(d, f"{kind}.jsonl")
+            port = free_port()
+            t = time.perf_counter()
+            procs = []
+            for rank in range(2):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                           WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=str(port))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "tpubwa_torch", "mem", "--dist",
+                     "--device", DEV, *extra,
+                     *(["--metrics", metrics] if rank == 0 else []),
+                     "-o", out, prefix,
+                     *(os.path.join(d, f) for f in fqs)],
+                    cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, text=True))
+            errs = []
+            try:
+                for p in procs:
+                    errs.append(p.communicate(timeout=DIST_TIMEOUT)[1])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            if any(p.returncode for p in procs):
+                raise AssertionError(f"4c {kind}: exit codes "
+                                     f"{[p.returncode for p in procs]}: "
+                                     f"{[e[-1500:] for e in errs]}")
+            wall = time.perf_counter() - t
+            got = body(out)
+            if got != want[kind]:
+                raise AssertionError(f"4c: merged {kind} != the "
+                                     "unsharded run")
+            shards = [len(body(f"{out}.shard{i:05d}").splitlines())
+                      for i in range(2)]
+            if not all(shards):
+                raise AssertionError(f"4c {kind}: an empty shard {shards}")
+            with open(metrics) as fh:
+                done = [json.loads(l) for l in fh
+                        if json.loads(l)["event"] == "dist_done"]
+            n_reads = sum(sum(1 for _ in open(os.path.join(d, f))) // 4
+                          for f in fqs)
+            if len(done) != 1 or done[0]["reads"] != n_reads:
+                raise AssertionError(f"4c {kind}: dist_done {done}")
+            res[kind] = {"processes": 2, "sam_lines": len(got.splitlines()),
+                         "shard_lines": shards, "byte_equal": True,
+                         "dist_done": {k: done[0][k] for k in (
+                             "processes", "reads", "reads_per_s",
+                             "per_host")},
+                         "wall_s": round(wall, 3)}
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    print("[4c dist] " + json.dumps(res), flush=True)
+
+
+def phase_dryrun(torch):
+    """[4d dryrun]: ``dist.dryrun.dryrun_multidevice`` over [cuda:0,
+    cuda:0] at its default 1.5 Mbp, 1,024 pairs: a realistic genome's
+    PE reads through the aligner over the two replicas (megaq) and on
+    the card alone (host seeding), SAM-equal."""
+    from tpubwa_torch.dist.dryrun import dryrun_multidevice
+    t0 = time.perf_counter()
+    facts = dryrun_multidevice(["cuda:0", "cuda:0"])
+    print("[4d dryrun] " + json.dumps(dict(
+        facts, seconds=round(time.perf_counter() - t0, 3))), flush=True)
+
+
 def phase_main_path(torch, np):
     from tpubwa_torch.host.pipeline import process_batches
     from tpubwa_torch.opts import MEM_F_PE, MemOpt
@@ -1849,8 +1982,8 @@ def phase_main_path(torch, np):
             seen.append((q, t, p, pen))
         return extend_batch(q, t, p, *pen)
 
-    def wave(*a):
-        return desc_np(*a, extend=keep)
+    def wave(*a, **kw):
+        return desc_np(*a, extend=keep, **kw)
 
     desc_np, dp.extend_seed_desc_np = dp.extend_seed_desc_np, wave
     try:
@@ -2615,6 +2748,91 @@ def phase_megaq_stock(torch, np, main, stock):
     return facts
 
 
+DP_KERNELS = {"smem_rounds12": "rounds12_megaq.launches",
+              "seed_strategy": "_seed_strategy_scan.launches",
+              "sa_lookup": "sa_lookup.launches",
+              "ksw_extend": "extend_batch.launches"}
+
+
+def phase_megaq_dp(torch, np, main, stock, d5):
+    """[5g dp]: 5d (phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa
+    index) through the port's aligner over ``DataParallel([cuda:0,
+    cuda:0])`` (two replicas of the index on the one card, each chunk's
+    reads, ranks and extension jobs split between them), and again over
+    every card where there are more.  Each run's SAM must equal phase
+    5's byte for byte, and K2, K3, K-sa and K1 must each launch on every
+    replica, by the replicas' tallies and by the locked counts, all at 0
+    just before the run.  Each replica's reads, ranks and jobs, and
+    reads/s beside phase 5's and 5d's.  Returns the launches summed over
+    the runs, by the kernels line's names."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ, smem, smem_fused
+    from tpubwa_torch.device.pipeline import make_device_aligner
+    from tpubwa_torch.dist.sharding import DataParallel
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    opt, batches = main["opt"], main["batches"]
+    runs = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        runs.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    total = dict.fromkeys(DP_KERNELS, 0)
+    n_reads = sum(len(b) for b in batches)
+    for devices in runs:
+        dp = DataParallel.over(devices)
+        aligner = make_device_aligner(opt, stock, dp=dp)
+        if aligner.seed_mode != "megaq":
+            raise AssertionError(f"5g seeds in {aligner.seed_mode}")
+        warm = simulate_pe(stock.bnt, 1024, 100, np.random.default_rng(2))
+        for _ in process_batches(opt, stock, iter([warm]), 0,
+                                 align_fn=aligner):
+            pass
+        dp.synchronize()
+        for t in dp.tally:
+            t.clear()
+        smem_fused.rounds12_megaq.launches = 0
+        smem._seed_strategy_scan.launches = 0
+        occ.sa_lookup.launches = occ.bwt_extend.launches = 0
+        ek.extend_batch.launches = 0
+        t0 = time.perf_counter()
+        lines = [l for _, ls in process_batches(
+            opt, stock, iter(batches), 0, align_fn=aligner) for l in ls]
+        dp.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"smem_rounds12": smem_fused.rounds12_megaq.launches,
+                    "seed_strategy": smem._seed_strategy_scan.launches,
+                    "sa_lookup": occ.sa_lookup.launches,
+                    "ksw_extend": ek.extend_batch.launches,
+                    "bwt_extend": occ.bwt_extend.launches}
+        replicas = [{"device": str(d), **{k: t.get(k, 0) for k in (
+            "reads", "ranks", "jobs")}, "launches": {
+                name: t.get(key, 0) for name, key in DP_KERNELS.items()}}
+            for d, t in zip(dp.devices, dp.tally)]
+        idle = [(r["device"], name) for r in replicas
+                for name, n in r["launches"].items() if not n]
+        if idle:
+            raise AssertionError(f"5g {devices}: no launch of {idle}")
+        for name in DP_KERNELS:
+            if launches[name] != sum(r["launches"][name] for r in replicas):
+                raise AssertionError(f"5g: {name} counted {launches[name]}"
+                                     f", the replicas {replicas}")
+            total[name] += launches[name]
+        if lines != main["sam"]:
+            raise AssertionError(f"5g {devices}: SAM != phase 5's "
+                                 f"({len(lines)} vs {len(main['sam'])} "
+                                 f"lines, first diff "
+                                 f"{sam_diff(lines, main['sam'])})")
+        print("[5g dp] " + json.dumps({
+            "devices": devices, "index": "5b's (stock bwa files, no marks)",
+            "seed_mode": aligner.seed_mode, "reads": n_reads,
+            "seconds": round(dt, 3), "reads_per_s": round(n_reads / dt, 1),
+            "phase5_reads_per_s": round(main["reads_per_s"], 1),
+            "5d_reads_per_s": d5["reads_per_s"], "sam_lines": len(lines),
+            "sam_equal_to_phase5": True, "launches": launches,
+            "replicas": replicas}), flush=True)
+        dp.close()
+    return total
+
+
 def sam_diff(lines, want):
     """Where two SAM texts part: the first differing line, or -1 where
     their lengths differ."""
@@ -3206,6 +3424,8 @@ def main() -> int:
     case_bd, err_bd, launches_bd = phase_kernel_bd(torch, np)
     phase_golden(torch)
     phase_shard(torch)
+    phase_dist(torch)
+    phase_dryrun(torch)
     main_path = phase_main_path(torch, np)
     launches = main_path["launches"]
     stock, sa_case, sa_launches, _ = phase_stock_bwa(torch, np, main_path)
@@ -3214,7 +3434,8 @@ def main() -> int:
     sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
     megaq = phase_megaq(torch, np, main_path)
     seeding = phase_seeding(torch, np, main_path, megaq)
-    phase_megaq_stock(torch, np, main_path, stock)
+    d5 = phase_megaq_stock(torch, np, main_path, stock)
+    dp_launches = phase_megaq_dp(torch, np, main_path, stock, d5)
     hybrid = phase_hybrid(torch, np, main_path, megaq)
     no_native = phase_no_native(torch, np, main_path)["launches"]
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
@@ -3224,7 +3445,8 @@ def main() -> int:
     from tpubwa_torch.device import _build
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
-    results = {"ksw_extend": (launches + no_native["ksw_extend"], max_err,
+    results = {"ksw_extend": (launches + no_native["ksw_extend"]
+                              + dp_launches["ksw_extend"], max_err,
                               main_case),
                "ksw_extend16": (launches16, err16, case16),
                "extend_real": (launches_real, err_real, case_real),
@@ -3255,7 +3477,8 @@ def main() -> int:
     # the index their run reads, from the plain version's reads)
     for name, replaces, n, case in (
             ("sa_lookup", "tpubwa/device/occ.py:303",
-             sa_launches + no_native["sa_lookup"], sa_case),
+             sa_launches + no_native["sa_lookup"]
+             + dp_launches["sa_lookup"], sa_case),
             ("bwt_extend", "tpubwa/device/occ.py:202", ext_launches,
              ext_case)):
         bound_ms, bound_by, parts = bytes_bound(case)
@@ -3281,7 +3504,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
             "launches": (megaq["launches"][name] + hybrid["launches"][name]
-                         + no_native[name]),
+                         + no_native[name] + dp_launches[name]),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})

@@ -313,13 +313,11 @@ def test_cuda_without_a_card_raises(setup, monkeypatch):
 
 def test_missing_paths_raise_not_implemented(setup, monkeypatch):
     """A scoring matrix that is not bwa_fill_scmat-structured (tpubwa
-    extends it in host scalar loops) and --dist raise, naming their
-    ROADMAP items.  `mem` builds only scmat matrices."""
+    extends it in host scalar loops) raises, naming its ROADMAP item.
+    `mem` builds only scmat matrices."""
     _, fmi, _ = setup
     bad = MemOpt().scoring_matrix()
     bad[0, 1] = -7
     monkeypatch.setattr(MemOpt, "scoring_matrix", lambda self: bad)
     with pytest.raises(NotImplementedError, match=r"\[scmat\]"):
         tp.make_device_aligner(MemOpt(), fmi, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"\[dist\]"):
-        main_mem(["--dist", "-o", "x.sam", "p", "r.fq"])

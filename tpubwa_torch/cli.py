@@ -2,7 +2,9 @@
 ``index``, ``fastmap``, ``merge`` and ``shm`` touch no device (the
 port's copies of tpubwa's, over the port's own host code).  Same
 bwa-compatible flags as ``tpubwa mem``, with ``--device cuda|cpu``
-(default ``cuda``: the CPU runs only when asked for)."""
+(default ``cuda``: the CPU runs only when asked for).  ``mem --dist``
+runs one record shard a process of a torch.distributed run (gloo), and
+rank 0 merges the shards' SAM."""
 
 from __future__ import annotations
 
@@ -159,8 +161,10 @@ def _add_mem_opts(ap: argparse.ArgumentParser) -> None:
                     help="I/N: process the I-th of N deterministic "
                          "record-range shards (manual multi-host mode)")
     ap.add_argument("--dist", action="store_true",
-                    help="multi-host runs (not ported yet: ROADMAP "
-                         "Queue 1 [dist])")
+                    help="one shard a process of a torch.distributed "
+                         "run (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT "
+                         "and LOCAL_RANK as torchrun sets them); rank 0 "
+                         "merges the shards into -o")
     ap.add_argument("--journal", default=None,
                     help="checkpoint journal for resumable runs "
                          "(requires -o)")
@@ -286,13 +290,25 @@ def main_mem(argv, out=None) -> int:
     ap.add_argument("reads")
     ap.add_argument("mates", nargs="?", default=None)
     args = ap.parse_args(argv)
-    if args.dist:
-        raise NotImplementedError("--dist needs multi-GPU support "
-                                  "(ROADMAP Queue 1 [dist])")
+    if args.dist and not args.out_file:
+        ap.error("--dist requires -o")
+    if args.dist and args.shard:
+        ap.error("--dist computes shards from process_index; "
+                 "drop --shard")
     # no fallback: a device that cannot be had raises before any work
     from .device.pipeline import make_device_aligner, resolve_device
     device = resolve_device(args.device)
     opt = build_opt(args)
+    dist_ctx = None
+    if args.dist:
+        # SURVEY.md §5.8: a shard a process, computed from the rank, its
+        # own SAM file, the merge on rank 0
+        device, dist_ctx = _dist_init(device, [args.reads] + (
+            [args.mates] if args.mates else []), args.out_file)
+        args.shard = f"{dist_ctx[0]}/{dist_ctx[1]}"
+        args.out_file = f"{args.out_file}.shard{dist_ctx[0]:05d}"
+        log.info("[dist] process %d/%d -> %s", dist_ctx[0], dist_ctx[1],
+                 args.out_file)
     # -v: bwa verbosity levels 1=err 2=warn 3=info 4+=debug
     log.setLevel({1: logging.ERROR, 2: logging.WARNING}.get(
         args.verbosity, logging.INFO if args.verbosity == 3
@@ -411,8 +427,61 @@ def main_mem(argv, out=None) -> int:
                  **{k: round(v, 3) for k, v in timers.wall.items()})
     if close_out:
         out.close()
+    if dist_ctx is not None:
+        _dist_finish(dist_ctx, n_processed - base_offset,
+                     time.time() - t0, metrics)
     metrics.close()
     return 0
+
+
+def _dist_init(device, inputs, out_file):
+    """Join the torch.distributed run that ``torchrun`` (or the caller)
+    describes in RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT, over
+    gloo: its one collective is the end-of-run gather of host counters,
+    and NCCL refuses two ranks on one card.  On a card the process takes
+    cuda:(LOCAL_RANK mod the cards).  Rank 0 writes each input's record
+    sidecar before a barrier, so that no two ranks build it at once.
+    Returns (device, (rank, world size, out_file))."""
+    import os
+    import torch
+    import torch.distributed as tdist
+    from .dist.records import ensure_sidecar
+    tdist.init_process_group("gloo", init_method="env://")
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if rank == 0:
+        for path in inputs:
+            ensure_sidecar(path)
+    tdist.barrier()
+    return device, (rank, world, out_file)
+
+
+def _dist_finish(dist_ctx, done, wall, metrics):
+    """The end of a --dist run: a gather of every rank's [reads, wall
+    ms] and a barrier; then rank 0 merges the shards into the output
+    and emits ``dist_done``."""
+    import torch
+    import torch.distributed as tdist
+    rank, world, final_out = dist_ctx
+    mine = torch.tensor([done, wall * 1000.0], dtype=torch.float64)
+    counters = [torch.zeros(2, dtype=torch.float64) for _ in range(world)]
+    tdist.all_gather(counters, mine)
+    tdist.barrier()
+    if rank == 0:
+        shards = [f"{final_out}.shard{i:05d}" for i in range(world)]
+        main_merge(["-o", final_out] + shards)
+        counters = torch.stack(counters)
+        total = int(counters[:, 0].sum())
+        rate = total / max(float(counters[:, 1].max()) / 1000.0, 1e-9)
+        log.info("[dist] merged %d shards -> %s: %d reads, %.1f reads/s "
+                 "aggregate", world, final_out, total, rate)
+        metrics.emit(event="dist_done", processes=world, reads=total,
+                     reads_per_s=round(rate, 1),
+                     per_host=[int(x) for x in counters[:, 0]])
+    tdist.destroy_process_group()
 
 
 def main_merge(argv) -> int:

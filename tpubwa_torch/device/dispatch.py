@@ -15,6 +15,9 @@ seeds.  A job whose side is longer than the kernel takes (``qmax``,
 ``tmax``) runs tpubwa's scalar trial loops inline, counted in
 ``n_fallback``: the kernel is never tried on it.
 
+With a ``dp`` (``dist.sharding.DataParallel``, tpubwa's ``mesh``) both
+wave functions split each wave's jobs over its replicas.
+
 tpubwa's non-fused ``run()`` with its per-side batch functions is on no
 ``DeviceAligner`` path (ROADMAP Queue 1 [waves-plain]).
 """
@@ -36,11 +39,13 @@ class WaveExtender:
     batched waves on ``device``; ``n_waves``, ``n_jobs`` and
     ``n_fallback`` count the waves, the jobs they ran and the jobs that
     took the scalar loops.  ``qmax``/``tmax`` are also the limits that
-    the native planner is given (device/pipeline.py)."""
+    the native planner is given (device/pipeline.py).  With a ``dp``
+    the waves are split over its replicas."""
 
     def __init__(self, opt: MemOpt, mat: np.ndarray, device,
-                 qmax: int = LANES - 1, tmax: int = 1024):
+                 qmax: int = LANES - 1, tmax: int = 1024, dp=None):
         self.opt = opt
+        self.dp = dp
         self.mat = np.asarray(mat, np.int32)
         self.device = device
         self.qmax = qmax
@@ -64,7 +69,8 @@ class WaveExtender:
     def set_chunk_ctx(self, didx, qd, reads, bnt) -> None:
         """The chunk whose descriptors the next waves run: the index,
         its reads on the device (``qd``, uint8 [B, L]) and on the host,
-        and the reference for ``_materialize``."""
+        and the reference for ``_materialize``; under a ``dp``, ``didx``
+        and ``qd`` are lists, one a replica."""
         self.ctx = (didx, qd, reads, bnt)
 
     def _materialize(self, job):
@@ -129,10 +135,10 @@ class WaveExtender:
             if jobs[0][0] == 'D':
                 didx, qd = self.ctx[0], self.ctx[1]
                 rows = extend_seed_desc_np(didx, qd, jobs, *self._pen(),
-                                           self.tmax)
+                                           self.tmax, dp=self.dp)
             else:
                 rows = extend_seed_batch_np(jobs, *self._pen(), self.tmax,
-                                            self.device)
+                                            self.device, dp=self.dp)
             nxt = []
             for i, ent in enumerate(live):
                 try:

@@ -19,7 +19,10 @@ and one int32 [16] row per job:
 
 Every extension goes through ``extend_kernel.extend_batch`` (the CUDA
 kernel on a CUDA device, the plain version on the CPU); callers that
-compare the two pass ``extend=extend_batch_plain``.
+compare the two pass ``extend=extend_batch_plain``.  With a ``dp``
+(``dist.sharding.DataParallel``), a wave's sorted jobs are split into
+contiguous parts, one a replica, each run on its replica's device and
+the rows put back in order (tpubwa's ``extend_seed_desc_sharded``).
 """
 
 from __future__ import annotations
@@ -182,23 +185,27 @@ def _extend_seed_desc_impl(didx, qreads, desc, a, b, o_del, e_del,
 
 
 def extend_seed_desc_np(didx, qd, jobs, mat, o_del, e_del, o_ins, e_ins,
-                        zdrop, tmax, extend=extend_batch) -> np.ndarray:
+                        zdrop, tmax, extend=extend_batch,
+                        dp=None) -> np.ndarray:
     """The ``extend_fn`` seam of host/native_emit.py:plan_batch_native.
 
     didx: DeviceIndex; qd: uint8 [B, L] chunk reads on the device;
     jobs: descriptor rows [n, 11] (or tuples ('D', read, qbeg, slen,
     lq, rbeg, rmax0, rmax1, w, h0, pen5, pen3)).  Returns np.int32
     [n, 16].  Jobs run sorted by total target length (stable), which
-    keeps each warp's jobs alike on the GPU."""
+    keeps each warp's jobs alike on the GPU.  With a ``dp``, ``didx``
+    and ``qd`` are lists, one a replica, and the sorted jobs are split
+    over the replicas (the tile widths W and tmax are the wave's)."""
     ab = _mat_ab(mat)
     if ab is None:
         raise ValueError("descriptor extension needs a "
                          "bwa_fill_scmat-structured scoring matrix")
     n = len(jobs)
+    idt = (didx if dp is None else didx[0]).np_idt
     if isinstance(jobs, np.ndarray):
-        da = np.ascontiguousarray(jobs, didx.np_idt).reshape(-1, 11)
+        da = np.ascontiguousarray(jobs, idt).reshape(-1, 11)
     else:
-        da = np.zeros((n, 11), didx.np_idt)
+        da = np.zeros((n, 11), idt)
         for i, j in enumerate(jobs):
             da[i] = j[1:]
     if n == 0:
@@ -217,17 +224,23 @@ def extend_seed_desc_np(didx, qd, jobs, mat, o_del, e_del, o_ins, e_ins,
     while tm < max(int(tlL.max()), int(tlR.max())):
         tm <<= 1
     tm = min(tm, tmax)
-    desc = torch.from_numpy(np.ascontiguousarray(da[order])).to(qd.device)
-    res = _extend_seed_desc_impl(didx, qd, desc, ab[0], ab[1], o_del,
-                                 e_del, o_ins, e_ins, zdrop, W, tm,
-                                 extend=extend)
+    rows = np.ascontiguousarray(da[order])
+
+    def run(i, lo, hi):
+        di, qi = (didx, qd) if dp is None else (didx[i], qd[i])
+        desc = torch.from_numpy(rows[lo:hi]).to(qi.device)
+        return _extend_seed_desc_impl(di, qi, desc, ab[0], ab[1], o_del,
+                                      e_del, o_ins, e_ins, zdrop, W, tm,
+                                      extend=extend).cpu().numpy()
+
     out = np.zeros((n, 16), np.int32)
-    out[order] = res.cpu().numpy()
+    out[order] = run(0, 0, n) if dp is None else dp.map_rows(run, n, "jobs")
     return out
 
 
 def extend_seed_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
-                         tmax, device, extend=extend_batch) -> np.ndarray:
+                         tmax, device, extend=extend_batch,
+                         dp=None) -> np.ndarray:
     """Sequence-tile jobs (qlenL, qL, tlenL, tL, qlenR, qR, tlenR, tR,
     w, h0, pen5, pen3) -> np.int32 [n, 16] (layout above).
 
@@ -236,7 +249,9 @@ def extend_seed_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
     ``device`` and run through ``_fused_passes`` (four extend launches),
     and the rows come back in job order.  A longest side past the
     kernel's lanes raises (the caller routes such jobs to the scalar
-    loops)."""
+    loops).  With a ``dp`` the sorted jobs are split over its replicas,
+    each part's tiles uploaded to its replica's device (``device`` is
+    not read)."""
     ab = _mat_ab(mat)
     if ab is None:
         raise ValueError("fused extension needs a "
@@ -265,14 +280,20 @@ def extend_seed_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
         for col, (length, seq) in zip(offs, ((j[0], j[1]), (j[2], j[3]),
                                              (j[4], j[5]), (j[6], j[7]))):
             tiles[slot, col:col + length] = seq[:length]
-    td = torch.from_numpy(tiles).to(device).to(I32)
-    md = torch.from_numpy(np.ascontiguousarray(meta[order])).to(device)
-    qL, tL, qR, tR = (td[:, c:c + w].contiguous() for c, w in
-                      zip(offs, (W, tm, W, tm)))
-    res = _fused_passes(qL, tL, qR, tR, *md.unbind(1), ab[0], ab[1],
-                        o_del, e_del, o_ins, e_ins, zdrop, extend=extend)
+    meta = np.ascontiguousarray(meta[order])
+
+    def run(i, lo, hi):
+        dev = device if dp is None else dp.devices[i]
+        td = torch.from_numpy(tiles[lo:hi]).to(dev).to(I32)
+        md = torch.from_numpy(meta[lo:hi]).to(dev)
+        qL, tL, qR, tR = (td[:, c:c + w].contiguous() for c, w in
+                          zip(offs, (W, tm, W, tm)))
+        return _fused_passes(qL, tL, qR, tR, *md.unbind(1), ab[0], ab[1],
+                             o_del, e_del, o_ins, e_ins, zdrop,
+                             extend=extend).cpu().numpy()
+
     out = np.zeros((n, 16), np.int32)
-    out[order] = res.cpu().numpy()
+    out[order] = run(0, 0, n) if dp is None else dp.map_rows(run, n, "jobs")
     return out
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .counts import bump
 
 LANES = 512          # widest DP row -> qlen <= LANES - 1 (510 bp reads)
 CHUNK = 512          # jobs per kernel launch in the JAX package
@@ -337,7 +338,7 @@ def _launch(entry, q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
 def _extend_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
     out, launched = _launch("tpubwa_extend_batch", q, t, params, a, b,
                             o_del, e_del, o_ins, e_ins, zdrop)
-    extend_batch.launches += launched
+    bump(extend_batch, n=int(launched))
     return out
 
 
@@ -347,7 +348,7 @@ def _extend_floor_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
     instantiation, through the floor entry)."""
     out, launched = _launch("tpubwa_extend_floor", q, t, params, a, b,
                             o_del, e_del, o_ins, e_ins, zdrop, mask)
-    extend_batch.floor_launches += launched
+    bump(extend_batch, "floor_launches", int(launched))
     return out
 
 

@@ -44,6 +44,7 @@ import torch
 
 from ..index.fmindex import FMIndex, SA_INTV, WORDS_PER_BLOCK, pack_bwt_words
 from . import _build
+from .counts import bump
 
 I64 = torch.int64
 _M32 = 0xFFFFFFFF
@@ -521,8 +522,8 @@ def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
         ranks.device.index,
         torch.cuda.current_stream(ranks.device).cuda_stream)
     _raise_on(rc, "sa_lookup")
-    sa_lookup.launches += 1
-    sa_lookup.marked_launches += didx.mark_D > 0
+    bump(sa_lookup)
+    bump(sa_lookup, "marked_launches", int(didx.mark_D > 0))
     return out
 
 
@@ -558,7 +559,7 @@ def bwt_extend(didx: DeviceIndex, ik: torch.Tensor,
         ik.data_ptr(), out.data_ptr(), len(ik), ik.device.index,
         torch.cuda.current_stream(ik.device).cuda_stream)
     _raise_on(rc, "bwt_extend")
-    bwt_extend.launches += 1
+    bump(bwt_extend)
     return out
 
 

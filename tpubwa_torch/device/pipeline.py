@@ -30,6 +30,11 @@ every native host stage away (seeding, SA walk, chaining, planning and
 emit), so that seeding runs in megaq (K2 and K3) and the SA walk on the
 device (K-sa), as in tpubwa.
 
+With a ``dp`` (``dist.sharding.DataParallel``, tpubwa's mesh mode) the
+index is replicated, one ``DeviceIndex`` a replica, and stages A, B and
+D split their reads, ranks and jobs over the replicas; the host stages
+run once, on what one device would have given them.
+
 The regions equal tpubwa's DeviceAligner and the scalar host path
 (tests/test_torch_pipeline.py), so pairing, MAPQ and SAM are the host
 code (the port's copy of tpubwa's, in ``tpubwa_torch/host``).
@@ -99,9 +104,14 @@ class DeviceAligner:
     modes.  In ``hybrid`` the aligner
     owns one ``HybridSplit`` for its life (``hybrid``, read from
     TPUBWA_HYBRID_* when it is made); chunks are seeded one at a time on
-    the prefetch thread, so it needs no lock."""
+    the prefetch thread, so it needs no lock.
 
-    def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda"):
+    With a ``dp`` the devices are its replicas' (``device`` is not
+    read): ``didxs`` holds one index a replica, ``didx`` replica 0's for
+    the host-side code, and the seed mode defaults to ``megaq``, as in
+    tpubwa's mesh mode (one host core cannot feed several devices)."""
+
+    def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda", dp=None):
         self.opt = opt
         self.fmi = fmi
         self.mat = opt.scoring_matrix()
@@ -109,9 +119,16 @@ class DeviceAligner:
             raise NotImplementedError(
                 "a scoring matrix that is not bwa_fill_scmat-structured "
                 "has no extension on the device (ROADMAP Queue 1 [scmat])")
-        self.device = resolve_device(device)
-        self.didx = DeviceIndex.from_fmindex(fmi, self.device)
-        self.extender = WaveExtender(opt, self.mat, self.device)
+        self.dp = dp
+        if dp is None:
+            self.device = resolve_device(device)
+            self.didxs = None
+            self.didx = DeviceIndex.from_fmindex(fmi, self.device)
+        else:
+            self.didxs = dp.replicate_index(fmi)
+            self.didx = self.didxs[0]
+            self.device = self.didx.device
+        self.extender = WaveExtender(opt, self.mat, self.device, dp=dp)
         # longer reads go to the scalar path (the kernel's lane bound)
         self.read_len_cap = 510
         # reads per seeding chunk (nothing is compiled per shape, so one
@@ -120,8 +137,8 @@ class DeviceAligner:
         # 'host' (native seeding), 'megaq' (K2 + K3 on the device) or
         # 'hybrid' (both, split by self.hybrid); device/smem.py raises
         # on the others
-        default_mode = "host" if native_smem._lib() is not None \
-            else "megaq"
+        default_mode = "host" if (native_smem._lib() is not None
+                                  and dp is None) else "megaq"
         self.seed_mode = os.environ.get("TPUBWA_SEED_MODE") or default_mode
         self.hybrid = HybridSplit.from_env()
 
@@ -148,8 +165,9 @@ class DeviceAligner:
         max_occ samples) and the SA walk: the native marked walk on the
         host over an index with text-position marks, else
         ``occ.sa_lookup`` on the device (a stock-bwa index: the
-        rank-sampled walk), the ranks uploaded once.  Returns flat
-        (pos int64, cnt int64) in (read, interval-row) order."""
+        rank-sampled walk), the ranks uploaded once (under a ``dp``,
+        each replica's part of them to it).  Returns flat (pos int64,
+        cnt int64) in (read, interval-row) order."""
         flat, _counts = intv
         if not len(flat):
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
@@ -169,9 +187,16 @@ class DeviceAligner:
             return np.zeros(0, np.int64), cnt
         k = np.arange(n, dtype=np.int64) - np.repeat(ends - cnt, cnt)
         ranks = np.repeat(flat[:, 0], cnt) + k * np.repeat(step, cnt)
-        pos = sa_lookup(self.didx, torch.from_numpy(ranks.astype(
-            self.didx.np_idt)).to(self.device))
-        return pos.cpu().numpy().astype(np.int64), cnt
+        ranks = ranks.astype(self.didx.np_idt)
+
+        def walk(i, lo, hi):
+            didx = self.didx if self.dp is None else self.didxs[i]
+            return sa_lookup(didx, torch.from_numpy(ranks[lo:hi]).to(
+                didx.device)).cpu().numpy()
+
+        pos = walk(0, 0, n) if self.dp is None else self.dp.map_rows(
+            walk, n, "ranks")
+        return pos.astype(np.int64), cnt
 
     # -------------------------------------------------------------
     def _seed_chunk(self, chunk: Sequence[Read]):
@@ -181,14 +206,20 @@ class DeviceAligner:
         while pad < len(chunk):
             pad <<= 1
         arr, lens = self._pack(chunk, pad)
-        flat, frid, qd = collect_intv_device(self.opt, self.didx, arr,
+        flat, frid, qd = collect_intv_device(self.opt, self._index(), arr,
                                              lens, self.fmi,
                                              mode=self.seed_mode,
-                                             split=self.hybrid)
+                                             split=self.hybrid, dp=self.dp)
         counts = np.bincount(frid, minlength=arr.shape[0])[:len(chunk)]
         intv = (flat, counts)
         # qd: the chunk's reads, resident for the descriptor extension
+        # (a list, one a replica, under a dp)
         return intv, self._sa_positions(intv), qd
+
+    def _index(self):
+        """The index the device stages take: the replicas' list under a
+        ``dp``, else the one."""
+        return self.didx if self.dp is None else self.didxs
 
     def _chunk_regs(self, chunk, intv_rows, positions, qd):
         """Chaining + planning, device extension waves and region post
@@ -198,12 +229,12 @@ class DeviceAligner:
         ext = self.extender
         # on this (the main) thread: the prefetch thread seeds the next
         # chunk meanwhile
-        ext.set_chunk_ctx(self.didx, qd, chunk, fmi.bnt)
+        ext.set_chunk_ctx(self._index(), qd, chunk, fmi.bnt)
 
         def extend_fn(desc):
             return extend_seed_desc_np(
-                self.didx, qd, desc, mat, opt.o_del, opt.e_del,
-                opt.o_ins, opt.e_ins, opt.zdrop, ext.tmax)
+                self._index(), qd, desc, mat, opt.o_del, opt.e_del,
+                opt.o_ins, opt.e_ins, opt.zdrop, ext.tmax, dp=self.dp)
 
         planned = plan_batch_native(opt, fmi, chunk, intv_rows,
                                     positions, extend_fn, qmax=ext.qmax,
@@ -338,6 +369,6 @@ def _serialize_per_read(plans_by_read):
     return [chain_gens(gens) for gens in plans_by_read if gens]
 
 
-def make_device_aligner(opt: MemOpt, fmi: FMIndex,
-                        device="cuda") -> DeviceAligner:
-    return DeviceAligner(opt, fmi, device=device)
+def make_device_aligner(opt: MemOpt, fmi: FMIndex, device="cuda",
+                        dp=None) -> DeviceAligner:
+    return DeviceAligner(opt, fmi, device=device, dp=dp)

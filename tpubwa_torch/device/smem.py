@@ -15,7 +15,10 @@ Three modes:
   while the calling thread seeds the rest in native C++, k set each
   chunk by ``HybridSplit`` (tpubwa's equal-wall balancer).
 
-tpubwa's other machine modes are not ported on purpose (ROADMAP).
+Over a ``DataParallel`` (``dp``), megaq splits each chunk's reads over
+the replicas and host mode uploads the reads to each; hybrid raises
+(ROADMAP [dist-hybrid]).  tpubwa's other machine modes are not ported
+on purpose (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from ..host.native_smem import smem_collect_batch_native
 from . import _build
+from .counts import bump
 from .occ import DeviceIndex, _kernel_route, _raise_on
 from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
                          index_args, read_lists, rounds12_megaq, run_reads,
@@ -139,7 +143,7 @@ def _seed_strategy_scan(didx: DeviceIndex, qd: torch.Tensor,
         n_hits.data_ptr(), *(x if x is None else x.data_ptr()
                              for x in per_read), dev.index, stream_of(qd))
     _raise_on(rc, "seed_strategy")
-    _seed_strategy_scan.launches += 1
+    bump(_seed_strategy_scan)
     if stats is not None:
         stats.update(zip(("steps", "chain", "longest"), per_read))
     return hits, n_hits
@@ -196,18 +200,61 @@ def _upload(didx: DeviceIndex, reads: np.ndarray, lens: np.ndarray):
         didx.device) for x, t in ((reads, np.uint8), (lens, np.int32)))
 
 
-def _collect_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
-                   ld: torch.Tensor):
-    """Mode megaq on reads already on the device: K2 seeds rounds 1+2 and
-    K3 round 3, and the host merges their rows (``merge_rounds``).  The
-    ``.cpu()`` copies synchronise with the launches.  Returns (flat,
-    frid)."""
+def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
+                  ld: torch.Tensor):
+    """K2's rounds 1+2 and K3's round 3 on reads already on the device,
+    copied to the host (the copies synchronise with the launches):
+    (rows12, rids12, round3), round3 (hits, n_hits) or () where
+    max_mem_intv is 0."""
     rows12, rids12 = rounds12_megaq(opt, didx, qd, ld)
     round3 = ()
     if opt.max_mem_intv > 0:
         round3 = tuple(x.cpu() for x in _seed_strategy_scan(
             didx, qd, ld, opt.min_seed_len, opt.max_mem_intv))
-    return merge_rounds(rows12.cpu(), rids12.cpu(), *round3)
+    return rows12.cpu(), rids12.cpu(), round3
+
+
+def _collect_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
+                   ld: torch.Tensor):
+    """Mode megaq on reads already on the device: K2 seeds rounds 1+2 and
+    K3 round 3, and the host merges their rows (``merge_rounds``).
+    Returns (flat, frid)."""
+    rows12, rids12, round3 = _megaq_rounds(opt, didx, qd, ld)
+    return merge_rounds(rows12, rids12, *round3)
+
+
+def _collect_megaq_dp(opt, didxs, reads: np.ndarray, lens: np.ndarray,
+                      dp):
+    """Mode megaq over ``dp``'s replicas (tpubwa/device/smem.py:634-640:
+    the reads replicated, the lanes sharded): each replica uploads the
+    whole chunk and seeds its part [lo, hi) of the reads through K2 and
+    K3; its read ids get + lo, and its round-3 hits follow the parts
+    before it, so that ``merge_rounds`` runs once, on what one device
+    would have seeded.  Returns (flat, frid, [qd a replica])."""
+    def part(i, bounds):
+        lo, hi = bounds
+        qd, ld = _upload(didxs[i], reads, lens)
+        if hi == lo:
+            return qd, None
+        dp.note(i, "reads", hi - lo)
+        return qd, (lo, _megaq_rounds(opt, didxs[i], qd[lo:hi], ld[lo:hi]))
+
+    out = dp.map(part, dp.split(len(lens)))
+    rows, rids, hits, n_hits = [], [], [], []
+    for _, got in out:
+        if got is None:
+            continue
+        lo, (rows12, rids12, round3) = got
+        rows.append(np.asarray(rows12).reshape(-1, 5))
+        rids.append(np.asarray(rids12) + lo)
+        if round3:
+            hits.append(np.asarray(round3[0]))
+            n_hits.append(np.asarray(round3[1]))
+    if not rows:                 # a chunk of no reads
+        rows, rids = [np.zeros((0, 5), np.int64)], [np.zeros(0, np.int64)]
+    round3 = (np.concatenate(hits), np.concatenate(n_hits)) if hits else ()
+    return (*merge_rounds(np.concatenate(rows), np.concatenate(rids),
+                          *round3), [qd for qd, _ in out])
 
 
 @dataclass
@@ -297,9 +344,9 @@ def _collect_hybrid(opt, didx: DeviceIndex, reads: np.ndarray,
             np.concatenate([dfrid, host6[:, 5] + k]), qd)
 
 
-def collect_intv_device(opt, didx: DeviceIndex, reads: np.ndarray,
-                        lens: np.ndarray, fmi, mode: str = "host",
-                        split: HybridSplit = None):
+def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
+                        fmi, mode: str = "host", split: HybridSplit = None,
+                        dp=None):
     """Full 3-round mem_collect_intv for a packed chunk (uint8 reads
     [B, L], int32 lens [B]).  Returns (flat int64 [n, 5] rows (x0, x1,
     size, qb, qe), frid int64 [n] read ids, qd uint8 [B, L] on the
@@ -307,9 +354,18 @@ def collect_intv_device(opt, didx: DeviceIndex, reads: np.ndarray,
     ref.smem.collect_intv contract per read.  ``mode``: 'host' (the
     native seeder on the host), 'megaq' (K2 and K3 on the index's
     device) or 'hybrid' (a share of each, ``split`` the caller's
-    balancer; without one, a new ``HybridSplit.from_env()``).  SA
-    positions are left to the caller."""
+    balancer; without one, a new ``HybridSplit.from_env()``).  With a
+    ``dp`` (``dist.sharding.DataParallel``), ``didx`` is the list of its
+    replicas' indexes, megaq splits the reads over them, and ``qd`` is a
+    list, the chunk's reads on each replica.  SA positions are left to
+    the caller."""
+    if dp is not None and mode == "hybrid":
+        raise NotImplementedError(
+            "seed mode 'hybrid' over a DataParallel is not ported yet "
+            "(ROADMAP Queue 1 [dist-hybrid]); use 'megaq' or 'host'")
     if mode == "megaq":
+        if dp is not None:
+            return _collect_megaq_dp(opt, didx, reads, lens, dp)
         qd, ld = _upload(didx, reads, lens)
         return (*_collect_megaq(opt, didx, qd, ld), qd)
     if mode == "hybrid":
@@ -324,4 +380,7 @@ def collect_intv_device(opt, didx: DeviceIndex, reads: np.ndarray,
         raise NotImplementedError(
             "the native seeder (tpubwa_torch/native/smem.cpp) is "
             "unavailable; seed mode 'megaq' seeds without it")
+    if dp is not None:
+        return rows6[:, :5], rows6[:, 5], dp.replicate(
+            np.ascontiguousarray(reads, dtype=np.uint8))
     return _package_rows(rows6[:, :5], rows6[:, 5], reads, didx.device)

@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from . import _build
+from .counts import bump
 from .occ import (DeviceIndex, I64, _kernel_route, _raise_on,
                   bwt_extend_plain, set_intv)
 
@@ -389,7 +390,7 @@ def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
             _, shape = k2_shape(lib, idt == I64, L, dev.index)
             check_k2_len(L, idt, shape["max_len"])
         _raise_on(rc, "smem_rounds12")
-        rounds12_megaq.launches += 1
+        bump(rounds12_megaq)
         return rows, counts, steps, chain
 
     return collect12(launch, B, slots, dev, stats=stats)
