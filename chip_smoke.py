@@ -127,11 +127,16 @@ Phases, one output line each (a failing phase raises, exit != 0):
      runs; then the extension path driven once with the counts at 0;
  5c. phase 5's 2 x 8,192 pairs through the port's aligner on cuda with
      TPUBWA_SEED_MODE=megaq (as `mem` runs it): every seeding row from
-     K2 and K3 (csrc/smem.cu), with the counts at 0 just before the run.
-     Its SAM must equal phase 5's byte for byte.  Reads/s and the
-     seeding stage's wall beside phase 5's, the reads that took K2's
-     second launch, and each mode's device busy share over a profiled
-     pass of the first batch;
+     K2 and K3 (csrc/smem.cu), and every SA position from K-sa's marked
+     walk on ranks built on the card inside the seeding stage (K-sa
+     once a chunk), with the counts at 0 just before the run.  Its SAM
+     must equal phase 5's byte for byte, and the first chunk's fused
+     (cnt, pos) the native walk's on the same rows; K-sa alone on those
+     ranks in interleaved passes, beside its plain version and its
+     bound, and the rank build's wall.  Reads/s and the seeding stage's
+     wall beside phase 5's, the reads that took K2's second launch, and
+     each mode's device busy share over a profiled pass of the first
+     batch;
  3h. (after 5c, whose first chunk it uses) K2 and K3 == their plain
      versions (on CPU copies of the index) in every instantiation, K2
      also at one row slot a read (its second launch), with their steps
@@ -152,12 +157,14 @@ Phases, one output line each (a failing phase raises, exit != 0):
      must refuse reads one base past its limit, in the C entry and the
      wrapper; and the global loads of K2's and K3's SASS;
  5d. phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa index: K2 and
-     K3 seed every read and K-sa walks every SA position in one run,
-     with the counts at 0 just before it.  Its SAM must equal phase 5's
-     byte for byte, and K2, K3 and K-sa must each launch.
+     K3 seed every read and K-sa walks every SA position (fused into
+     seeding, once a chunk) in one run, with the counts at 0 just
+     before it.  Its SAM must equal phase 5's byte for byte, and K2, K3
+     and K-sa must each launch.
  5g. 5d through the aligner over a DataParallel([cuda:0, cuda:0]): two
-     replicas of the index on the card, each chunk's reads (K2, K3),
-     SA ranks (K-sa) and extension jobs (K1) split between them, each
+     replicas of the index on the card, each chunk's reads (K2, K3, and
+     K-sa on each replica's own rows, once a chunk) and extension jobs
+     (K1) split between them, each
      replica on a worker thread and a stream of its own; again over
      every card where torch sees more than one.  Its SAM must equal
      phase 5's byte for byte, and K2, K3, K-sa and K1 must each launch
@@ -166,13 +173,23 @@ Phases, one output line each (a failing phase raises, exit != 0):
      reads/s beside phase 5's and 5d's.
  5e. phase 5's 2 x 8,192 pairs with TPUBWA_SEED_MODE=hybrid (tpubwa's
      defaults: share 0.25 at first, the balancer on, floor 64): each
-     chunk's first k reads on K2 and K3 beside the native seeder on the
-     rest, in two passes (16,384-read chunks, then 4,096), each with a
-     new balancer and the counts at 0 just before it.  Each pass's SAM
-     must equal phase 5's byte for byte, K2 and K3 must launch, and every
+     chunk's first k reads on K2 and K3 (their SA on the marked K-sa,
+     once a chunk) beside the native seeder and walk on the rest, in two
+     passes (16,384-read chunks, then 4,096), each with a new balancer
+     and the counts at 0 just before it.  Each pass's SAM must equal
+     phase 5's byte for byte, K2, K3 and K-sa must launch, and every
      chunk of at least k_floor / f reads must be split (0 < k < B); each
      chunk's (B, k, t_dev, t_host, f) and each pass's reads/s and seeding
      stage beside phase 5's and 5c's.
+ 5h. 5e through the aligner over a DataParallel([cuda:0, cuda:0]) with
+     TPUBWA_SEED_MODE=hybrid: each chunk's device share split between
+     the two replicas (K2, K3 and the marked K-sa on each), the chunk on
+     both for K1, one balancer for the aligner; both passes, each with
+     a new balancer and the counts and tallies at 0 just before it.
+     Each pass's SAM must equal phase 5's byte for byte, K2, K3 and
+     K-sa must launch on both replicas, and every chunk of at least
+     k_floor / f reads must be split; each replica's tallies, each
+     chunk's (B, k, t_dev, t_host, f) and reads/s beside 5e's.
  5f. the first 1,024 pairs of phase 5's first batch, one batch, three
      ways: native (the reference), TPUBWA_NO_NATIVE_PLAN=1 (the Python
      planner, its extension waves through dispatch.WaveExtender) and
@@ -193,8 +210,8 @@ with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), the smoke's
 wall, a JSON line of the kernels (launches on each kernel's paths: K1
-in phase 5, 5f and 5g, K-sa in 5b, 5f and 5g, K2 and K3 in 5c, 5e, 5f
-and 5g, the int16 kernel in the
+in phase 5, 5f, 5g and 5h, K-sa in 5b, 5c, 5d, 5e, 5f, 5g and 5h, K2
+and K3 in 5c, 5d, 5e, 5f, 5g and 5h, the int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
 K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
 bounds) and, last,
@@ -2579,10 +2596,11 @@ def busy_share(torch, fn):
 class SeedTimer:
     """The seeding stage's wall: ``pipeline.collect_intv_device`` wrapped,
     each call bracketed by synchronize, summed over the calls made inside
-    the ``with``."""
+    the ``with``; ``first`` keeps the first call's output (rows, read
+    ids, reads and, in megaq and hybrid, the fused SA segments)."""
 
     def __init__(self, torch):
-        self.torch, self.s, self.calls = torch, 0.0, 0
+        self.torch, self.s, self.calls, self.first = torch, 0.0, 0, None
 
     def __enter__(self):
         from tpubwa_torch.device import pipeline as dp
@@ -2595,6 +2613,8 @@ class SeedTimer:
             self.torch.cuda.synchronize()
             self.s += time.perf_counter() - t
             self.calls += 1
+            if self.first is None:
+                self.first = out
             return out
 
         dp.collect_intv_device = timed
@@ -2604,14 +2624,15 @@ class SeedTimer:
         self.dp.collect_intv_device = self.real
 
 
-def seed_aligner(opt, fmi, mode):
-    """The port's aligner on the card as `mem` makes it with
-    TPUBWA_SEED_MODE=``mode`` (the mode is read when it is made)."""
+def seed_aligner(opt, fmi, mode, dp=None):
+    """The port's aligner on the card (over ``dp``'s replicas where one
+    is given) as `mem` makes it with TPUBWA_SEED_MODE=``mode`` (the mode
+    is read when it is made)."""
     from tpubwa_torch.device.pipeline import make_device_aligner
     old = os.environ.get("TPUBWA_SEED_MODE")
     os.environ["TPUBWA_SEED_MODE"] = mode
     try:
-        aligner = make_device_aligner(opt, fmi, device=DEV)
+        aligner = make_device_aligner(opt, fmi, device=DEV, dp=dp)
     finally:
         if old is None:
             del os.environ["TPUBWA_SEED_MODE"]
@@ -2625,14 +2646,20 @@ def seed_aligner(opt, fmi, mode):
 def phase_megaq(torch, np, main):
     """[5c megaq]: phase 5's 2 x 8,192 pairs through the port's aligner on
     cuda with TPUBWA_SEED_MODE=megaq: every seeding row comes from K2 and
-    K3 (csrc/smem.cu).  Its SAM must equal phase 5's byte for byte; K2
-    and K3 must launch, with the counts at 0 just before the run.
-    Reads/s and the seeding stage's wall beside phase 5's, the reads that
-    took K2's second launch, and each mode's device busy share over a
-    profiled pass of the first batch.  Returns the facts, with the first
-    chunk's K2 inputs (``chunk``: opt, didx, qd, ld) for phase 3h."""
+    K3 (csrc/smem.cu), and every SA position from K-sa's marked walk on
+    ranks built on the card, fused into the seeding stage.  Its SAM must
+    equal phase 5's byte for byte; K2, K3 and the marked K-sa must
+    launch, K-sa once a chunk, with the counts at 0 just before the run;
+    the first chunk's fused (cnt, pos) must equal the native walk's
+    (``_sa_positions``) on the same rows.  Then K-sa on those ranks:
+    alone in interleaved passes, its plain version, its bound, and the
+    rank build's wall.  Reads/s and the seeding stage's wall beside phase
+    5's, the reads that took K2's second launch, and each mode's device
+    busy share over a profiled pass of the first batch.  Returns the
+    facts, with the first chunk's K2 inputs (``chunk``: opt, didx, qd,
+    ld) for phase 3h."""
     from tpubwa_torch.device import extend_kernel as ek
-    from tpubwa_torch.device import smem, smem_fused
+    from tpubwa_torch.device import occ, smem, smem_fused
     from tpubwa_torch.host.pipeline import process_batches
     from tpubwa_torch.sim import simulate_pe
     fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
@@ -2656,6 +2683,7 @@ def phase_megaq(torch, np, main):
     try:
         smem_fused.rounds12_megaq.launches = 0
         smem._seed_strategy_scan.launches = 0
+        occ.sa_lookup.launches = occ.sa_lookup.marked_launches = 0
         ek.extend_batch.launches = 0
         torch.cuda.synchronize()
         with SeedTimer(torch) as seeding:
@@ -2666,15 +2694,21 @@ def phase_megaq(torch, np, main):
             dt = time.perf_counter() - t0
         launches = {"smem_rounds12": smem_fused.rounds12_megaq.launches,
                     "seed_strategy": smem._seed_strategy_scan.launches,
+                    "sa_lookup": occ.sa_lookup.launches,
+                    "sa_lookup_marked": occ.sa_lookup.marked_launches,
                     "ksw_extend": ek.extend_batch.launches}
     finally:
         smem.rounds12_megaq = k2
-    if not launches["smem_rounds12"] or not launches["seed_strategy"]:
-        raise AssertionError(f"5c launched {launches}")
+    if (not launches["smem_rounds12"] or not launches["seed_strategy"]
+            or launches["sa_lookup"] != seeding.calls
+            or launches["sa_lookup_marked"] != seeding.calls):
+        raise AssertionError(f"5c launched {launches} in {seeding.calls} "
+                             "chunks")
     if lines != main["sam"]:
         raise AssertionError(f"5c SAM != phase 5's ({len(lines)} vs "
                              f"{len(main['sam'])} lines, first diff "
                              f"{sam_diff(lines, main['sam'])})")
+    fused = fused_walk_checks(torch, np, aligner, seeding.first)
     # each mode's busy share over one profiled pass of the first batch
     busy = {}
     for name, fn in (("phase5_host", main["aligner"]), ("megaq", aligner)):
@@ -2694,18 +2728,68 @@ def phase_megaq(torch, np, main):
              "k2_second_launch_reads": seen["second"],
              "k2_second_launch_share": round(seen["second"] / seen["reads"],
                                              6),
-             "first_batch_pass": busy}
+             "first_batch_pass": busy, "fused_sa": fused}
     print("[5c megaq] " + json.dumps(facts), flush=True)
     return dict(facts, chunk=seen["calls"][0])
+
+
+def fused_walk_checks(torch, np, aligner, first):
+    """5c's first chunk: its fused SA segments (cnt, pos) == the native
+    walk's (``aligner._sa_positions``) on the same rows; then the chunk's
+    ranks built again on the card (``smem.sa_ranks``, its wall by the
+    host clock with the card synchronised, mean of 10), K-sa's marked
+    walk on them alone in interleaved passes (its output == the fused
+    positions), its plain version once (== the kernel) and the walk's
+    bound (``walk_case``: the bytes of the distinct sectors it reads)."""
+    from tpubwa_torch.device import occ, smem
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    flat, _, _, sa = first
+    if sa is None:
+        raise AssertionError("5c's seeding stage gave no SA positions")
+    cnt, pos = sa
+    want_pos, want_cnt = aligner._sa_positions((flat, None))
+    if not (np.array_equal(cnt, want_cnt) and np.array_equal(pos, want_pos)):
+        raise AssertionError(f"5c's fused SA != the native walk's: counts "
+                             f"{int((cnt != want_cnt).sum())} rows apart")
+    didx = aligner.didx
+    rows = torch.from_numpy(flat).to(DEV).to(didx.idt)
+    keep = torch.ones(len(flat), dtype=torch.bool, device=DEV)
+    times = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got_cnt, ranks = smem.sa_ranks(didx, rows, keep, aligner.opt.max_occ)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    if not np.array_equal(got_cnt.cpu().numpy(), cnt):
+        raise AssertionError("sa_ranks' counts != the fused ones")
+    ksa = ksa_alone(torch, didx, ranks)
+    ms = interleaved_min({"ksa": ksa}, 20, 4, torch.device(DEV))["ksa"]
+    if not np.array_equal(ksa.buffers[1].cpu().numpy().astype(np.int64),
+                          pos):
+        raise AssertionError("K-sa alone != the fused positions")
+    stats = {}
+    plain, plain_ms = timed_once(
+        torch, lambda: occ.sa_lookup_plain(didx, ranks, stats=stats))
+    err = int((plain.long() - ksa.buffers[1].long()).abs().max())
+    if err:
+        raise AssertionError(f"K-sa != plain on 5c's ranks by {err}")
+    case = walk_case(torch, np, didx, ranks, ms, plain_ms, stats)
+    bound_ms, _, _ = bytes_bound(case)
+    return {"rows": len(flat), "ranks": len(ranks), "marked": True,
+            "equal_to_native_walk": True,
+            "rank_build_ms": round(1e3 * float(np.mean(times[1:])), 4),
+            "ksa": dict(case, bound_ms=round(bound_ms, 6), max_abs_err=err)}
 
 
 def phase_megaq_stock(torch, np, main, stock):
     """[5d megaq-stock]: phase 5's 2 x 8,192 pairs through the port's
     aligner on cuda with TPUBWA_SEED_MODE=megaq on 5b's stock-bwa index
     (``stock``, no text-position marks): K2 and K3 seed every read and
-    K-sa walks every SA position, all three on one run.  Its SAM must
-    equal phase 5's byte for byte; K2, K3 and K-sa must each launch, with
-    the counts at 0 just before the run."""
+    K-sa walks every SA position, fused into the seeding stage, all
+    three on one run.  Its SAM must equal phase 5's byte for byte; K2
+    and K3 must launch and K-sa once a chunk, with the counts at 0 just
+    before the run."""
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.device import occ, smem, smem_fused
     from tpubwa_torch.host.pipeline import process_batches
@@ -2731,9 +2815,10 @@ def phase_megaq_stock(torch, np, main, stock):
                 "sa_lookup": occ.sa_lookup.launches,
                 "bwt_extend": occ.bwt_extend.launches,
                 "ksw_extend": ek.extend_batch.launches}
-    if not all(launches[k] for k in ("smem_rounds12", "seed_strategy",
-                                     "sa_lookup")):
-        raise AssertionError(f"5d launched {launches}")
+    if (not all(launches[k] for k in ("smem_rounds12", "seed_strategy"))
+            or launches["sa_lookup"] != seeding.calls):
+        raise AssertionError(f"5d launched {launches} in {seeding.calls} "
+                             "chunks")
     if lines != main["sam"]:
         raise AssertionError(f"5d SAM != phase 5's ({len(lines)} vs "
                              f"{len(main['sam'])} lines, first diff "
@@ -2758,10 +2843,11 @@ def phase_megaq_dp(torch, np, main, stock, d5):
     """[5g dp]: 5d (phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa
     index) through the port's aligner over ``DataParallel([cuda:0,
     cuda:0])`` (two replicas of the index on the one card, each chunk's
-    reads, ranks and extension jobs split between them), and again over
-    every card where there are more.  Each run's SAM must equal phase
-    5's byte for byte, and K2, K3, K-sa and K1 must each launch on every
-    replica, by the replicas' tallies and by the locked counts, all at 0
+    reads and extension jobs split between them, and each replica's SA
+    walk fused into its seeding), and again over every card where there
+    are more.  Each run's SAM must equal phase 5's byte for byte, and
+    K2, K3, K-sa and K1 must each launch on every replica, K-sa once a
+    chunk, by the replicas' tallies and by the locked counts, all at 0
     just before the run.  Each replica's reads, ranks and jobs, and
     reads/s beside phase 5's and 5d's.  Returns the launches summed over
     the runs, by the kernels line's names."""
@@ -2811,6 +2897,11 @@ def phase_megaq_dp(torch, np, main, stock, d5):
                 for name, n in r["launches"].items() if not n]
         if idle:
             raise AssertionError(f"5g {devices}: no launch of {idle}")
+        chunks = -(-max(len(b) for b in batches) // aligner.chunk_reads)
+        walks = [r["launches"]["sa_lookup"] for r in replicas]
+        if walks != [len(batches) * chunks] * len(replicas):
+            raise AssertionError(f"5g {devices}: K-sa launched {walks} a "
+                                 f"replica, not one a chunk")
         for name in DP_KERNELS:
             if launches[name] != sum(r["launches"][name] for r in replicas):
                 raise AssertionError(f"5g: {name} counted {launches[name]}"
@@ -2841,41 +2932,42 @@ def sam_diff(lines, want):
     return next(i for i, (a, b) in enumerate(zip(lines, want)) if a != b)
 
 
-def phase_hybrid(torch, np, main, megaq):
-    """[5e hybrid]: phase 5's 2 x 8,192 pairs through the port's aligner
-    on cuda with TPUBWA_SEED_MODE=hybrid and the TPUBWA_HYBRID_* defaults
-    (as `mem` runs it): each chunk's first k reads on K2 and K3 beside
-    the native seeder on the rest, k from the balancer.  Pass 1 at the
-    aligner's chunk size (16,384 reads), pass 2 at 4,096 (eight chunks
-    for the balancer to move over), each with a new balancer (after the
-    warm-up, as a `mem` run starts) and the counts at 0 just before it.
-    Each pass's SAM must equal phase 5's byte for byte, K2 and K3 must
-    launch, and every chunk of at least k_floor / f reads must be seeded
-    on both sides (0 < k < B).  Prints each chunk's (B, k, t_dev, t_host,
-    f), reads/s and the seeding stage's wall beside phase 5's and 5c's.
-    Returns the facts, with both passes' launches summed."""
-    from tpubwa_torch.device import smem, smem_fused
+HYBRID_KERNELS = {"smem_rounds12": "rounds12_megaq.launches",
+                  "seed_strategy": "_seed_strategy_scan.launches",
+                  "sa_lookup": "sa_lookup.launches",
+                  "sa_lookup_marked": "sa_lookup.marked_launches"}
+
+
+def hybrid_passes(torch, np, main, aligner, tag, dp=None):
+    """Phase 5's batches through ``aligner`` (seed mode hybrid) in two
+    passes, at the aligner's chunk size (16,384 reads) and at 4,096
+    (eight chunks for the balancer to move over), each with a new
+    balancer (after the warm-up, as a `mem` run starts) and the counts
+    (and ``dp``'s tallies) at 0 just before it.  Each pass's SAM must
+    equal phase 5's byte for byte, K2, K3 and the marked K-sa must
+    launch (on every replica of ``dp``), K-sa once a split chunk, and
+    every chunk of at least k_floor / f reads must be split (0 < k <
+    B).  Returns {pass: facts} and the launches summed."""
+    from tpubwa_torch.device import occ, smem, smem_fused
     from tpubwa_torch.device.smem import HybridSplit
     from tpubwa_torch.host.pipeline import process_batches
-    from tpubwa_torch.sim import simulate_pe
     fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
-    aligner = seed_aligner(opt, fmi, "hybrid")
-    warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
-    for _ in process_batches(opt, fmi, iter([warm]), 0, align_fn=aligner):
-        pass
+    counters = {"smem_rounds12": (smem_fused.rounds12_megaq, "launches"),
+                "seed_strategy": (smem._seed_strategy_scan, "launches"),
+                "sa_lookup": (occ.sa_lookup, "launches"),
+                "sa_lookup_marked": (occ.sa_lookup, "marked_launches")}
     n_reads = sum(len(b) for b in batches)
-    launches = {"smem_rounds12": 0, "seed_strategy": 0}
-    facts = {"reads": n_reads,
-             "phase5_reads_per_s": round(main["reads_per_s"], 1),
-             "phase5_seeding_s": round(main["seeding_s"], 3),
-             "megaq_5c_reads_per_s": megaq["reads_per_s"],
-             "megaq_5c_seeding_s": megaq["seeding_s"]}
+    launches, out = dict.fromkeys(counters, 0), {}
     for name, chunk_reads in (("pass1", aligner.chunk_reads),
                               ("pass2", 4096)):
         aligner.chunk_reads = chunk_reads
         aligner.hybrid = split = HybridSplit.from_env()
-        smem_fused.rounds12_megaq.launches = 0
-        smem._seed_strategy_scan.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        if dp is not None:
+            dp.synchronize()
+            for t in dp.tally:
+                t.clear()
         torch.cuda.synchronize()
         with SeedTimer(torch) as seeding:
             t0 = time.perf_counter()
@@ -2883,26 +2975,28 @@ def phase_hybrid(torch, np, main, megaq):
                 opt, fmi, iter(batches), 0, align_fn=aligner) for l in ls]
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-        got = {"smem_rounds12": smem_fused.rounds12_megaq.launches,
-               "seed_strategy": smem._seed_strategy_scan.launches}
-        if not all(got.values()):
-            raise AssertionError(f"5e {name} launched {got}")
-        if lines != main["sam"]:
-            raise AssertionError(
-                f"5e {name} SAM != phase 5's ({len(lines)} vs "
-                f"{len(main['sam'])} lines, first diff "
-                f"{sam_diff(lines, main['sam'])})")
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         chunks = [dict(zip(("B", "k", "t_dev", "t_host", "f"), h))
                   for h in split.history]
+        n_split = sum(0 < c["k"] < c["B"] for c in chunks)
+        if (not all(got.values()) or got["sa_lookup"] != got[
+                "sa_lookup_marked"] or got["sa_lookup"] < n_split):
+            raise AssertionError(f"{tag} {name} launched {got} in "
+                                 f"{n_split} split chunks")
+        if lines != main["sam"]:
+            raise AssertionError(
+                f"{tag} {name} SAM != phase 5's ({len(lines)} vs "
+                f"{len(main['sam'])} lines, first diff "
+                f"{sam_diff(lines, main['sam'])})")
         if len(chunks) != seeding.calls:
-            raise AssertionError(f"5e {name}: {seeding.calls} chunks "
+            raise AssertionError(f"{tag} {name}: {seeding.calls} chunks "
                                  f"seeded, {len(chunks)} in the history")
         for c in chunks:
             if c["B"] * c["f"] >= split.k_floor and not 0 < c["k"] < c["B"]:
-                raise AssertionError(f"5e {name}: a chunk not split: {c}")
+                raise AssertionError(f"{tag} {name}: a chunk not split: {c}")
         for k in launches:
             launches[k] += got[k]
-        facts[name] = {
+        out[name] = {
             "chunk_reads": chunk_reads, "seconds": round(dt, 3),
             "reads_per_s": round(n_reads / dt, 1),
             "seeding_s": round(seeding.s, 3), "sam_lines": len(lines),
@@ -2910,9 +3004,83 @@ def phase_hybrid(torch, np, main, megaq):
             "k_floor": split.k_floor, "f_after": round(split.f, 6),
             "chunks": [{k: round(v, 6) if k in ("t_dev", "t_host", "f")
                         else v for k, v in c.items()} for c in chunks]}
-    facts["launches"] = launches
+        if dp is not None:
+            replicas = [{"device": str(d), **{k: t.get(k, 0) for k in (
+                "reads", "ranks", "jobs")}, "launches": {
+                    n: t.get(key, 0) for n, key in HYBRID_KERNELS.items()}}
+                for d, t in zip(dp.devices, dp.tally)]
+            idle = [(r["device"], n) for r in replicas
+                    for n, c in r["launches"].items() if not c]
+            if idle:
+                raise AssertionError(f"{tag} {name}: no launch of {idle}")
+            out[name]["replicas"] = replicas
+    return out, launches
+
+
+def phase_hybrid(torch, np, main, megaq):
+    """[5e hybrid]: phase 5's 2 x 8,192 pairs through the port's aligner
+    on cuda with TPUBWA_SEED_MODE=hybrid and the TPUBWA_HYBRID_* defaults
+    (as `mem` runs it): each chunk's first k reads on K2 and K3, their
+    SA on K-sa's marked walk, beside the native seeder and walk on the
+    rest, k from the balancer; both passes of ``hybrid_passes``.  Prints
+    each chunk's (B, k, t_dev, t_host, f), reads/s and the seeding
+    stage's wall beside phase 5's and 5c's.  Returns the facts, with
+    both passes' launches summed."""
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    fmi, opt = main["fmi"], main["opt"]
+    aligner = seed_aligner(opt, fmi, "hybrid")
+    warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
+    for _ in process_batches(opt, fmi, iter([warm]), 0, align_fn=aligner):
+        pass
+    passes, launches = hybrid_passes(torch, np, main, aligner, "5e")
+    facts = {"reads": sum(len(b) for b in main["batches"]),
+             "phase5_reads_per_s": round(main["reads_per_s"], 1),
+             "phase5_seeding_s": round(main["seeding_s"], 3),
+             "megaq_5c_reads_per_s": megaq["reads_per_s"],
+             "megaq_5c_seeding_s": megaq["seeding_s"], **passes,
+             "launches": launches}
     print("[5e hybrid] " + json.dumps(facts), flush=True)
     return facts
+
+
+def phase_hybrid_dp(torch, np, main, hybrid):
+    """[5h hybrid-dp]: 5e through the port's aligner over
+    ``DataParallel([cuda:0, cuda:0])`` with TPUBWA_SEED_MODE=hybrid: each
+    chunk's device share split between the two replicas of the index on
+    the one card (K2, K3 and the marked K-sa on each, on its own worker
+    thread and stream), the whole chunk uploaded once to each for K1,
+    the native seeder and walk on the rest; one balancer for the
+    aligner, its device wall the slower replica's.  Both passes of
+    ``hybrid_passes``, K2, K3 and K-sa launching on both replicas.
+    Prints each replica's reads, ranks, jobs and launches, each chunk's
+    (B, k, t_dev, t_host, f) and reads/s beside 5e's.  Returns the
+    launches summed, with K1's."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.dist.sharding import DataParallel
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    fmi, opt = main["fmi"], main["opt"]
+    dp = DataParallel.over(["cuda:0", "cuda:0"])
+    try:
+        aligner = seed_aligner(opt, fmi, "hybrid", dp=dp)
+        warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
+        for _ in process_batches(opt, fmi, iter([warm]), 0,
+                                 align_fn=aligner):
+            pass
+        ek.extend_batch.launches = 0
+        passes, launches = hybrid_passes(torch, np, main, aligner, "5h",
+                                         dp=dp)
+        launches["ksw_extend"] = ek.extend_batch.launches
+    finally:
+        dp.close()
+    print("[5h hybrid-dp] " + json.dumps({
+        "devices": [str(d) for d in dp.devices], "index": "phase 5's "
+        "(marked)", "reads": sum(len(b) for b in main["batches"]),
+        "5e_reads_per_s": [hybrid[p]["reads_per_s"]
+                           for p in ("pass1", "pass2")],
+        **passes, "launches": launches}), flush=True)
+    return launches
 
 
 # pairs of phase 5's first batch that 5f aligns: at 2,048 the Python path
@@ -3437,6 +3605,7 @@ def main() -> int:
     d5 = phase_megaq_stock(torch, np, main_path, stock)
     dp_launches = phase_megaq_dp(torch, np, main_path, stock, d5)
     hybrid = phase_hybrid(torch, np, main_path, megaq)
+    hybrid_dp = phase_hybrid_dp(torch, np, main_path, hybrid)
     no_native = phase_no_native(torch, np, main_path)["launches"]
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
@@ -3446,7 +3615,8 @@ def main() -> int:
     rates = card_rates(torch)
     kernels, sass, disasm = [], {}, {}
     results = {"ksw_extend": (launches + no_native["ksw_extend"]
-                              + dp_launches["ksw_extend"], max_err,
+                              + dp_launches["ksw_extend"]
+                              + hybrid_dp["ksw_extend"], max_err,
                               main_case),
                "ksw_extend16": (launches16, err16, case16),
                "extend_real": (launches_real, err_real, case_real),
@@ -3477,8 +3647,9 @@ def main() -> int:
     # the index their run reads, from the plain version's reads)
     for name, replaces, n, case in (
             ("sa_lookup", "tpubwa/device/occ.py:303",
-             sa_launches + no_native["sa_lookup"]
-             + dp_launches["sa_lookup"], sa_case),
+             sa_launches + sum(x["sa_lookup"] for x in (
+                 megaq["launches"], d5["launches"], hybrid["launches"],
+                 hybrid_dp, no_native, dp_launches)), sa_case),
             ("bwt_extend", "tpubwa/device/occ.py:202", ext_launches,
              ext_case)):
         bound_ms, bound_by, parts = bytes_bound(case)
@@ -3503,8 +3674,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
-            "launches": (megaq["launches"][name] + hybrid["launches"][name]
-                         + no_native[name] + dp_launches[name]),
+            "launches": sum(x[name] for x in (
+                megaq["launches"], d5["launches"], hybrid["launches"],
+                hybrid_dp, no_native, dp_launches)),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})

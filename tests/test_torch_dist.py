@@ -2,11 +2,15 @@
 counterpart of tpubwa's mesh mode): the split covers the rows exactly,
 the index replicas are equal, and the aligner over DataParallel([cpu]*3)
 gives the regions and SAM of the port on one device and of tpubwa's
-aligner (mirroring tests/test_multichip.py), in seed modes megaq and
-host, on a marked and on a stock-bwa index; the extension waves split
-over replicas equal the call without them.  Tolerance 0."""
+aligner (mirroring tests/test_multichip.py), in seed modes megaq, host
+and hybrid, on a marked and on a stock-bwa index; megaq's SA walk,
+fused into seeding, and hybrid's device share split over the replicas
+equal one device's, and the balancer takes the slowest replica's wall;
+the extension waves split over replicas equal the call without them.
+Tolerance 0."""
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from tpubwa_torch.device import extend_fused as tf
 from tpubwa_torch.device import pipeline as tp
 from tpubwa_torch.device.extend_kernel import extend_batch_plain
 from tpubwa_torch.device.occ import FM_ARRAYS
+from tpubwa_torch.device.smem import HybridSplit
 from tpubwa_torch.dist.dryrun import dryrun_multidevice
 from tpubwa_torch.dist.sharding import DataParallel
 from tpubwa_torch.host.native_emit import FlatRegs
@@ -230,24 +235,18 @@ def test_aligner_over_replicas_equals_one_device_and_tpubwa(setup, mode,
                                                     align_fn=jax)
     assert len(sam) >= len(reads)
     # every replica extended jobs; in megaq every replica seeded reads
+    # and walked its rows' ranks (the SA walk fused into seeding, the
+    # marked walk; a part of padding rows has none); host mode's SA walk
+    # is the native one: no rank went down
     assert all(t.get("jobs", 0) > 0 for t in dp.tally)
     assert all((t.get("reads", 0) > 0) == (mode == "megaq")
                for t in dp.tally)
-    # the marked index's SA walk is the native one: no rank went down
-    assert not any(t.get("ranks") for t in dp.tally)
+    assert (sum(t.get("ranks", 0) for t in dp.tally) > 0) == (mode == "megaq")
 
 
-def test_stock_bwa_index_splits_the_sa_walk(setup):
-    """On the stock-bwa index (no text-position marks) the SA walk is
-    occ.sa_lookup, split over the replicas (K-sa on each card): SAM
-    equal to the port on one device on the marked index, and to
-    tpubwa's on the stock one."""
-    codes, indexes = setup
-    sfmi, sjfmi = indexes["bwa"]
-    reads, jreads = _reads(_pe_records(codes, 40,
-                                       np.random.default_rng(3)))
-    opt, jopt = MemOpt(flag=MEM_F_PE), tpubwa.opts.MemOpt(flag=MEM_F_PE)
-    dp = DataParallel(CPU3)
+def _sa_spy(monkeypatch):
+    """The SA walks' calls of occ.sa_lookup, (device, ranks) each: the
+    classic stage's (pipeline) and the one fused into seeding (smem)."""
     walked = []
     real = tp.sa_lookup
 
@@ -255,36 +254,202 @@ def test_stock_bwa_index_splits_the_sa_walk(setup):
         walked.append((str(didx.device), len(ranks)))
         return real(didx, ranks)
 
-    tp.sa_lookup = spy
-    try:
+    monkeypatch.setattr(tp, "sa_lookup", spy)
+    monkeypatch.setattr(smem, "sa_lookup", spy)
+    return walked
+
+
+def test_stock_bwa_index_splits_the_sa_walk(setup, monkeypatch):
+    """On the stock-bwa index (no text-position marks) the SA walk is
+    occ.sa_lookup, split over the replicas (K-sa on each card), in megaq
+    fused into each replica's seeding: one walk a replica, of its own
+    rows' ranks.  SAM equal to the port on one device on the marked
+    index, and to tpubwa's on the stock one."""
+    codes, indexes = setup
+    sfmi, sjfmi = indexes["bwa"]
+    reads, jreads = _reads(_pe_records(codes, 40,
+                                       np.random.default_rng(3)))
+    opt, jopt = MemOpt(flag=MEM_F_PE), tpubwa.opts.MemOpt(flag=MEM_F_PE)
+    dp = DataParallel(CPU3)
+    with monkeypatch.context() as mp:
+        walked = _sa_spy(mp)
         multi = tp.make_device_aligner(opt, sfmi, dp=dp)
         sam = process_seqs(opt, sfmi, reads, 0, align_fn=multi)
-    finally:
-        tp.sa_lookup = real
     fmi = indexes["npz"][0]
     single = tp.make_device_aligner(opt, fmi, device="cpu")
     assert sam == process_seqs(opt, fmi, reads, 0, align_fn=single)
     jax = jax_aligner(jopt, sjfmi, platform="cpu")
     assert sam == tpubwa.host.pipeline.process_seqs(jopt, sjfmi, jreads,
                                                     0, align_fn=jax)
+    # one walk a replica with rows (the chunk's padding rows have none)
+    ranks = [t.get("ranks", 0) for t in dp.tally]
+    assert sum(ranks) > 0
+    assert sorted(n for _, n in walked) == sorted(r for r in ranks if r)
+
+
+def test_stock_bwa_index_splits_the_classic_sa_walk(setup, monkeypatch):
+    """Host mode's SA stage on the stock-bwa index: the chunk's ranks
+    split evenly over the replicas by DataParallel.map_rows."""
+    codes, indexes = setup
+    sfmi = indexes["bwa"][0]
+    reads, _ = _reads(_pe_records(codes, 40, np.random.default_rng(3)))
+    opt = MemOpt(flag=MEM_F_PE)
+    dp = DataParallel(CPU3)
+    multi = tp.make_device_aligner(opt, sfmi, dp=dp)
+    multi.seed_mode = "host"
+    with monkeypatch.context() as mp:
+        walked = _sa_spy(mp)
+        got = multi(reads)
+    single = tp.make_device_aligner(opt, sfmi, device="cpu")
+    assert _flat(got) == _flat(single(reads))
     ranks = [t.get("ranks", 0) for t in dp.tally]
     assert all(r > 0 for r in ranks)
     assert sum(ranks) == sum(n for _, n in walked)
     assert max(ranks) - min(ranks) <= len(walked)   # split evenly a call
 
 
-def test_hybrid_over_replicas_raises(setup):
+# ------------------------------------------------ hybrid over replicas
+@pytest.fixture(scope="module")
+def chunk(setup):
+    """48 PE reads of the setup genome and 15 mixed ones, packed into a
+    chunk of 64 (one padding row), with host mode's rows and the classic
+    SA positions, on the marked and the stock-bwa index."""
     codes, indexes = setup
-    fmi, _ = indexes["npz"]
-    reads, _ = _reads(_pe_records(codes, 4, np.random.default_rng(1)))
-    aligner = tp.make_device_aligner(MemOpt(), fmi, dp=DataParallel(CPU3))
-    aligner.seed_mode = "hybrid"
-    with pytest.raises(NotImplementedError, match=r"\[dist-hybrid\]"):
-        aligner(reads)
-    arr, lens = aligner._pack(reads, 32)
-    with pytest.raises(NotImplementedError, match=r"\[dist-hybrid\]"):
-        smem.collect_intv_device(MemOpt(), aligner.didxs, arr, lens, fmi,
-                                 mode="hybrid", dp=aligner.dp)
+    recs = (_pe_records(codes, 24, np.random.default_rng(12))
+            + _mixed_records(codes, np.random.default_rng(5)))[:63]
+    reads, _ = _reads(recs)
+    out = {}
+    for kind, (fmi, _) in indexes.items():
+        one = tp.make_device_aligner(MemOpt(), fmi, device="cpu")
+        arr, lens = one._pack(reads, 64)
+        flat, frid, _ = smem.collect_intv_device(MemOpt(), one.didx, arr,
+                                                 lens, fmi)
+        out[kind] = {"fmi": fmi, "one": one, "arr": arr, "lens": lens,
+                     "host": (flat, frid),
+                     "sa": one._sa_positions((flat, None))}
+    return out
+
+
+def _hybrid(c, k, dp=None, **kw):
+    split = HybridSplit(f=(k + 0.5) / len(c["lens"]), auto=False,
+                        k_floor=1)
+    didx = c["one"].didx if dp is None else dp.replicate_index(c["fmi"])
+    got = smem.collect_intv_device(MemOpt(), didx, c["arr"], c["lens"],
+                                   c["fmi"], mode="hybrid", split=split,
+                                   dp=dp, **kw)
+    assert [h[:2] for h in split.history] == [(len(c["lens"]), k)]
+    return got
+
+
+@pytest.mark.parametrize("kind", ["npz", "bwa"])
+@pytest.mark.parametrize("k", [2, 37])
+def test_hybrid_over_replicas_equals_host_and_one_device(chunk, monkeypatch,
+                                                        kind, k):
+    """Hybrid over DataParallel([cpu]*3) with k pinned: k = 2 gives one
+    replica no device read (it seeds and walks nothing), 37 puts the seam
+    inside the chunk's real reads.  Rows equal host mode's and one-device
+    hybrid's; the SA segments equal one-device hybrid's (the host share
+    -1 on the stock index), and merged by the aligner the classic
+    positions; every replica holds the whole chunk."""
+    c = chunk[kind]
+    dp = DataParallel(CPU3)
+    with monkeypatch.context() as mp:
+        walked = _sa_spy(mp)
+        flat, frid, qd, sa = _hybrid(c, k, dp, return_sa=True)
+    assert np.array_equal(flat, c["host"][0])
+    assert np.array_equal(frid, c["host"][1])
+    assert len(qd) == 3 and all(torch.equal(x, torch.from_numpy(c["arr"]))
+                                for x in qd)
+    one = _hybrid(c, k, return_sa=True)
+    assert np.array_equal(one[0], flat) and np.array_equal(one[1], frid)
+    assert np.array_equal(one[3][0], sa[0])
+    assert np.array_equal(one[3][1], sa[1])
+    assert ((sa[0][frid >= k] == -1).all() if kind == "bwa"
+            else (sa[0] >= 0).all())
+    pos, cnt = c["one"]._sa_merge(flat, *sa)
+    assert np.array_equal(cnt, c["sa"][1]) and np.array_equal(pos, c["sa"][0])
+    parts = dp.split(k)
+    assert [t.get("reads", 0) for t in dp.tally] == [hi - lo
+                                                     for lo, hi in parts]
+    walks = sorted(n for _, n in walked)
+    assert sorted(t["ranks"] for t in dp.tally if t.get("ranks")) == walks
+    assert len(walks) == sum(hi > lo for lo, hi in parts)
+
+
+@pytest.mark.parametrize("kind", ["npz", "bwa"])
+def test_megaq_fused_sa_over_replicas_equals_one_device(chunk, kind):
+    """megaq over the replicas with return_sa: each replica's segments,
+    K2's rows' before K3's hits' in replica order, carried through the
+    one merge, equal one device's classic positions (which equal its
+    fused ones, tests/test_torch_safuse.py)."""
+    c = chunk[kind]
+    dp = DataParallel(CPU3)
+    flat, frid, qd, (cnt, pos) = smem.collect_intv_device(
+        MemOpt(), dp.replicate_index(c["fmi"]), c["arr"], c["lens"],
+        c["fmi"], mode="megaq", dp=dp, return_sa=True)
+    assert np.array_equal(flat, c["host"][0])
+    assert np.array_equal(frid, c["host"][1])
+    assert len(qd) == 3
+    assert np.array_equal(cnt, c["sa"][1]) and np.array_equal(pos, c["sa"][0])
+    assert [t.get("reads", 0) for t in dp.tally] == [21, 21, 22]
+    assert sum(t.get("ranks", 0) for t in dp.tally) == len(pos)
+
+
+def test_hybrid_balancer_over_replicas_takes_the_slowest(chunk,
+                                                         monkeypatch):
+    """One update a chunk, t_dev the device share's wall: each replica's
+    part is a stand-in held 0.1 s (replica 0) or 0.3 s (replica 2), side
+    by side, so the wall is at least the slowest one's and less than
+    their sum."""
+    c = chunk["npz"]
+    dp = DataParallel(CPU3)
+    didxs = dp.replicate_index(c["fmi"])
+    hold = {id(didxs[0]): 0.1, id(didxs[2]): 0.3}
+    none = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+
+    def held(opt, didx, *a, **k):
+        time.sleep(hold.get(id(didx), 0.0))
+        return smem.Seeded(np.zeros((0, 5), np.int64), none[0], (),
+                           none, none)
+
+    monkeypatch.setattr(smem, "_megaq_rounds", held)
+    split = HybridSplit(f=0.5, auto=True, k_floor=1)
+    for n in (1, 2):
+        smem.collect_intv_device(MemOpt(), didxs, c["arr"], c["lens"],
+                                 c["fmi"], mode="hybrid", split=split,
+                                 dp=dp, return_sa=True)
+        assert len(split.history) == n
+        B, k, t_dev, t_host, _ = split.history[-1]
+        assert (B, k) == (64, 32) and 0.3 <= t_dev < 0.4 and t_host > 0
+    assert split.chunks == 2
+
+
+def test_mem_hybrid_over_replicas_equals_tpubwa(setup, monkeypatch):
+    """`mem`'s path (process_seqs over the aligner) with
+    TPUBWA_SEED_MODE=hybrid over DataParallel([cpu]*3), the share pinned
+    and the floor lowered so that the seam falls inside the chunk: SAM
+    equal to host mode's on one device and to tpubwa's."""
+    codes, indexes = setup
+    fmi, jfmi = indexes["npz"]
+    reads, jreads = _reads(_pe_records(codes, 40, np.random.default_rng(3)))
+    opt, jopt = MemOpt(flag=MEM_F_PE), tpubwa.opts.MemOpt(flag=MEM_F_PE)
+    monkeypatch.setenv("TPUBWA_SEED_MODE", "hybrid")
+    monkeypatch.setenv("TPUBWA_HYBRID_AUTO", "0")
+    monkeypatch.setenv("TPUBWA_HYBRID_K_FLOOR", "8")
+    dp = DataParallel(CPU3)
+    multi = tp.make_device_aligner(opt, fmi, dp=dp)
+    assert multi.seed_mode == "hybrid"
+    sam = process_seqs(opt, fmi, reads, 0, align_fn=multi)
+    assert [h[:2] for h in multi.hybrid.history] == [(128, 32)]
+    assert all(t.get("reads", 0) > 0 for t in dp.tally)
+    monkeypatch.delenv("TPUBWA_SEED_MODE")
+    single = tp.make_device_aligner(opt, fmi, device="cpu")
+    assert single.seed_mode == "host"
+    assert sam == process_seqs(opt, fmi, reads, 0, align_fn=single)
+    jax = jax_aligner(jopt, jfmi, platform="cpu")
+    assert sam == tpubwa.host.pipeline.process_seqs(jopt, jfmi, jreads, 0,
+                                                    align_fn=jax)
+    assert len(sam) >= len(reads)
 
 
 # ------------------------------------------------------ the extension

@@ -249,8 +249,10 @@ def test_cli_mem_cpu_megaq_equals_host_and_tpubwa(alt_index,
     """`mem --device cpu` with TPUBWA_SEED_MODE=megaq (K2's and K3's plain
     versions seed every read; the native seeder is never called): SAM
     byte-equal to host mode's and to tpubwa's scalar pipeline, on an
-    index with ALT contigs and on a stock-bwa index, where the SA walk
-    is occ.sa_lookup's too (K2, K3 and K-sa in one run on the card)."""
+    index with ALT contigs and on a stock-bwa index.  On both the SA
+    walk is fused into seeding, occ.sa_lookup's (the marked walk and
+    the rank-sampled one; K2, K3 and K-sa in one run on the card), and
+    the native SA walk is never called."""
     from tpubwa_torch.device import occ as tocc
     from tpubwa_torch.device import smem as tsmem
     if index == "alt":
@@ -273,15 +275,19 @@ def test_cli_mem_cpu_megaq_equals_host_and_tpubwa(alt_index,
         walked.append(1)
         return walk(*a, **k)
 
+    def no_host_walk(*a, **k):
+        raise AssertionError("a megaq chunk walked its SA on the host")
+
     walk = tocc.sa_lookup_plain
     monkeypatch.setattr(tsmem, "smem_collect_batch_native", no_host_seeding)
+    monkeypatch.setattr(tp, "sa_positions_native", no_host_walk)
     monkeypatch.setattr(tocc, "sa_lookup_plain", counted)
     monkeypatch.setenv("TPUBWA_SEED_MODE", "megaq")
     got = _sam(main_mem, ["--device", "cpu", prefix] + fqs)
     assert len(got) > len(fqs) * 40
     assert got == host == want
-    # the stock index has no text-position marks: its SA walk is K-sa's
-    assert bool(walked) == (index == "golden-bwa")
+    # both indexes walk every SA position on K-sa, fused into seeding
+    assert walked
 
 
 def test_no_jax_import():

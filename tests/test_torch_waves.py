@@ -200,7 +200,10 @@ def test_aligner_regions_equal_native(corpus, switch):
         seeded.append(1)
         return real_k2(*a, **k)
 
+    # the SA walk of megaq is fused into seeding (smem.sa_lookup), the
+    # classic stage's is pipeline's
     tp.sa_lookup, smem.rounds12_megaq = sa_spy, k2_spy
+    smem.sa_lookup = sa_spy
     try:
         with native_off(switch):
             aligner = tp.make_device_aligner(opt, fmi, device="cpu")
@@ -208,6 +211,7 @@ def test_aligner_regions_equal_native(corpus, switch):
             got = aligner(reads)
     finally:
         tp.sa_lookup, smem.rounds12_megaq = real_sa, real_k2
+        smem.sa_lookup = real_sa
     assert isinstance(got, list) and len(got) == len(reads)
     assert _flat(FlatRegs.from_lists(got)) == _flat(want)
     assert aligner.extender.n_waves > 0

@@ -9,10 +9,13 @@ Stage plan per chunk of reads:
                                     the device; with =hybrid, a share of
                                     each chunk on K2 and K3 beside the
                                     native seeder)
-  B. SA positions                  (native bounded SA walk on the host
-                                    over an index with text-position
-                                    marks; else the SA walk on the
-                                    device, occ.sa_lookup)
+  B. SA positions                  (in megaq and hybrid's device share,
+                                    K-sa on ranks built on the device
+                                    inside stage A; else the native
+                                    bounded SA walk on the host over an
+                                    index with text-position marks, or
+                                    the SA walk on the device,
+                                    occ.sa_lookup)
   C. chaining + extension planning (native planner,
                                     host/native_emit.py:plan_batch_native;
                                     without it, the native or Python
@@ -65,7 +68,8 @@ from .dispatch import WaveExtender
 from .extend_fused import extend_seed_desc_np
 from .extend_kernel import _mat_ab
 from .occ import DeviceIndex, sa_lookup
-from .smem import HybridSplit, collect_intv_device
+from .smem import (HybridSplit, collect_intv_device, sa_counts,
+                   segment_index)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -178,9 +182,7 @@ class DeviceAligner:
                                   threads=self.opt.n_threads)
         if nat is not None:
             return nat
-        size = flat[:, 2]
-        step = np.where(size > self.opt.max_occ, size // self.opt.max_occ, 1)
-        cnt = np.minimum((size + step - 1) // step, self.opt.max_occ)
+        step, cnt = sa_counts(flat[:, 2], self.opt.max_occ)
         ends = np.cumsum(cnt)
         n = int(ends[-1])
         if n == 0:
@@ -198,23 +200,54 @@ class DeviceAligner:
             walk, n, "ranks")
         return pos.astype(np.int64), cnt
 
+    def _sa_merge(self, flat, sa_cnt, sa_pos):
+        """The chunk's SA positions from the seeding stage's segments
+        (``collect_intv_device(..., return_sa=True)``), walking only the
+        rows of cnt -1 through ``_sa_positions``: tpubwa's ``_sa_merge``
+        contract (tpubwa/device/pipeline.py:224-258), and the same return
+        as ``_sa_positions``.  Where a given count differs from bwa's
+        subsampling of its row, or the positions do not fill the counts,
+        it raises: nothing is recomputed in their place."""
+        _, cnt = sa_counts(flat[:, 2], self.opt.max_occ)
+        have = sa_cnt >= 0
+        if (not np.array_equal(sa_cnt[have], cnt[have])
+                or len(sa_pos) != int(cnt[have].sum())):
+            bad = np.flatnonzero(have & (sa_cnt != cnt))
+            raise RuntimeError(
+                f"fused SA count mismatch: {len(bad)} of {len(flat)} rows "
+                f"(first {bad[:3].tolist()}), {len(sa_pos)} positions for "
+                f"{int(cnt[have].sum())}")
+        if have.all():
+            return sa_pos, cnt
+        starts = np.cumsum(cnt) - cnt
+        pos = np.zeros(int(cnt.sum()), np.int64)
+        pos[segment_index(starts[have], cnt[have])] = sa_pos
+        need = ~have
+        pos[segment_index(starts[need], cnt[need])] = self._sa_positions(
+            (flat[need], None))[0]
+        return pos, cnt
+
     # -------------------------------------------------------------
     def _seed_chunk(self, chunk: Sequence[Read]):
         """Seeding + SA positions for one chunk (runs on the prefetch
-        thread, overlapping the previous chunk's planning)."""
+        thread, overlapping the previous chunk's planning): the seeding
+        stage's own positions where it gives them (megaq, hybrid), the
+        SA stage for the rest."""
         pad = 32
         while pad < len(chunk):
             pad <<= 1
         arr, lens = self._pack(chunk, pad)
-        flat, frid, qd = collect_intv_device(self.opt, self._index(), arr,
-                                             lens, self.fmi,
-                                             mode=self.seed_mode,
-                                             split=self.hybrid, dp=self.dp)
+        flat, frid, qd, sa = collect_intv_device(
+            self.opt, self._index(), arr, lens, self.fmi,
+            mode=self.seed_mode, split=self.hybrid, dp=self.dp,
+            return_sa=True)
         counts = np.bincount(frid, minlength=arr.shape[0])[:len(chunk)]
         intv = (flat, counts)
+        positions = (self._sa_positions(intv) if sa is None
+                     else self._sa_merge(flat, *sa))
         # qd: the chunk's reads, resident for the descriptor extension
         # (a list, one a replica, under a dp)
-        return intv, self._sa_positions(intv), qd
+        return intv, positions, qd
 
     def _index(self):
         """The index the device stages take: the replicas' list under a

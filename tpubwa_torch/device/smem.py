@@ -15,10 +15,17 @@ Three modes:
   while the calling thread seeds the rest in native C++, k set each
   chunk by ``HybridSplit`` (tpubwa's equal-wall balancer).
 
-Over a ``DataParallel`` (``dp``), megaq splits each chunk's reads over
-the replicas and host mode uploads the reads to each; hybrid raises
-(ROADMAP [dist-hybrid]).  tpubwa's other machine modes are not ported
-on purpose (ROADMAP).
+With ``return_sa`` megaq also gives each row's SA positions, walked on
+the device before the one copy to the host (tpubwa's fused SA,
+smem_fused.py:_sa_from_rows): the ranks of bwa's subsampling are built
+from K2's rows and K3's hits on the card (``sa_ranks``) and K-sa
+(``occ.sa_lookup``) walks them.  In hybrid the host share's rows get
+the native walk's positions, or -1 counts where the index has no marks.
+
+Over a ``DataParallel`` (``dp``), megaq splits the reads it seeds over
+the replicas (in hybrid, the device share's), each replica holding the
+whole chunk for the extension, and host mode uploads the reads to each.
+tpubwa's other machine modes are not ported on purpose (ROADMAP).
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..host.native_smem import smem_collect_batch_native
+from ..host.native_smem import (sa_positions_native,
+                                smem_collect_batch_native)
 from . import _build
 from .counts import bump
-from .occ import DeviceIndex, _kernel_route, _raise_on
+from .occ import DeviceIndex, _kernel_route, _raise_on, sa_lookup
 from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
                          index_args, read_lists, rounds12_megaq, run_reads,
                          stream_of)
@@ -173,13 +181,113 @@ def _package_rows(flat, frid, reads, device):
     return flat, frid, qd.to(device)
 
 
-def merge_rounds(rows12, rids12, hits=None, n_hits=None):
+def sa_counts(size, max_occ: int):
+    """bwa's subsampling of an interval of ``size`` occurrences
+    (bwamem.c:mem_chain head): step = size // max_occ where size passes
+    max_occ, else 1, and min(ceil(size / step), max_occ) samples, none
+    at max_occ <= 0 (-c 0).  ``size`` int64, a numpy array or a tensor;
+    returns (step, cnt) of its kind."""
+    if isinstance(size, torch.Tensor):
+        if max_occ <= 0:
+            return torch.ones_like(size), torch.zeros_like(size)
+        step = torch.where(size > max_occ, size // max_occ, 1)
+        return step, torch.clamp((size + step - 1) // step, max=max_occ)
+    if max_occ <= 0:
+        return np.ones_like(size), np.zeros_like(size)
+    step = np.where(size > max_occ, size // max_occ, 1)
+    return step, np.minimum((size + step - 1) // step, max_occ)
+
+
+def segment_index(starts, cnt):
+    """The flat indexes of segments ``cnt`` long starting at ``starts``
+    (int64 numpy arrays), segment after segment."""
+    ends = np.cumsum(cnt)
+    return (np.repeat(np.asarray(starts, np.int64) - (ends - cnt), cnt)
+            + np.arange(int(ends[-1]) if len(ends) else 0, dtype=np.int64))
+
+
+def sa_ranks(didx: DeviceIndex, rows: torch.Tensor, keep: torch.Tensor,
+             max_occ: int):
+    """The ranks of bwa's subsampling for interval rows on the device
+    (tpubwa/device/smem_fused.py:_sa_from_rows, exact sizes so no cap):
+    rows idt [n, 5] (x0, x1, size, ...), keep bool [n] (a row that is
+    not kept gets no samples) -> (cnt int64 [n], ranks idt [sum cnt]),
+    rank k of a row x0 + k * step.  Tensor ops on the rows' device, in
+    int64; the one sync reads the total."""
+    size = torch.where(keep, rows[:, 2].long(), 0)
+    step, cnt = sa_counts(size, max_occ)
+    n = int(cnt.sum())
+    if not n:
+        return cnt, torch.zeros(0, dtype=didx.idt, device=rows.device)
+    ends = torch.cumsum(cnt, 0)
+    k = (torch.arange(n, dtype=torch.int64, device=rows.device)
+         - torch.repeat_interleave(ends - cnt, cnt, output_size=n))
+    ranks = (torch.repeat_interleave(rows[:, 0].long(), cnt, output_size=n)
+             + k * torch.repeat_interleave(step, cnt, output_size=n))
+    return cnt, ranks.to(didx.idt)
+
+
+@dataclass
+class Seeded:
+    """One device's megaq output for its reads, on the host: K2's rows
+    and read ids, K3's (hits, n_hits) or () where max_mem_intv is 0, and
+    with the fused SA walk ``sa12`` and ``sa3``, the (cnt int64, pos
+    int64) segments of K2's rows and of K3's valid hits (row-major), or
+    None."""
+    rows12: np.ndarray
+    rids12: np.ndarray
+    round3: tuple
+    sa12: tuple = None
+    sa3: tuple = None
+
+
+def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
+                  ld: torch.Tensor, sa: bool = False) -> Seeded:
+    """K2's rounds 1+2 and K3's round 3 on reads already on the device,
+    and with ``sa`` their rows' SA positions (``sa_ranks``, then K-sa on
+    the same stream, no launch where no rank is sampled), all copied to
+    the host after the last launch (the copies synchronise)."""
+    rows12, rids12 = rounds12_megaq(opt, didx, qd, ld)
+    round3 = ()
+    if opt.max_mem_intv > 0:
+        round3 = _seed_strategy_scan(didx, qd, ld, opt.min_seed_len,
+                                     opt.max_mem_intv)
+    if sa:
+        rows = rows12
+        keep = torch.ones(len(rows12), dtype=torch.bool, device=qd.device)
+        if round3:
+            hits, n_hits = round3
+            rows = torch.cat([rows12, hits.reshape(-1, 5)])
+            keep = torch.cat([keep, (torch.arange(
+                hits.shape[1], device=qd.device)[None, :]
+                < n_hits[:, None]).reshape(-1)])
+        cnt, ranks = sa_ranks(didx, rows, keep, opt.max_occ)
+        pos = sa_lookup(didx, ranks) if len(ranks) else ranks
+    out = Seeded(rows12.cpu().numpy(), rids12.cpu().numpy(),
+                 tuple(x.cpu().numpy() for x in round3))
+    if sa:
+        cnt, pos = cnt.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
+        n12 = len(rows12)
+        cut = int(cnt[:n12].sum())
+        cnt3 = cnt[n12:]
+        if round3:
+            hits, n_hits = out.round3
+            cnt3 = cnt3.reshape(len(n_hits), -1)[
+                np.arange(hits.shape[1])[None, :] < n_hits[:, None]]
+        out.sa12, out.sa3 = (cnt[:n12], pos[:cut]), (cnt3, pos[cut:])
+    return out
+
+
+def merge_rounds(rows12, rids12, hits=None, n_hits=None, sa=None):
     """The chunk's rows as the seeding contract: K2's rows (idt [n, 5],
     read-major, each read's round 1 then round 2) and their read ids,
     then K3's hits ([B, maxh, 5] and n_hits [B], or None where round 3
     did not run), merged by one stable lexsort by (rid, qb, qe)
     (tpubwa/device/smem.py:767-771), which keeps ref/smem.py's order of
-    ties.  Returns (flat int64 [n, 5], frid int64 [n]) numpy arrays."""
+    ties.  Returns (flat int64 [n, 5], frid int64 [n]) numpy arrays;
+    with ``sa``, the rows' SA segments (cnt int64 [n], pos int64) in the
+    same concatenation order, also (cnt, pos) carried through the sort
+    (tpubwa/device/smem.py:_permute_segments)."""
     blocks = [np.asarray(rows12).reshape(-1, 5)]
     rids = [np.asarray(rids12)]
     if hits is not None:
@@ -190,7 +298,34 @@ def merge_rounds(rows12, rids12, hits=None, n_hits=None):
     flat = np.concatenate(blocks).astype(np.int64)
     frid = np.concatenate(rids).astype(np.int64)
     order = np.lexsort((flat[:, 4], flat[:, 3], frid))
-    return flat[order], frid[order]
+    if sa is None:
+        return flat[order], frid[order]
+    cnt, pos = sa
+    if len(cnt) != len(flat) or int(cnt.sum()) != len(pos):
+        raise RuntimeError(f"SA segments ({len(cnt)} rows, {len(pos)} "
+                           f"positions) do not cover {len(flat)} rows")
+    starts = np.cumsum(cnt) - cnt
+    return (flat[order], frid[order],
+            (cnt[order], pos[segment_index(starts[order], cnt[order])]))
+
+
+def _merge(parts, sa: bool):
+    """``merge_rounds`` over ``Seeded`` parts [(lo, Seeded)] of one chunk,
+    read ids + lo, every part's K2 rows before every part's K3 hits, and
+    with ``sa`` their SA segments in that order.  Returns (flat, frid,
+    (cnt, pos) or None)."""
+    none = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    rows = [np.zeros((0, 5), np.int64)] + [p.rows12 for _, p in parts]
+    rids = [none[0]] + [p.rids12 + lo for lo, p in parts]
+    round3 = tuple(np.concatenate(x) for x in zip(
+        *[p.round3 for _, p in parts if p.round3]))
+    segs = None
+    if sa:
+        segs = tuple(np.concatenate(x) for x in zip(
+            none, *[p.sa12 for _, p in parts], *[p.sa3 for _, p in parts]))
+    out = merge_rounds(np.concatenate(rows), np.concatenate(rids), *round3,
+                       sa=segs)
+    return out if sa else (*out, None)
 
 
 def _upload(didx: DeviceIndex, reads: np.ndarray, lens: np.ndarray):
@@ -200,61 +335,33 @@ def _upload(didx: DeviceIndex, reads: np.ndarray, lens: np.ndarray):
         didx.device) for x, t in ((reads, np.uint8), (lens, np.int32)))
 
 
-def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
-                  ld: torch.Tensor):
-    """K2's rounds 1+2 and K3's round 3 on reads already on the device,
-    copied to the host (the copies synchronise with the launches):
-    (rows12, rids12, round3), round3 (hits, n_hits) or () where
-    max_mem_intv is 0."""
-    rows12, rids12 = rounds12_megaq(opt, didx, qd, ld)
-    round3 = ()
-    if opt.max_mem_intv > 0:
-        round3 = tuple(x.cpu() for x in _seed_strategy_scan(
-            didx, qd, ld, opt.min_seed_len, opt.max_mem_intv))
-    return rows12.cpu(), rids12.cpu(), round3
+def _upload_dp(didxs, reads: np.ndarray, lens: np.ndarray, dp):
+    """The whole chunk uploaded once to each replica: [(qd, ld)]."""
+    return dp.map(lambda i, _: _upload(didxs[i], reads, lens),
+                  [None] * dp.n)
 
 
-def _collect_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
-                   ld: torch.Tensor):
-    """Mode megaq on reads already on the device: K2 seeds rounds 1+2 and
-    K3 round 3, and the host merges their rows (``merge_rounds``).
-    Returns (flat, frid)."""
-    rows12, rids12, round3 = _megaq_rounds(opt, didx, qd, ld)
-    return merge_rounds(rows12, rids12, *round3)
-
-
-def _collect_megaq_dp(opt, didxs, reads: np.ndarray, lens: np.ndarray,
-                      dp):
+def _collect_megaq_dp(opt, didxs, uploads, n: int, dp, sa: bool = False):
     """Mode megaq over ``dp``'s replicas (tpubwa/device/smem.py:634-640:
-    the reads replicated, the lanes sharded): each replica uploads the
-    whole chunk and seeds its part [lo, hi) of the reads through K2 and
-    K3; its read ids get + lo, and its round-3 hits follow the parts
-    before it, so that ``merge_rounds`` runs once, on what one device
-    would have seeded.  Returns (flat, frid, [qd a replica])."""
+    the reads replicated, the lanes sharded) for reads [0, n) of a chunk
+    each replica holds (``uploads``): replica i seeds its part [lo, hi)
+    through K2 and K3 (and with ``sa`` walks its rows' ranks on K-sa; a
+    replica with an empty part launches nothing), and ``_merge`` runs
+    once, on what one device would have seeded.  Returns (flat, frid, sa
+    or None)."""
     def part(i, bounds):
         lo, hi = bounds
-        qd, ld = _upload(didxs[i], reads, lens)
         if hi == lo:
-            return qd, None
+            return None
         dp.note(i, "reads", hi - lo)
-        return qd, (lo, _megaq_rounds(opt, didxs[i], qd[lo:hi], ld[lo:hi]))
+        qd, ld = uploads[i]
+        got = _megaq_rounds(opt, didxs[i], qd[lo:hi], ld[lo:hi], sa=sa)
+        if sa:
+            dp.note(i, "ranks", len(got.sa12[1]) + len(got.sa3[1]))
+        return lo, got
 
-    out = dp.map(part, dp.split(len(lens)))
-    rows, rids, hits, n_hits = [], [], [], []
-    for _, got in out:
-        if got is None:
-            continue
-        lo, (rows12, rids12, round3) = got
-        rows.append(np.asarray(rows12).reshape(-1, 5))
-        rids.append(np.asarray(rids12) + lo)
-        if round3:
-            hits.append(np.asarray(round3[0]))
-            n_hits.append(np.asarray(round3[1]))
-    if not rows:                 # a chunk of no reads
-        rows, rids = [np.zeros((0, 5), np.int64)], [np.zeros(0, np.int64)]
-    round3 = (np.concatenate(hits), np.concatenate(n_hits)) if hits else ()
-    return (*merge_rounds(np.concatenate(rows), np.concatenate(rids),
-                          *round3), [qd for qd, _ in out])
+    return _merge([p for p in dp.map(part, dp.split(n)) if p is not None],
+                  sa)
 
 
 @dataclass
@@ -307,46 +414,102 @@ class HybridSplit:
         self.chunks += 1
 
 
-def _collect_hybrid(opt, didx: DeviceIndex, reads: np.ndarray,
-                    lens: np.ndarray, fmi, split: HybridSplit):
-    """Mode hybrid: reads [:k] through K2 and K3 on a worker thread (its
-    wall taken there, the synchronising copies included) while this
-    thread seeds reads [k:] in native C++ (ctypes releases the GIL);
-    the device rows first, then the host rows with rid + k.  An error in
-    the device share propagates: nothing reseeds it on the host."""
+def _uploads(didx, reads: np.ndarray, lens: np.ndarray, dp):
+    """The chunk uploaded for seeding and the extension: (qd, ld) on the
+    index's device, or under ``dp`` one such pair a replica."""
+    if dp is None:
+        return _upload(didx, reads, lens)
+    return _upload_dp(didx, reads, lens, dp)
+
+
+def _resident(uploads, dp):
+    """The chunk's reads as the extension takes them: qd, or under
+    ``dp`` a list, one a replica."""
+    return uploads[0] if dp is None else [qd for qd, _ in uploads]
+
+
+def _seed_megaq(opt, didx, uploads, n: int, dp, sa: bool):
+    """Mode megaq for reads [0, n) of an uploaded chunk, on the device or
+    over ``dp``'s replicas: K2 seeds rounds 1+2 and K3 round 3 (with
+    ``sa``, K-sa walks their rows' ranks), and the host merges their
+    rows.  Returns (flat, frid, sa or None)."""
+    if dp is not None:
+        return _collect_megaq_dp(opt, didx, uploads, n, dp, sa=sa)
+    qd, ld = uploads
+    return _merge([(0, _megaq_rounds(opt, didx, qd[:n], ld[:n], sa=sa))],
+                  sa)
+
+
+def _collect_host(opt, didx, reads: np.ndarray, lens: np.ndarray, fmi,
+                  dp):
+    """Mode host: the native seeder's rows, the reads uploaded (to each
+    replica under ``dp``); no SA positions (the caller walks them)."""
+    rows6 = smem_collect_batch_native(opt, fmi, reads, lens)
+    if rows6 is None:
+        raise NotImplementedError(
+            "the native seeder (tpubwa_torch/native/smem.cpp) is "
+            "unavailable; seed mode 'megaq' seeds without it")
+    if dp is not None:
+        return rows6[:, :5], rows6[:, 5], dp.replicate(
+            np.ascontiguousarray(reads, dtype=np.uint8)), None
+    return (*_package_rows(rows6[:, :5], rows6[:, 5], reads, didx.device),
+            None)
+
+
+def _collect_hybrid(opt, didx, reads: np.ndarray, lens: np.ndarray, fmi,
+                    split: HybridSplit, dp=None, sa: bool = False):
+    """Mode hybrid: reads [:k] in megaq on a worker thread (its wall
+    taken there, the synchronising copies included; under ``dp`` split
+    over the replicas, so the wall is the slowest replica's) while this
+    thread seeds reads [k:] in native C++ (ctypes releases the GIL) and,
+    with ``sa``, walks their SA on the host (tpubwa/device/smem.py:
+    573-577; -1 counts where the index has no marks); the device rows
+    first, then the host rows with rid + k.  One ``split.update`` a
+    chunk.  An error in the device share propagates: nothing reseeds it
+    on the host."""
     B = len(lens)
     k = split.k_for(B)
     t0 = time.perf_counter()
     if smem_collect_batch_native(opt, fmi, reads[:0], lens[:0]) is None:
-        qd, ld = _upload(didx, reads, lens)
-        flat, frid = _collect_megaq(opt, didx, qd, ld)
+        up = _uploads(didx, reads, lens, dp)
+        flat, frid, got_sa = _seed_megaq(opt, didx, up, B, dp, sa)
         split.update(B, B, time.perf_counter() - t0, 0.0)
-        return flat, frid, qd
+        return flat, frid, _resident(up, dp), got_sa
     if k < split.k_floor:
-        out = collect_intv_device(opt, didx, reads, lens, fmi, mode="host")
+        out = _collect_host(opt, didx, reads, lens, fmi, dp)
         split.update(B, 0, 0.0, time.perf_counter() - t0)
         return out
-    qd, ld = _upload(didx, reads, lens)
+    up = _uploads(didx, reads, lens, dp)
 
     def device_share():
         t = time.perf_counter()
-        rows = _collect_megaq(opt, didx, qd[:k], ld[:k])
+        rows = _seed_megaq(opt, didx, up, k, dp, sa)
         return rows, time.perf_counter() - t
 
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(device_share)
         t = time.perf_counter()
         host6 = smem_collect_batch_native(opt, fmi, reads[k:], lens[k:])
+        host_sa = sa_positions_native(
+            fmi, host6[:, :5], opt.max_occ,
+            threads=opt.n_threads) if sa else None
         t_host = time.perf_counter() - t
-        (dflat, dfrid), t_dev = fut.result()
+        (dflat, dfrid, dsa), t_dev = fut.result()
     split.update(B, k, t_dev, t_host)
+    got_sa = None
+    if sa:
+        hpos, hcnt = host_sa or (np.zeros(0, np.int64),
+                                 np.full(len(host6), -1, np.int64))
+        got_sa = (np.concatenate([dsa[0], hcnt]),
+                  np.concatenate([dsa[1], hpos]))
     return (np.concatenate([dflat, host6[:, :5]]),
-            np.concatenate([dfrid, host6[:, 5] + k]), qd)
+            np.concatenate([dfrid, host6[:, 5] + k]), _resident(up, dp),
+            got_sa)
 
 
 def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
                         fmi, mode: str = "host", split: HybridSplit = None,
-                        dp=None):
+                        dp=None, return_sa: bool = False):
     """Full 3-round mem_collect_intv for a packed chunk (uint8 reads
     [B, L], int32 lens [B]).  Returns (flat int64 [n, 5] rows (x0, x1,
     size, qb, qe), frid int64 [n] read ids, qd uint8 [B, L] on the
@@ -356,31 +519,28 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     device) or 'hybrid' (a share of each, ``split`` the caller's
     balancer; without one, a new ``HybridSplit.from_env()``).  With a
     ``dp`` (``dist.sharding.DataParallel``), ``didx`` is the list of its
-    replicas' indexes, megaq splits the reads over them, and ``qd`` is a
-    list, the chunk's reads on each replica.  SA positions are left to
-    the caller."""
-    if dp is not None and mode == "hybrid":
-        raise NotImplementedError(
-            "seed mode 'hybrid' over a DataParallel is not ported yet "
-            "(ROADMAP Queue 1 [dist-hybrid]); use 'megaq' or 'host'")
+    replicas' indexes, megaq (in hybrid, its share) splits the reads
+    over them, and ``qd`` is a list, the chunk's reads on each replica.
+
+    ``return_sa`` (tpubwa's): also return ``sa``, (cnt int64 [n], pos
+    int64 [sum of cnt >= 0]) in the rows' order: megaq's rows get their
+    positions from K-sa on ranks built on the device, hybrid's host
+    share the native walk's, and a cnt of -1 marks a row left to the
+    caller's SA stage.  ``sa`` is None in host mode, and in every mode
+    under TPUBWA_NO_SA_FUSE (tpubwa's opt-out): the caller then walks
+    every row."""
+    sa = return_sa and not os.environ.get("TPUBWA_NO_SA_FUSE")
     if mode == "megaq":
-        if dp is not None:
-            return _collect_megaq_dp(opt, didx, reads, lens, dp)
-        qd, ld = _upload(didx, reads, lens)
-        return (*_collect_megaq(opt, didx, qd, ld), qd)
-    if mode == "hybrid":
-        return _collect_hybrid(opt, didx, reads, lens, fmi,
-                               split or HybridSplit.from_env())
-    if mode in ("mega", "fused", "split", "cursor", "reach"):
+        up = _uploads(didx, reads, lens, dp)
+        flat, frid, got_sa = _seed_megaq(opt, didx, up, len(lens), dp, sa)
+        out = (flat, frid, _resident(up, dp), got_sa)
+    elif mode == "hybrid":
+        out = _collect_hybrid(opt, didx, reads, lens, fmi,
+                              split or HybridSplit.from_env(), dp=dp, sa=sa)
+    elif mode in ("mega", "fused", "split", "cursor", "reach"):
         raise NotImplementedError(_NOT_PORTED.format(mode))
-    if mode != "host":
+    elif mode != "host":
         raise ValueError(f"unknown seed mode {mode!r}")
-    rows6 = smem_collect_batch_native(opt, fmi, reads, lens)
-    if rows6 is None:
-        raise NotImplementedError(
-            "the native seeder (tpubwa_torch/native/smem.cpp) is "
-            "unavailable; seed mode 'megaq' seeds without it")
-    if dp is not None:
-        return rows6[:, :5], rows6[:, 5], dp.replicate(
-            np.ascontiguousarray(reads, dtype=np.uint8))
-    return _package_rows(rows6[:, :5], rows6[:, 5], reads, didx.device)
+    else:
+        out = _collect_host(opt, didx, reads, lens, fmi, dp)
+    return out if return_sa else out[:3]
