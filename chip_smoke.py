@@ -90,7 +90,10 @@ Phases, one output line each (a failing phase raises, exit != 0):
      0's `dist_done` metric counts every read;
  4d. tpubwa_torch.dist.dryrun.dryrun_multidevice over [cuda:0, cuda:0]
      at its 1.5 Mbp, 1,024-pair default: the aligner over two replicas
-     on the card (megaq) SAM-equal to the card alone (host seeding);
+     on the card (megaq) SAM-equal to the card alone (host seeding); and
+     its tp leg, the first 128 pairs through an aligner over the index
+     in two slabs on the card (K2's and K-sa's TP instantiations
+     launched), SAM-equal to the card alone;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
      reads on the 64 Mbp repeat-realistic synthetic genome, through
      the port's process_batches with its aligner on cuda; the first 512
@@ -124,7 +127,14 @@ Phases, one output line each (a failing phase raises, exit != 0):
      entry) in interleaved passes (K-sa also cold, K-ext also through
      its wrapper), with the LF steps a rank and a warp; K-sa's C entry
      must refuse 2^31 - 1 ranks (its rank queue's range) before it
-     runs; then the extension path driven once with the counts at 0;
+     runs; the TP instantiations of K-sa (the marked walk) and K-ext
+     over 2 and 3 slabs on the card (dist/index_tp.py:TpIndex), int32
+     and int64, == their plain versions over the slabs' routed
+     accessors and == the flat kernels, on both genomes' same inputs,
+     the 64 Mbp int32 ones timed alone beside the flat ones in the same
+     interleaved passes, their bounds from the distinct sectors of the
+     slabs' own rows; then the extension path driven once with the
+     counts at 0, flat and over 2 slabs;
  5c. phase 5's 2 x 8,192 pairs through the port's aligner on cuda with
      TPUBWA_SEED_MODE=megaq (as `mem` runs it): every seeding row from
      K2 and K3 (csrc/smem.cu), and every SA position from K-sa's marked
@@ -155,7 +165,16 @@ Phases, one output line each (a failing phase raises, exit != 0):
      read, warps an SM, the grid), registers and stack frame in both
      instantiations and the rounds of its step's row loads in SASS; K2
      must refuse reads one base past its limit, in the C entry and the
-     wrapper; and the global loads of K2's and K3's SASS;
+     wrapper; and the global loads of K2's and K3's SASS.  K2's TP
+     instantiation over 2 and 3 slabs == plain on the 3 kb and 256-read
+     sets (one row slot a read too), its plain version over the slabs'
+     accessors == over the flat index, and on 5c's first chunk its rows,
+     counts, steps and chain == K2 flat's; K2's and K-sa's TP
+     instantiations alone beside the flat ones (K-sa on 5c's fused
+     ranks, == the flat walk's positions and the plain walk over the
+     slabs) in the same interleaved passes, with their bounds; each TP
+     instantiation's registers and the rounds of its row loads in SASS
+     beside the flat one's;
  5d. phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa index: K2 and
      K3 seed every read and K-sa walks every SA position (fused into
      seeding, once a chunk) in one run, with the counts at 0 just
@@ -190,6 +209,17 @@ Phases, one output line each (a failing phase raises, exit != 0):
      K-sa must launch on both replicas, and every chunk of at least
      k_floor / f reads must be split; each replica's tallies, each
      chunk's (B, k, t_dev, t_host, f) and reads/s beside 5e's.
+ 5i. phase 5's 2 x 8,192 pairs in megaq through the aligner over
+     TpIndex(fmi, [cuda:0, cuda:0]) (the occ, mark and sa_marked rows
+     in two slabs on the card; K2 and the fused K-sa read each row from
+     the slab that holds it, K3, the extension and pac the whole index),
+     then over 3 slabs, and over one slab a card where torch sees more
+     than one (peer access; a failure there fails the phase).  Each
+     pass's SAM must equal phase 5's byte for byte; K2's and K-sa's TP
+     instantiations must launch (K-sa once a chunk) and the flat K2 and
+     K-sa must not, with the counts at 0 just before the run; each slab
+     holds padded total / n rows.  The seeding stage's wall and reads/s
+     beside 5c's.
  5f. the first 1,024 pairs of phase 5's first batch, one batch, three
      ways: native (the reference), TPUBWA_NO_NATIVE_PLAN=1 (the Python
      planner, its extension waves through dispatch.WaveExtender) and
@@ -211,7 +241,9 @@ alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), the smoke's
 wall, a JSON line of the kernels (launches on each kernel's paths: K1
 in phase 5, 5f, 5g and 5h, K-sa in 5b, 5c, 5d, 5e, 5f, 5g and 5h, K2
-and K3 in 5c, 5d, 5e, 5f, 5g and 5h, the int16 kernel in the
+and K3 in 5c, 5d, 5e, 5f, 5g and 5h, K2's and K-sa's TP
+instantiations in 5i and 4d's tp leg, K-ext's on 3g's extension path
+over slabs, the int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
 K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
 bounds) and, last,
@@ -1920,12 +1952,22 @@ def phase_dryrun(torch):
     """[4d dryrun]: ``dist.dryrun.dryrun_multidevice`` over [cuda:0,
     cuda:0] at its default 1.5 Mbp, 1,024 pairs: a realistic genome's
     PE reads through the aligner over the two replicas (megaq) and on
-    the card alone (host seeding), SAM-equal."""
+    the card alone (host seeding), SAM-equal; then its tp leg, the first
+    128 pairs through an aligner over ``TpIndex(fmi, [cuda:0, cuda:0])``
+    (K2's and K-sa's TP instantiations), SAM-equal to the card alone.
+    Returns the leg's TP launches (counted from 0 over the dryrun)."""
     from tpubwa_torch.dist.dryrun import dryrun_multidevice
     t0 = time.perf_counter()
+    tp_counts(reset=True)
     facts = dryrun_multidevice(["cuda:0", "cuda:0"])
+    launches = tp_counts()
+    if "tp" not in facts or not launches["smem_rounds12_tp"] \
+            or not launches["sa_lookup_tp"]:
+        raise AssertionError(f"4d's tp leg launched {launches}")
     print("[4d dryrun] " + json.dumps(dict(
-        facts, seconds=round(time.perf_counter() - t0, 3))), flush=True)
+        facts, launches=launches,
+        seconds=round(time.perf_counter() - t0, 3))), flush=True)
+    return launches
 
 
 def phase_main_path(torch, np):
@@ -2179,7 +2221,7 @@ def ksa_launch_facts(torch, didx, n):
     report = _build.build_info["occ"]["ptxas"]
     return {"launch": dict(shape, warps_per_sm=shape["blocks_per_sm"] * 4),
             "ptxas": {f"{walk}/{dt}": ptxas_usage(
-                report, rf"sa_lookup_kernelI{m}Lb{b}EE")
+                report, rf"sa_lookup_kernelI{m}Lb{b}ELb0EE")
                 for walk, b in (("sampled", 0), ("marked", 1))
                 for dt, m in (("int32", "i"), ("int64", "l"))}}
 
@@ -2201,7 +2243,7 @@ def ksa_refusal(torch, didx):
     return {"n": n, "refused_rc": rc}
 
 
-def load_rounds(text, function, min_width=128):
+def load_rounds(text, function, min_width=128, loop=True):
     """The row loads of one step of a walk in ``cuobjdump -sass`` output:
     of the one function whose mangled name matches the regex
     ``function``, the innermost loop that holds the most 128-bit global
@@ -2210,11 +2252,14 @@ def load_rounds(text, function, min_width=128):
     (``rounds``) issue in.  A round ends where an instruction reads a
     register that a load of the round wrote, so one round means that
     every row of the step is requested before any is used: a step is one
-    trip to memory."""
+    trip to memory.  ``loop`` False counts the whole function (a kernel
+    with no loop, one query a thread)."""
     name, ins, loops = sass_function(text, function)
     inner = [lp for lp in loops
              if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
                         for o in loops)]
+    if not loop:
+        inner = [(ins[0][0], ins[-1][0], None)]
 
     best = None
     for lo, hi, _ in inner:
@@ -2250,8 +2295,8 @@ def ksa_sass():
     text = _run([_cuobjdump(), "-sass", _build.build_info["occ"]["so"]])
     return {walk: {"sass_loads": sass_loads(text, fn),
                    "step": load_rounds(text, fn)}
-            for walk, fn in (("sampled", r"sa_lookup_kernelIiLb0EE"),
-                             ("marked", r"sa_lookup_kernelIiLb1EE"))}
+            for walk, fn in (("sampled", r"sa_lookup_kernelIiLb0ELb0EE"),
+                             ("marked", r"sa_lookup_kernelIiLb1ELb0EE"))}
 
 
 def extend_case(torch, didx, ik, ms, plain_ms, stats):
@@ -2281,6 +2326,133 @@ def held_fm(torch, what, got, want):
         raise AssertionError(f"{what}: {int(diff.sum())} rows differ, first "
                              f"{k}: {got[k].tolist()} vs {want[k].tolist()}")
     return 0, int((got.long() - want.long()).abs().max()) if len(got) else 0
+
+
+TP_SLABS = (2, 3)       # the TP checks' slabs, all on DEV (the one card)
+
+
+def slab_reads(tp, name, index, elem_bytes):
+    """``fm_bytes``'s reads of ``tp``'s array ``name`` at ``index`` (rows
+    of the whole array, any order), one entry a slab with its rows
+    counted from the slab's start: each slab is its own allocation, so
+    the sectors are the slabs' own."""
+    import numpy as np
+    index = np.asarray(index, np.int64)
+    per = tp.slab_rows[name]
+    return [(index[index // per == s] - s * per, elem_bytes)
+            for s in range(tp.n)]
+
+
+def tp_walk_bytes(tp, n, stats):
+    """The bytes K-sa's TP walk of ``n`` ranks must move: the ranks and
+    positions, and the distinct sectors of the slabs its steps read
+    (``stats``: the plain walk's reads, which are the kernel's)."""
+    isz = tp.idt.itemsize
+    got = {k: stats[k].cpu().numpy() for k in ("occ_rows", "mark_rows",
+                                               "samples")}
+    return fm_bytes(2 * isz * n, slab_reads(
+        tp, "occ_blocks", got["occ_rows"], OCC_ROW) + slab_reads(
+        tp, "mark_rows", got["mark_rows"], MARK_ROW) + slab_reads(
+        tp, "sa_marked", got["samples"], isz))
+
+
+def tp_extend_bytes(tp, n, stats):
+    """The bytes K-ext's TP instantiation must move on ``n`` intervals:
+    ik in, [4, 3] out, and the distinct sectors of the occ slabs its two
+    occ4 queries read (``stats``: the plain version's)."""
+    return fm_bytes(15 * tp.idt.itemsize * n, slab_reads(
+        tp, "occ_blocks", stats["occ_rows"].cpu().numpy(), OCC_ROW))
+
+
+def ksa_tp_alone(torch, tp, ranks):
+    """K-sa's TP entry (the marked walk over ``tp``'s slabs) alone on
+    preallocated buffers (``.buffers``: ranks, out, queue), a launch not
+    counted on the wrapper."""
+    from tpubwa_torch.device import _build, occ
+    lib = _build.load("occ", occ._SIGNATURES)
+    out = torch.empty_like(ranks)
+    queue = torch.empty(1, dtype=torch.int32, device=ranks.device)
+    tables = [tp.kernel_table(k) for k in ("occ_blocks", "mark_rows",
+                                           "sa_marked")]
+    args = (tp.n, *tables, tp.L2.data_ptr(), tp.primary, tp.seq_len,
+            tp.mark_D, int(tp.idt == torch.int64), ranks.data_ptr(),
+            out.data_ptr(), len(ranks), queue.data_ptr(), None, 0,
+            ranks.device.index,
+            torch.cuda.current_stream(ranks.device).cuda_stream)
+
+    def launch():
+        if lib.tpubwa_sa_lookup_tp(*args):
+            raise AssertionError("K-sa (tp)'s launch failed")
+    launch.buffers = (ranks, out, queue)
+    launch.index = tp
+    return launch
+
+
+def kext_tp_alone(torch, tp, ik, is_back):
+    """K-ext's TP entry alone on preallocated buffers (``.buffers``: ik,
+    out), a launch not counted on the wrapper."""
+    from tpubwa_torch.device import _build, occ
+    lib = _build.load("occ", occ._SIGNATURES)
+    out = torch.empty((len(ik), 4, 3), dtype=ik.dtype, device=ik.device)
+    table = tp.kernel_table("occ_blocks")
+    args = (tp.n, table, tp.L2.data_ptr(), tp.primary, tp.seq_len,
+            int(tp.idt == torch.int64), int(bool(is_back)), ik.data_ptr(),
+            out.data_ptr(), len(ik), ik.device.index,
+            torch.cuda.current_stream(ik.device).cuda_stream)
+
+    def launch():
+        if lib.tpubwa_bwt_extend_tp(*args):
+            raise AssertionError("K-ext (tp)'s launch failed")
+    launch.buffers = (ik, out)
+    launch.index = tp
+    return launch
+
+
+def fm_tp_checks(torch, np, cases):
+    """The TP instantiations of K-sa (the marked walk) and K-ext over
+    ``TP_SLABS`` slabs of each marked index of ``cases`` (fm_checks', both
+    rank types) on DEV: on the same ranks and intervals, each == its
+    plain version over the slabs' routed accessors and == the flat
+    kernel's output, exactly.  Returns ({case: facts}, {case: its launch
+    alone}) with the 64 Mbp int32 cases' launches."""
+    from tpubwa_torch.device import occ
+    from tpubwa_torch.dist.index_tp import TpIndex
+    out, alone, slabbed = {}, {}, {}
+    for key, c in cases.items():
+        label, marks, dt, what = key.split("/")
+        if marks != "marked":
+            continue
+        for n in TP_SLABS:
+            if (label, dt, n) not in slabbed:
+                slabbed[label, dt, n] = TpIndex.from_index(c["didx"],
+                                                           [DEV] * n)
+            tp = slabbed[label, dt, n]
+            tag = f"{label}/{dt}/{n} slabs/{what}"
+            stats = {}
+            if "ranks" in c:
+                got = occ.sa_lookup(tp, c["ranks"])
+                torch.cuda.synchronize()
+                want, plain_ms = timed_once(torch, lambda: occ.sa_lookup_plain(
+                    tp, c["ranks"], stats=stats))
+                nbytes = tp_walk_bytes(tp, len(c["ranks"]), stats)
+            else:
+                got = occ.bwt_extend(tp, c["ik"], c["is_back"])
+                torch.cuda.synchronize()
+                want, plain_ms = timed_once(
+                    torch, lambda: occ.bwt_extend_plain(
+                        tp, c["ik"], c["is_back"], stats=stats))
+                nbytes = tp_extend_bytes(tp, len(c["ik"]), stats)
+            bad, err = held_fm(torch, f"{tag} (tp)", got, want)
+            held_fm(torch, f"{tag} (tp) vs flat", got, c["got"])
+            out[tag] = {"n": c["n"], "slabs": n, "mismatches": bad,
+                        "max_abs_err": err, "ms": None,
+                        "plain_ms": round(plain_ms, 3), "bytes": nbytes,
+                        "slab_rows": tp.slab_rows, "got": got}
+            if label == f"{GENOME_MB} Mbp" and dt == "int32":
+                alone[tag] = (ksa_tp_alone(torch, tp, c["ranks"])
+                              if "ranks" in c else kext_tp_alone(
+                                  torch, tp, c["ik"], c["is_back"]))
+    return out, alone
 
 
 def fm_variants(torch, indexes):
@@ -2357,10 +2529,12 @@ def phase_occ(torch, np, fmi, stock):
     """[3g occ]: K-sa and K-ext == plain in every instantiation on the
     small genome and on phase 5's 64 Mbp index (marked, and its stock-bwa
     round trip ``stock``, 5b's), K-sa == the native walk on the marked
-    one, each kernel timed in interleaved passes; then the extension
-    path (set_intv, a backward and a forward step) driven once with the
-    counts at 0.  Returns (the bwt_extend row's case, its launches, the
-    largest K-sa difference from plain)."""
+    one, the TP instantiations over 2 and 3 slabs (``fm_tp_checks``),
+    each kernel timed in interleaved passes; then the extension path
+    (set_intv, a backward and a forward step) driven once with the
+    counts at 0, on the flat index and over 2 slabs.  Returns (the
+    bwt_extend row's case, its launches, the largest K-sa difference
+    from plain, (the bwt_extend_tp row's case, its launches))."""
     import tempfile
     from tpubwa_torch.device import occ
     from tpubwa_torch.device.occ import DeviceIndex
@@ -2388,6 +2562,8 @@ def phase_occ(torch, np, fmi, stock):
     if native_mismatches:
         raise AssertionError(f"K-sa != the native walk on "
                              f"{native_mismatches} ranks")
+    # the TP instantiations over 2 and 3 slabs of each marked index
+    tp_cases, tp_alone = fm_tp_checks(torch, np, cases)
     # times: every 64 Mbp instantiation alone (its C entry on its own
     # buffers) in interleaved passes, K-ext through its wrapper too (a
     # call costs the host about as long as the kernel runs), and K-sa
@@ -2403,8 +2579,15 @@ def phase_occ(torch, np, fmi, stock):
             fns[f"{key} wrapper"] = (
                 lambda x, ik, b: lambda: occ.bwt_extend(x, ik, b))(
                     c["didx"], c["ik"], c["is_back"])
+    fns.update(tp_alone)
     best = interleaved_min(fns, 20, 4, torch.device(DEV))
     for key, ms in best.items():
+        if key in tp_alone:
+            c = tp_cases[key]
+            c["ms"] = round(ms, 4)
+            if not torch.equal(tp_alone[key].buffers[1], c["got"]):
+                raise AssertionError(f"{key}: alone != its wrapper")
+            continue
         if key.endswith(" wrapper"):
             continue
         c = cases[key]
@@ -2432,20 +2615,37 @@ def phase_occ(torch, np, fmi, stock):
     if ext_launches != 2 or occ.sa_lookup.launches:
         raise AssertionError(f"the extension path launched "
                              f"{ext_launches} extensions")
+    # the same path over the index in 2 slabs: K-ext's TP instantiation
+    from tpubwa_torch.dist.index_tp import TpIndex
+    tp = TpIndex.from_index(didx, [DEV, DEV])
+    occ.bwt_extend.launches = occ.bwt_extend.tp_launches = 0
+    ik = occ.set_intv(tp, pick[0])
+    for is_back, c in ((True, pick[1]), (False, pick[2])):
+        ik = occ.bwt_extend(tp, ik, is_back)[
+            torch.arange(len(c), device=DEV), c].contiguous()
+    torch.cuda.synchronize()
+    ext_tp_launches = occ.bwt_extend.tp_launches
+    if ext_tp_launches != 2 or occ.bwt_extend.launches:
+        raise AssertionError(f"the extension path over slabs launched "
+                             f"{ext_tp_launches} TP extensions")
     shown = {k: {f: v for f, v in c.items()
                  if f not in ("didx", "ranks", "got", "ik", "is_back")}
-             for k, c in cases.items()}
+             for k, c in {**cases, **tp_cases}.items()}
     print("[3g occ] " + json.dumps({
         "tolerance": 0, "cases": shown,
         "native_walk": {"ranks": len(ranks), "mismatches": native_mismatches},
         "sa_lookup_refusal": {dt: ksa_refusal(torch, x) for dt, x in (
             ("int32", didx), ("int64", int64_twin(torch, didx)))},
-        "extension_path_launches": ext_launches}), flush=True)
+        "extension_path_launches": ext_launches,
+        "tp_extension_path_launches": ext_tp_launches}), flush=True)
     row = cases[f"{GENOME_MB} Mbp/marked/int32/bwt_extend_fwd"]
     err = {name: max(c["max_abs_err"] for k, c in cases.items()
                      if name in k) for name in ("sa_lookup", "bwt_extend")}
+    tp_row = tp_cases[f"{GENOME_MB} Mbp/int32/2 slabs/bwt_extend_fwd"]
+    tp_err = max(c["max_abs_err"] for k, c in tp_cases.items()
+                 if "bwt_extend" in k)
     return dict(row, max_abs_err=err["bwt_extend"]), ext_launches, \
-        err["sa_lookup"]
+        err["sa_lookup"], (dict(tp_row, max_abs_err=tp_err), ext_tp_launches)
 
 
 def phase_stock_bwa(torch, np, main):
@@ -2657,7 +2857,8 @@ def phase_megaq(torch, np, main):
     5's, the reads that took K2's second launch, and each mode's device
     busy share over a profiled pass of the first batch.  Returns the
     facts, with the first chunk's K2 inputs (``chunk``: opt, didx, qd,
-    ld) for phase 3h."""
+    ld) and K-sa alone on its ranks with the plain walk's reads
+    (``walk``) for phase 3h."""
     from tpubwa_torch.device import extend_kernel as ek
     from tpubwa_torch.device import occ, smem, smem_fused
     from tpubwa_torch.host.pipeline import process_batches
@@ -2708,7 +2909,8 @@ def phase_megaq(torch, np, main):
         raise AssertionError(f"5c SAM != phase 5's ({len(lines)} vs "
                              f"{len(main['sam'])} lines, first diff "
                              f"{sam_diff(lines, main['sam'])})")
-    fused = fused_walk_checks(torch, np, aligner, seeding.first)
+    fused, ksa, walk_stats = fused_walk_checks(torch, np, aligner,
+                                               seeding.first)
     # each mode's busy share over one profiled pass of the first batch
     busy = {}
     for name, fn in (("phase5_host", main["aligner"]), ("megaq", aligner)):
@@ -2730,7 +2932,122 @@ def phase_megaq(torch, np, main):
                                              6),
              "first_batch_pass": busy, "fused_sa": fused}
     print("[5c megaq] " + json.dumps(facts), flush=True)
-    return dict(facts, chunk=seen["calls"][0])
+    return dict(facts, chunk=seen["calls"][0], walk=(ksa, walk_stats))
+
+
+TP_KERNELS = {"smem_rounds12": "rounds12_megaq.launches",
+              "smem_rounds12_tp": "rounds12_megaq.tp_launches",
+              "seed_strategy": "_seed_strategy_scan.launches",
+              "sa_lookup": "sa_lookup.launches",
+              "sa_lookup_tp": "sa_lookup.tp_launches"}
+
+
+def tp_counts(reset=False):
+    """The launch counts of 5i's kernels (``TP_KERNELS``), or with
+    ``reset`` set them to 0 (and K1's)."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ, smem, smem_fused
+    fns = {"rounds12_megaq": smem_fused.rounds12_megaq,
+           "_seed_strategy_scan": smem._seed_strategy_scan,
+           "sa_lookup": occ.sa_lookup}
+    if reset:
+        for key in TP_KERNELS.values():
+            fn, attr = key.split(".")
+            setattr(fns[fn], attr, 0)
+        occ.sa_lookup.marked_launches = ek.extend_batch.launches = 0
+        return None
+    return {name: getattr(fns[key.split(".")[0]], key.split(".")[1])
+            for name, key in TP_KERNELS.items()}
+
+
+def phase_megaq_tp(torch, np, main, megaq):
+    """[5i tp]: phase 5's 2 x 8,192 pairs in megaq through the port's
+    aligner over ``TpIndex(fmi, [cuda:0, cuda:0])`` (the index's occ,
+    mark and sa_marked rows in two slabs on the card; K2 and the fused
+    K-sa read each row from the slab that holds it, K3, the extension
+    and pac the aligner's whole index), then over 3 slabs, between two
+    passes of 5c's aligner (megaq on the flat index), and over one slab
+    a card where torch sees more than one.  Each pass's SAM must equal
+    phase 5's byte for byte; over slabs, K2's and K-sa's TP
+    instantiations must launch (K-sa once a chunk) and the flat K2 and
+    K-sa must not, with the counts at 0 just before the run, and each
+    slab holds padded total / n rows.  Each pass's seeding stage wall
+    and reads/s, in the order run.  Returns the TP launches summed over
+    the passes."""
+    from tpubwa_torch.device.pipeline import make_device_aligner
+    from tpubwa_torch.dist.index_tp import TpIndex
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.sim import simulate_pe
+    fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
+    n_reads = sum(len(b) for b in batches)
+    cards = torch.cuda.device_count()
+    runs = [None, [DEV, DEV], [DEV] * 3, None]
+    if cards > 1:
+        runs.append([f"cuda:{i}" for i in range(cards)])
+    flat = seed_aligner(opt, fmi, "megaq")
+    warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
+    total = {"smem_rounds12_tp": 0, "sa_lookup_tp": 0}
+    for order, devices in enumerate(runs):
+        facts = {"pass": order, "index": "flat (5c's aligner)"}
+        aligner = flat
+        if devices is not None:
+            t0 = time.perf_counter()
+            tp = TpIndex(fmi, devices)
+            facts = {"pass": order, "devices": [str(d) for d in tp.devices],
+                     "slabs": tp.n, "slab_rows": tp.slab_rows,
+                     "rows_total": tp.rows_total, "slab_bytes": tp.nbytes(),
+                     "slab_s": round(time.perf_counter() - t0, 3)}
+            for name, per in tp.slab_rows.items():
+                if per * tp.n != tp.rows_total[name] or any(
+                        len(x) != per for x in tp.slabs[name]):
+                    raise AssertionError(f"5i {devices}: {name} slabs of "
+                                         f"{[len(x) for x in tp.slabs[name]]}")
+            aligner = make_device_aligner(opt, fmi, device=DEV, tp=tp)
+            if aligner.seed_mode != "megaq":
+                raise AssertionError(f"5i seeds in {aligner.seed_mode}")
+        if aligner is not flat or order == 0:  # its first pass
+            for _ in process_batches(opt, fmi, iter([warm]), 0,
+                                     align_fn=aligner):
+                pass
+        tp_counts(reset=True)
+        torch.cuda.synchronize()
+        with SeedTimer(torch) as seeding:
+            t0 = time.perf_counter()
+            lines = [l for _, ls in process_batches(
+                opt, fmi, iter(batches), 0, align_fn=aligner) for l in ls]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = tp_counts()
+        slabbed = devices is not None
+        if slabbed and (not launches["smem_rounds12_tp"]
+                        or not launches["seed_strategy"]
+                        or launches["sa_lookup_tp"] != seeding.calls
+                        or launches["smem_rounds12"]
+                        or launches["sa_lookup"]):
+            raise AssertionError(f"5i {devices} launched {launches} in "
+                                 f"{seeding.calls} chunks")
+        if lines != main["sam"]:
+            raise AssertionError(f"5i {devices}: SAM != phase 5's "
+                                 f"({len(lines)} vs {len(main['sam'])} "
+                                 f"lines, first diff "
+                                 f"{sam_diff(lines, main['sam'])})")
+        if slabbed:
+            for name in total:
+                total[name] += launches[name]
+        print("[5i tp] " + json.dumps(dict(
+            facts, seed_mode=aligner.seed_mode, reads=n_reads,
+            seconds=round(dt, 3), reads_per_s=round(n_reads / dt, 1),
+            seeding_s=round(seeding.s, 3), seeding_calls=seeding.calls,
+            sam_lines=len(lines), sam_equal_to_phase5=True,
+            launches=launches, cards_seen=cards,
+            **{"5c_reads_per_s": megaq["reads_per_s"],
+               "5c_seeding_s": megaq["seeding_s"]})), flush=True)
+        if slabbed:
+            del aligner, tp
+    if cards < 2:
+        print("[5i tp] " + json.dumps({
+            "one_slab_a_card": "not run: torch sees one card"}), flush=True)
+    return total
 
 
 def fused_walk_checks(torch, np, aligner, first):
@@ -2740,7 +3057,9 @@ def fused_walk_checks(torch, np, aligner, first):
     host clock with the card synchronised, mean of 10), K-sa's marked
     walk on them alone in interleaved passes (its output == the fused
     positions), its plain version once (== the kernel) and the walk's
-    bound (``walk_case``: the bytes of the distinct sectors it reads)."""
+    bound (``walk_case``: the bytes of the distinct sectors it reads).
+    Returns (the facts, K-sa alone on those ranks (``ksa_alone``), the
+    plain walk's stats)."""
     from tpubwa_torch.device import occ, smem
     from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
     flat, _, _, sa = first
@@ -2779,7 +3098,8 @@ def fused_walk_checks(torch, np, aligner, first):
     return {"rows": len(flat), "ranks": len(ranks), "marked": True,
             "equal_to_native_walk": True,
             "rank_build_ms": round(1e3 * float(np.mean(times[1:])), 4),
-            "ksa": dict(case, bound_ms=round(bound_ms, 6), max_abs_err=err)}
+            "ksa": dict(case, bound_ms=round(bound_ms, 6), max_abs_err=err)
+            }, ksa, stats
 
 
 def phase_megaq_stock(torch, np, main, stock):
@@ -3194,10 +3514,14 @@ def pack_reads(np, reads, L=128):
 def seeding_checks(torch, np, label, fmi, arr, lens, opt):
     """K2 (both launches, and with one slot a read) and K3 == their plain
     versions, every instantiation, on ``arr``/``lens``: the kernels on the
-    card, the plain versions on CPU copies of the index.  Returns
-    {instantiation: facts}, each with the plain version's ms."""
+    card, the plain versions on CPU copies of the index; K2's TP
+    instantiation too, over ``TP_SLABS`` slabs on DEV at one row slot a
+    read, and (int32) the plain version over 2 slabs' routed accessors ==
+    over the flat index.  Returns {instantiation: facts}, each with the
+    plain versions' ms."""
     from tpubwa_torch.device import smem, smem_fused
     from tpubwa_torch.device.occ import DeviceIndex
+    from tpubwa_torch.dist.index_tp import TpIndex
     gpu = DeviceIndex.from_fmindex(fmi, DEV)
     cpu = DeviceIndex.from_fmindex(fmi, "cpu")
     q, ld = torch.from_numpy(arr), torch.from_numpy(lens)
@@ -3235,6 +3559,35 @@ def seeding_checks(torch, np, label, fmi, arr, lens, opt):
                         a.cpu().reshape(len(a), -1),
                         b.reshape(len(b), -1))
             second = max(second, stats["second_launch_reads"])
+        # K2's TP instantiation over 2 and 3 slabs, one row slot a read
+        # (most reads take its second launch)
+        for n in TP_SLABS:
+            stats = {}
+            got = smem_fused.rounds12_megaq(
+                opt, TpIndex.from_index(g, [DEV] * n), q.to(DEV), ld.to(DEV),
+                slots=1, stats=stats)
+            torch.cuda.synchronize()
+            if not all(torch.equal(stats[k].cpu(), want_stats[k])
+                       for k in ("steps", "chain")):
+                raise AssertionError(f"{label}/{dt} K2 (tp, {n} slabs) "
+                                     "steps or chain != plain")
+            for a, b, what in ((got[0], want[0], "rows"),
+                               (got[1], want[1], "rids")):
+                if a.shape != b.shape:
+                    raise AssertionError(f"{label}/{dt} K2 (tp, {n} slabs) "
+                                         f"{what}: {tuple(a.shape)}")
+                held_fm(torch, f"{label}/{dt} K2 {what} (tp, {n} slabs)",
+                        a.cpu().reshape(len(a), -1), b.reshape(len(b), -1))
+        plain12_tp = None
+        if dt == "int32":  # the plain version over 2 slabs' accessors
+            t0 = time.perf_counter()
+            tp_want = smem_fused.rounds12_plain(
+                opt, TpIndex.from_index(c, ["cpu", "cpu"]), q, ld)
+            plain12_tp = (time.perf_counter() - t0) * 1e3
+            if not (torch.equal(tp_want[0], want[0])
+                    and torch.equal(tp_want[1], want[1])):
+                raise AssertionError(f"{label} K2's plain version over "
+                                     "slabs != over the flat index")
         stats3 = {}
         got3 = smem._seed_strategy_scan(g, q.to(DEV), ld.to(DEV),
                                         opt.min_seed_len, opt.max_mem_intv,
@@ -3250,8 +3603,11 @@ def seeding_checks(torch, np, label, fmi, arr, lens, opt):
         out[dt] = {"reads": len(arr), "rows12": len(want[0]),
                    "hits": int(want3[1].sum()), "mismatches": 0,
                    "second_launch_reads_at_1_slot": second,
+                   "k2_tp_slabs": list(TP_SLABS),
                    "plain_ms": {"smem_rounds12": round(plain12, 3),
                                 "seed_strategy": round(plain3, 3)}}
+        if plain12_tp is not None:
+            out[dt]["plain_ms"]["smem_rounds12_tp"] = round(plain12_tp, 3)
     return out
 
 
@@ -3260,7 +3616,8 @@ def seeding_bytes(torch, np, didx, qd, ld, opt, kernel, out_rows):
     or K3 (1) must move: the reads and lens, the rows it writes
     (``out_rows``) and their counts, and the distinct sectors of the
     index it reads, counted by csrc/smem_host.cpp (built without the
-    sanitizers) on the same inputs."""
+    sanitizers) on the same inputs.  Returns (the bytes, the distinct
+    occ rows, (the inputs' and outputs' bytes, those rows))."""
     from tpubwa_torch.device import smem, smem_fused, warp_host
     fm = didx.upload_fm()
     arrays = {"occ_blocks": fm["occ_blocks"].cpu().numpy().view(np.uint32),
@@ -3274,34 +3631,41 @@ def seeding_bytes(torch, np, didx, qd, ld, opt, kernel, out_rows):
         slots=smem_fused.K2_SLOTS, count_rows=True, sanitize=False)
     isz = 8 if didx.idt == torch.int64 else 4
     io = B * L + 4 * B + out_rows * 5 * isz + 4 * B
-    return fm_bytes(io, [(rows, OCC_ROW)]), len(rows)
+    return fm_bytes(io, [(rows, OCC_ROW)]), len(rows), (io, rows)
 
 
-def k2_alone(torch, opt, didx, qd, ld, lib=None):
+def k2_alone(torch, opt, didx, qd, ld, lib=None, tp=None):
     """K2's C entry alone on preallocated buffers (every read, the row
     slots of the first launch): a launch not counted on the wrapper.
     The buffers live on the returned function (``.buffers``: rids,
     queue, rows, counts, steps, chain), which launches on their
     pointers.  ``lib``: another build of csrc/smem.cu's entries (the
-    package's own where None)."""
+    package's own where None); ``tp``: K2's TP instantiation over that
+    TpIndex's slabs."""
     from tpubwa_torch.device import _build, smem_fused as sf
     lib = lib or _build.load("smem", sf._SIGNATURES)
+    entry, index = lib.tpubwa_smem_rounds12, sf.index_args(didx)
+    if tp is not None:
+        entry = lib.tpubwa_smem_rounds12_tp
+        index = (tp.n, tp.kernel_table("occ_blocks"), tp.L2.data_ptr(),
+                 tp.primary, tp.seq_len, int(tp.idt == torch.int64))
     B, L = qd.shape
     rids = torch.arange(B, dtype=torch.int32, device=DEV)
     queue = torch.empty(1, dtype=torch.int32, device=DEV)
     rows = torch.empty((B, sf.K2_SLOTS, 5), dtype=didx.idt, device=DEV)
     counts, steps, chain = (torch.empty(B, dtype=torch.int32, device=DEV)
                             for _ in range(3))
-    args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
+    args = (*index, qd.data_ptr(), L, ld.data_ptr(),
             rids.data_ptr(), B, opt.min_seed_len, sf.split_len_of(opt),
             opt.split_width, sf.K2_SLOTS, queue.data_ptr(),
             rows.data_ptr(), counts.data_ptr(), steps.data_ptr(),
             chain.data_ptr(), qd.device.index, sf.stream_of(qd))
 
     def launch():
-        if lib.tpubwa_smem_rounds12(*args):
+        if entry(*args):
             raise AssertionError("K2's launch failed")
     launch.buffers = (rids, queue, rows, counts, steps, chain)
+    launch.index = tp
     return launch
 
 
@@ -3388,8 +3752,11 @@ def phase_seeding(torch, np, main, megaq):
     reads; megaq rows == the native seeder's on all 32,768 of phase 5's
     reads, both instantiations; then, on 5c's first chunk (the launch the
     main path gives K2), each kernel alone in interleaved passes, its
-    wrapper, its bwt_extend steps a read and a warp, and its bytes.
-    Returns {kernel: (launches, max_abs_err, case)}."""
+    wrapper, its bwt_extend steps a read and a warp, and its bytes; K2's
+    and K-sa's TP instantiations over 2 and 3 slabs alone beside them
+    (K-sa on 5c's ranks), == the flat kernels, with their bounds and
+    SASS.  Returns {kernel: case}, the TP rows' under
+    ``smem_rounds12_tp`` and ``sa_lookup_tp``."""
     import tempfile
     from tpubwa_torch.device import smem, smem_fused
     from tpubwa_torch.device.smem import collect_intv_device
@@ -3443,6 +3810,18 @@ def phase_seeding(torch, np, main, megaq):
              "seed_strategy": k3_alone(torch, opt_, didx, qd, ld),
              "seed_strategy int64": k3_alone(
                  torch, opt_, int64_twin(torch, didx), qd, ld)}
+    # the TP instantiations beside the flat ones: K2 on the chunk, K-sa
+    # on its fused walk's ranks (5c), over 2 and 3 slabs on DEV
+    from tpubwa_torch.device import occ
+    from tpubwa_torch.dist.index_tp import TpIndex
+    ksa, walk_stats = megaq["walk"]
+    ranks = ksa.buffers[0]
+    tps = {n: TpIndex.from_index(didx, [DEV] * n) for n in TP_SLABS}
+    alone["sa_lookup"] = ksa
+    for n, tp in tps.items():
+        alone[f"smem_rounds12_tp {n}"] = k2_alone(torch, opt_, didx, qd, ld,
+                                                  tp=tp)
+        alone[f"sa_lookup_tp {n}"] = ksa_tp_alone(torch, tp, ranks)
     best = interleaved_min({
         **alone,
         "smem_rounds12 wrapper": lambda: smem_fused.rounds12_megaq(
@@ -3467,6 +3846,28 @@ def phase_seeding(torch, np, main, megaq):
                                                   "longest")))))):
             raise AssertionError(f"{name} alone != its wrapper's hits, "
                                  "counts, steps, chain and longest scan")
+    # K2's TP instantiation: rows (in their slots), counts, steps and
+    # chain == K2 flat's; K-sa's: positions == the flat walk's
+    *_, rows, counts, steps, chain = alone["smem_rounds12"].buffers
+    slot = (torch.arange(rows.shape[1], device=DEV)[None, :]
+            < counts.clamp(max=rows.shape[1])[:, None])
+    for n in TP_SLABS:
+        *_, t_rows, t_counts, t_steps, t_chain = alone[
+            f"smem_rounds12_tp {n}"].buffers
+        if not (torch.equal(t_counts, counts) and torch.equal(t_steps, steps)
+                and torch.equal(t_chain, chain)
+                and torch.equal(t_rows[slot], rows[slot])):
+            raise AssertionError(f"K2 (tp, {n} slabs) != K2 flat on 5c's "
+                                 "first chunk")
+        if not torch.equal(alone[f"sa_lookup_tp {n}"].buffers[1],
+                           ksa.buffers[1]):
+            raise AssertionError(f"K-sa (tp, {n} slabs) != K-sa flat on "
+                                 "5c's ranks")
+    tp_stats = {}
+    tp_plain, tp_plain_ms = timed_once(torch, lambda: occ.sa_lookup_plain(
+        tps[2], ranks, stats=tp_stats))
+    _, ksa_err = held_fm(torch, "K-sa (tp) on 5c's ranks", alone[
+        "sa_lookup_tp 2"].buffers[1], tp_plain)
     # the plain versions step one interval at a time: timed on 256 of the
     # chunk's reads and the edge reads, not on the chunk
     plain256 = cases[f"{GENOME_MB} Mbp"]["int32"]["plain_ms"]
@@ -3475,8 +3876,10 @@ def phase_seeding(torch, np, main, megaq):
             ("smem_rounds12", stats12, len(rows12), 0),
             ("seed_strategy", stats3, int(n_hits.sum()), 1)):
         steps = stats["steps"].cpu().numpy()
-        nbytes, n_occ = seeding_bytes(torch, np, didx, qd, ld, opt_, kernel,
-                                      n_out)
+        nbytes, n_occ, read = seeding_bytes(torch, np, didx, qd, ld, opt_,
+                                            kernel, n_out)
+        if not kernel:
+            k2_read = read
         case = {"reads": len(ld), "rows": n_out,
                 "ms": round(best[name], 4),
                 "wrapper_ms": round(best[f"{name} wrapper"], 4),
@@ -3501,14 +3904,59 @@ def phase_seeding(torch, np, main, megaq):
         out[name] = case
     out["smem_rounds12"]["second_launch_reads"] = stats12[
         "second_launch_reads"]
+    # the TP rows: their bound from the sectors of the slabs' own rows
+    io, occ_rows = k2_read
+    tp2 = tps[2]
+    out["smem_rounds12_tp"] = {
+        "reads": len(ld), "slabs": 2, "ms": round(best["smem_rounds12_tp 2"],
+                                                  4),
+        "ms_3_slabs": round(best["smem_rounds12_tp 3"], 4),
+        "flat_ms": round(best["smem_rounds12"], 4),
+        "plain_ms": cases[f"{GENOME_MB} Mbp"]["int32"]["plain_ms"][
+            "smem_rounds12_tp"],
+        "plain_reads": cases[f"{GENOME_MB} Mbp"]["int32"]["reads"],
+        "bytes": fm_bytes(io, slab_reads(tp2, "occ_blocks", occ_rows,
+                                         OCC_ROW)),
+        "slab_rows": tp2.slab_rows, "max_abs_err": 0}
+    out["sa_lookup_tp"] = {
+        "n": len(ranks), "slabs": 2, "ms": round(best["sa_lookup_tp 2"], 4),
+        "ms_3_slabs": round(best["sa_lookup_tp 3"], 4),
+        "flat_ms": round(best["sa_lookup"], 4),
+        "plain_ms": round(tp_plain_ms, 3),
+        "bytes": tp_walk_bytes(tp2, len(ranks), walk_stats),
+        "max_abs_err": ksa_err}
+    for name in ("smem_rounds12_tp", "sa_lookup_tp"):
+        out[name]["bound_ms"] = round(bytes_bound(out[name])[0], 6)
     out["smem_rounds12"].update(k2_launch_facts(torch, didx, qd.shape[1]))
     out["seed_strategy"].update(k3_launch_facts(torch, len(ld)))
     print("[3h seeding] " + json.dumps({
         "tolerance": 0, "cases": cases, "native_seeder": native,
         "main_launch": out, "card": "the first chunk of 5c (16,384 reads)",
         "k2_refusals": k2_refusals(torch, didx, qd, ld, opt_),
-        "sass_loads": seeding_sass(),
+        "sass_loads": seeding_sass(), "tp_sass": tp_sass(),
         "seconds": round(time.perf_counter() - t_phase, 1)}), flush=True)
+    return out
+
+
+def tp_sass():
+    """Each TP instantiation beside its flat one (int32): its registers
+    and spills (ptxas) and its row loads in SASS (``load_rounds``: of the
+    loop of a step, in K-sa's marked walk and K2; of the whole kernel in
+    K-ext, one query a thread)."""
+    from tpubwa_torch.device import _build
+    out, text = {}, {}
+    for name, src, fn, loop in (
+            ("sa_lookup", "occ", r"sa_lookup_kernelIiLb1ELb{}EE", True),
+            ("bwt_extend", "occ", r"bwt_extend_kernelIiLb0ELb{}EE", False),
+            ("smem_rounds12", "smem", r"collect12_kernelIiLb{}EE", True)):
+        if src not in text:
+            text[src] = _run([_cuobjdump(), "-sass",
+                              _build.build_info[src]["so"]])
+        report = _build.build_info[src]["ptxas"]
+        out[name] = {form: dict(ptxas_usage(report, fn.format(b)),
+                                step=load_rounds(text[src], fn.format(b),
+                                                 loop=loop))
+                     for form, b in (("flat", 0), ("tp", 1))}
     return out
 
 
@@ -3525,7 +3973,7 @@ def k2_launch_facts(torch, didx, L):
     report = _build.build_info["smem"]["ptxas"]
     return {"launch": dict(shape, warps_per_sm=shape["warps"]
                            * shape["blocks_per_sm"]),
-            "ptxas": {dt: ptxas_usage(report, rf"collect12_kernelI{m}E")
+            "ptxas": {dt: ptxas_usage(report, rf"collect12_kernelI{m}Lb0EE")
                       for dt, m in (("int32", "i"), ("int64", "l"))}}
 
 
@@ -3568,9 +4016,9 @@ def seeding_sass():
     how wide, and whether a loop's loads wait for one another."""
     from tpubwa_torch.device import _build
     text = _run([_cuobjdump(), "-sass", _build.build_info["smem"]["so"]])
-    return {name: sass_loads(text, rf"{fn}IiE")
-            for name, fn in (("smem_rounds12", "collect12_kernel"),
-                             ("seed_strategy", "seed_strategy_kernel"))}
+    return {name: sass_loads(text, fn)
+            for name, fn in (("smem_rounds12", r"collect12_kernelIiLb0EE"),
+                             ("seed_strategy", r"seed_strategy_kernelIiE"))}
 
 
 def main() -> int:
@@ -3593,15 +4041,16 @@ def main() -> int:
     phase_golden(torch)
     phase_shard(torch)
     phase_dist(torch)
-    phase_dryrun(torch)
+    dryrun_tp = phase_dryrun(torch)
     main_path = phase_main_path(torch, np)
     launches = main_path["launches"]
     stock, sa_case, sa_launches, _ = phase_stock_bwa(torch, np, main_path)
-    ext_case, ext_launches, sa_err = phase_occ(torch, np, main_path["fmi"],
-                                               stock)
+    ext_case, ext_launches, sa_err, (ext_tp_case, ext_tp_launches) = \
+        phase_occ(torch, np, main_path["fmi"], stock)
     sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
     megaq = phase_megaq(torch, np, main_path)
     seeding = phase_seeding(torch, np, main_path, megaq)
+    tp_launches = phase_megaq_tp(torch, np, main_path, megaq)
     d5 = phase_megaq_stock(torch, np, main_path, stock)
     dp_launches = phase_megaq_dp(torch, np, main_path, stock, d5)
     hybrid = phase_hybrid(torch, np, main_path, megaq)
@@ -3680,6 +4129,27 @@ def main() -> int:
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})
+    # the TP instantiations: bound by bytes alone, the distinct sectors
+    # of the slabs' own rows their run reads
+    for name, src, replaces, n, case in (
+            ("smem_rounds12_tp", "smem", "tpubwa/dist/index_tp.py:331",
+             tp_launches["smem_rounds12_tp"] + dryrun_tp["smem_rounds12_tp"],
+             seeding["smem_rounds12_tp"]),
+            ("sa_lookup_tp", "occ", "tpubwa/dist/index_tp.py:132",
+             tp_launches["sa_lookup_tp"] + dryrun_tp["sa_lookup_tp"],
+             seeding["sa_lookup_tp"]),
+            ("bwt_extend_tp", "occ", "tpubwa/dist/index_tp.py:111",
+             ext_tp_launches, ext_tp_case)):
+        bound_ms, bound_by, parts = bytes_bound(case)
+        sass[name] = dict(bytes=case["bytes"],
+                          **{k: round(v, 6) for k, v in parts.items()})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpubwa_torch/csrc/{src}.cu", "replaces": replaces,
+            "launches": n, "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+            "library_ms": None})
     print("[bounds] " + json.dumps({"card": rates, "hbm_bytes_s":
                                     HBM_BYTES_S, "kernels": sass}),
           flush=True)

@@ -28,7 +28,17 @@
 // registers, so a step is one trip to memory, not a word load and then
 // the loads that its base selects; a mark row is two 16-byte loads
 // (load_mark_row), which the marked walk issues beside the occ row of
-// the same rank (csrc/occ.cu).  With TPUBWA_WARP_HOST
+// the same rank (csrc/occ.cu).
+//
+// Where a row lives is a compile-time choice (Index's Occ, and the mark
+// rows' and sa_marked's own forms): the flat array, row b at
+// p + b * words, or an index sharded into slabs of rows, each its own
+// allocation, maybe on another card (Slabs, the TP instantiations of
+// csrc/occ.cu and csrc/smem.cu): the row's slab is picked by comparing b
+// with the slabs' first rows, and the rest of the step is unchanged.
+// The row's address is the only thing that differs.
+//
+// With TPUBWA_WARP_HOST
 // defined (the host harness of csrc/warp_host.h) __popc, __ldg and the
 // 16-byte load are their host equivalents (the last checks its
 // alignment), and a harness may set fm::read_rows to collect the occ row
@@ -37,6 +47,10 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <type_traits>
+#include <utility>
 
 #ifdef TPUBWA_WARP_HOST
 #include <cstdio>
@@ -62,9 +76,49 @@ constexpr int kRowWords = 12;   // occ row: 4 counts + 8 BWT words
 constexpr int kMarkWords = 8;   // mark row: count + 4 bit words + 3 pad
 constexpr int kSaIntv = 32;     // rank sampling of sa_sample
 
-template <class Idx>
+constexpr int kMaxSlabs = 8;    // slabs of a sharded index, at most
+
+// An index array split into slabs of rows, each its own allocation (the
+// sharded index of tpubwa_torch/dist/index_tp.py): slab s, at p[s],
+// holds rows [first[s], first[s + 1]), first[0] = 0; a slot past the
+// slabs has first INT64_MAX, so no row selects it.  A kernel takes it
+// by value, in its parameters.
+template <class T>
+struct Slabs {
+    const T* p[kMaxSlabs];
+    int64_t first[kMaxSlabs];
+};
+
+// a kernel's rows of an index array: the flat array, or its slabs
+template <class T, bool Slabbed>
+using Rows = typename std::conditional<Slabbed, Slabs<T>, const T*>::type;
+
+// the W elements of row b of a flat array
+template <int W, class T>
+__device__ __forceinline__ const T* row_at(const T* p, int64_t b) {
+    return p + b * W;
+}
+
+// the W elements of row b of a slabbed array: its slab picked by an
+// unrolled select on the slabs' first rows, so the row's address takes
+// no division
+template <int W, class T>
+__device__ __forceinline__ const T* row_at(const Slabs<T>& s, int64_t b) {
+    const T* p = s.p[0];
+    int64_t lo = 0;
+#pragma unroll
+    for (int i = 1; i < kMaxSlabs; ++i) {
+        const bool in = b >= s.first[i];
+        p = in ? s.p[i] : p;
+        lo = in ? s.first[i] : lo;
+    }
+    return p + (b - lo) * W;
+}
+
+// Occ: the occ rows' form, a pointer to the flat array or its Slabs
+template <class Idx, class Occ = const uint32_t*>
 struct Index {
-    const uint32_t* occ;  // [n_blocks, kRowWords]
+    Occ occ;              // [n_blocks, kRowWords]
     const Idx* L2;        // [5]: 0, #A, #A+#C, #A+#C+#G, seq_len
     Idx primary;          // conceptual row of the sentinel
     Idx seq_len;          // doubled text length
@@ -76,8 +130,8 @@ struct Index {
 };
 
 // f with L2's values loaded into f.l2: a kernel's first step
-template <class Idx>
-__device__ __forceinline__ Index<Idx> with_l2(Index<Idx> f) {
+template <class Idx, class Occ>
+__device__ __forceinline__ Index<Idx, Occ> with_l2(Index<Idx, Occ> f) {
 #pragma unroll
     for (int i = 0; i < 5; ++i) f.l2[i] = __ldg(f.L2 + i);
     return f;
@@ -89,19 +143,26 @@ __device__ __forceinline__ uint32_t match(uint32_t w, int c) {
     return x & (x >> 1) & 0x55555555u;
 }
 
+// the occ row of block b
+template <class Idx, class Occ>
+__device__ __forceinline__ const uint32_t* occ_block(const Index<Idx, Occ>& f,
+                                                     int64_t b) {
+    return row_at<kRowWords>(f.occ, b);
+}
+
 // the occ row of stored BWT index x
-template <class Idx>
-__device__ __forceinline__ const uint32_t* occ_row(const Index<Idx>& f,
+template <class Idx, class Occ>
+__device__ __forceinline__ const uint32_t* occ_row(const Index<Idx, Occ>& f,
                                                    Idx x) {
 #ifdef TPUBWA_WARP_HOST
     if (read_rows) read_rows->push_back((int64_t)(x >> 7));
 #endif
-    return f.occ + (int64_t)(x >> 7) * kRowWords;
+    return occ_block(f, (int64_t)(x >> 7));
 }
 
 // stored BWT[x], x in [0, seq_len)
-template <class Idx>
-__device__ __forceinline__ int bwt_code(const Index<Idx>& f, Idx x) {
+template <class Idx, class Occ>
+__device__ __forceinline__ int bwt_code(const Index<Idx, Occ>& f, Idx x) {
     const int within = (int)(x & 127);
     const uint32_t w = __ldg(occ_row(f, x) + 4 + (within >> 4));
     return (int)(w >> ((15 - (within & 15)) << 1)) & 3;
@@ -129,8 +190,8 @@ struct Row {
 };
 
 // the occ row of stored BWT index x, its three loads issued together
-template <class Idx>
-__device__ __forceinline__ Row load_row(const Index<Idx>& f, Idx x) {
+template <class Idx, class Occ>
+__device__ __forceinline__ Row load_row(const Index<Idx, Occ>& f, Idx x) {
     const uint32_t* row = occ_row(f, x);
     return Row{load16(row), load16(row + 4), load16(row + 8)};
 }
@@ -178,16 +239,17 @@ __device__ __forceinline__ void row_occ4(const Row& r, int nb, Idx cnt[4]) {
 // occ4's stored row for conceptual row k (kk = k - (k >= primary),
 // clamped into the stored rows); false where occ4 reads no row: k < 0
 // (all zero) and k == seq_len (the totals, from L2)
-template <class Idx>
-__device__ __forceinline__ bool occ4_kk(const Index<Idx>& f, Idx k, Idx* kk) {
+template <class Idx, class Occ>
+__device__ __forceinline__ bool occ4_kk(const Index<Idx, Occ>& f, Idx k,
+                                        Idx* kk) {
     Idx x = k >= f.primary ? k - 1 : k;
     *kk = x < 0 ? 0 : x > f.seq_len - 1 ? f.seq_len - 1 : x;
     return k >= 0 && k != f.seq_len;
 }
 
 // occ4 where it reads no row (see occ4_kk)
-template <class Idx>
-__device__ __forceinline__ void occ4_edge(const Index<Idx>& f, Idx k,
+template <class Idx, class Occ>
+__device__ __forceinline__ void occ4_edge(const Index<Idx, Occ>& f, Idx k,
                                           Idx cnt[4]) {
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -195,8 +257,8 @@ __device__ __forceinline__ void occ4_edge(const Index<Idx>& f, Idx k,
 }
 
 // occ(k, c) for all four bases; k a conceptual row in [-1, seq_len]
-template <class Idx>
-__device__ __forceinline__ void occ4(const Index<Idx>& f, Idx k,
+template <class Idx, class Occ>
+__device__ __forceinline__ void occ4(const Index<Idx, Occ>& f, Idx k,
                                      Idx cnt[4]) {
     Idx kk;
     if (!occ4_kk(f, k, &kk)) {
@@ -207,8 +269,8 @@ __device__ __forceinline__ void occ4(const Index<Idx>& f, Idx k,
 }
 
 // occ(k, c) for one base
-template <class Idx>
-__device__ __forceinline__ Idx occ1(const Index<Idx>& f, Idx k, int c) {
+template <class Idx, class Occ>
+__device__ __forceinline__ Idx occ1(const Index<Idx, Occ>& f, Idx k, int c) {
     Idx cnt[4];
     occ4(f, k, cnt);
     return cnt[c];
@@ -217,8 +279,8 @@ __device__ __forceinline__ Idx occ1(const Index<Idx>& f, Idx k, int c) {
 // inv_psi's stored row for conceptual row k: x = k - (k > primary),
 // clamped into the stored rows.  It equals occ4's kk except at k ==
 // primary (whose LF is 0), so one row serves the BWT code and its count.
-template <class Idx>
-__device__ __forceinline__ Idx lf_x(const Index<Idx>& f, Idx k) {
+template <class Idx, class Occ>
+__device__ __forceinline__ Idx lf_x(const Index<Idx, Occ>& f, Idx k) {
     const Idx x = k > f.primary ? k - 1 : k;
     return x < 0 ? 0 : x > f.seq_len - 1 ? f.seq_len - 1 : x;
 }
@@ -243,8 +305,8 @@ __device__ __forceinline__ T pick4(T a, T b, T c, T d, int i) {
 // step and all their loads are issued before any is used.  Without it
 // ptxas loaded the counts (and the marked walk's mark row) only after
 // the words were counted: two trips a step.
-template <class Idx>
-__device__ __forceinline__ Idx lf_row(const Index<Idx>& f, const Row& r,
+template <class Idx, class Occ>
+__device__ __forceinline__ Idx lf_row(const Index<Idx, Occ>& f, const Row& r,
                                       Idx k, Idx x, uint32_t gate = 0) {
     const uint32_t w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w,
                            r.hi.x, r.hi.y, r.hi.z, r.hi.w};
@@ -267,8 +329,8 @@ __device__ __forceinline__ Idx lf_row(const Index<Idx>& f, const Row& r,
 // LF mapping on conceptual rows k in [0, seq_len]: one trip to memory,
 // x's whole row as three 16-byte loads issued together (load_row), then
 // everything from registers (lf_row).  f.l2 must be loaded (with_l2).
-template <class Idx>
-__device__ __forceinline__ Idx inv_psi(const Index<Idx>& f, Idx k) {
+template <class Idx, class Occ>
+__device__ __forceinline__ Idx inv_psi(const Index<Idx, Occ>& f, Idx k) {
     const Idx x = lf_x(f, k);
     return lf_row(f, load_row(f, x), k, x);
 }
@@ -280,11 +342,11 @@ struct MarkRow {
 };
 
 // the mark row of conceptual rank k, as two 16-byte loads issued
-// together (a mark row is 32 bytes, the array's start 16-byte aligned)
-template <class Idx>
-__device__ __forceinline__ MarkRow load_mark_row(const uint32_t* marks,
-                                                 Idx k) {
-    const uint32_t* row = marks + (int64_t)(k >> 7) * kMarkWords;
+// together (a mark row is 32 bytes, the array's start 16-byte aligned);
+// marks: the flat array or its Slabs
+template <class Idx, class Marks>
+__device__ __forceinline__ MarkRow load_mark_row(const Marks& marks, Idx k) {
+    const uint32_t* row = row_at<kMarkWords>(marks, (int64_t)(k >> 7));
     return MarkRow{load16(row), load16(row + 4)};
 }
 
@@ -315,8 +377,8 @@ __device__ __forceinline__ int64_t mark_index(const MarkRow& m, Idx k) {
 
 // the interval of the one-base pattern c (bwt.h:bwt_set_intv): x0 from
 // c's bucket, x1 from its complement's, size = the count of c
-template <class Idx>
-__device__ __forceinline__ void set_intv(const Index<Idx>& f, int c,
+template <class Idx, class Occ>
+__device__ __forceinline__ void set_intv(const Index<Idx, Occ>& f, int c,
                                          Idx ik[3]) {
     ik[0] = __ldg(f.L2 + c) + 1;
     ik[1] = __ldg(f.L2 + 3 - c) + 1;
@@ -325,8 +387,8 @@ __device__ __forceinline__ void set_intv(const Index<Idx>& f, int c,
 
 // bwt_extend's result from its two occ4 queries: tk = occ4(piv - 1),
 // tl = occ4(piv - 1 + size)
-template <class Idx, bool IsBack>
-__device__ __forceinline__ void extend_counts(const Index<Idx>& f,
+template <class Idx, bool IsBack, class Occ>
+__device__ __forceinline__ void extend_counts(const Index<Idx, Occ>& f,
                                               const Idx ik[3],
                                               const Idx tk[4],
                                               const Idx tl[4],
@@ -352,8 +414,8 @@ __device__ __forceinline__ void extend_counts(const Index<Idx>& f,
 // appended, as (x0, x1, size) in tpubwa's order.  Two occ4 queries, at
 // piv - 1 and piv - 1 + size: both rows are loaded before either is
 // counted, and once where the two fall in one block.
-template <class Idx, bool IsBack>
-__device__ __forceinline__ void bwt_extend(const Index<Idx>& f,
+template <class Idx, bool IsBack, class Occ>
+__device__ __forceinline__ void bwt_extend(const Index<Idx, Occ>& f,
                                            const Idx ik[3], Idx ok[4][3]) {
     const Idx piv = IsBack ? ik[0] : ik[1];
     const Idx k = piv - 1, l = piv - 1 + ik[2];
@@ -367,6 +429,66 @@ __device__ __forceinline__ void bwt_extend(const Index<Idx>& f,
     if (rl) row_occ4(b, (int)(ll & 127) + 1, tl);
     else occ4_edge(f, l, tl);
     extend_counts<Idx, IsBack>(f, ik, tk, tl, ok);
+}
+
+// Host side: the checks and slab tables of a launch.
+
+// rows whose 16-byte loads (load16) are aligned: the array's start, or
+// every slab's
+inline bool aligned16(const uint32_t* p) { return !((uintptr_t)p & 15); }
+
+inline bool aligned16(const Slabs<uint32_t>& s) {
+    for (const uint32_t* p : s.p)
+        if (!aligned16(p)) return false;
+    return true;
+}
+
+// Peer access from `device` (the current device) to `peer`'s memory,
+// enabled once a pair (an enable already made elsewhere,
+// cudaErrorPeerAccessAlreadyEnabled, counts as made); an error where the
+// pair cannot reach each other.
+inline cudaError_t enable_peer(int device, int peer) {
+    static std::mutex lock;
+    static std::set<std::pair<int, int>> done;
+    std::lock_guard<std::mutex> hold(lock);
+    if (done.count({device, peer})) return cudaSuccess;
+    int can = 0;
+    cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+    if (err != cudaSuccess) return err;
+    if (!can) return cudaErrorPeerAccessUnsupported;
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // returned, not left for the next launch
+        err = cudaSuccess;
+    }
+    if (err == cudaSuccess) done.insert({device, peer});
+    return err;
+}
+
+// The slab table of an array from the caller's host array t of 3 * n
+// int64: the slabs' device addresses, their first rows (ascending from
+// 0) and their devices.  A slab on another device than `device` (the
+// launch's, current) is read through peer access (enable_peer), never
+// copied.  cudaErrorInvalidValue for n outside [1, kMaxSlabs], a null
+// slab, or first rows that do not ascend from 0.
+template <class T>
+inline cudaError_t slab_table(const int64_t* t, int n, int device,
+                              Slabs<T>* s) {
+    if (n < 1 || n > kMaxSlabs || t[n] != 0) return cudaErrorInvalidValue;
+    for (int i = 0; i < kMaxSlabs; ++i) {
+        s->p[i] = i < n ? reinterpret_cast<const T*>((uintptr_t)t[i])
+                        : nullptr;
+        s->first[i] = i < n ? t[n + i] : INT64_MAX;
+    }
+    for (int i = 0; i < n; ++i) {
+        if (!s->p[i] || (i && s->first[i] <= s->first[i - 1]))
+            return cudaErrorInvalidValue;
+        if (t[2 * n + i] != device) {
+            const cudaError_t err = enable_peer(device, (int)t[2 * n + i]);
+            if (err != cudaSuccess) return err;
+        }
+    }
+    return cudaSuccess;
 }
 
 }  // namespace fm

@@ -20,6 +20,15 @@
 // :155); the wrapper is tpubwa_torch/device/occ.py:bwt_extend.  ik idt
 // [n, 3] (x0, x1, size) -> idt [n, 4, 3].
 //
+// Each kernel has a TP instantiation (Tp true), for an index split into
+// row slabs across devices (tpubwa_torch/dist/index_tp.py:TpIndex, the
+// counterpart of tpubwa/dist/index_tp.py): K-sa's marked walk (tpubwa's
+// TpIndex.sa_lookup, :132, the only walk it shards) and K-ext (its
+// TpIndex.bwt_extend, :111), behind tpubwa_sa_lookup_tp and
+// tpubwa_bwt_extend_tp.  They compute what the flat ones compute; only
+// a row's address differs (fm.cuh:row_at over fm::Slabs), and the flat
+// instantiations compile as before.
+//
 // What bounds K-sa on this card is not the distinct bytes it reads.  An
 // LF step reads one 48-byte occ row at a rank the step before computed;
 // the marked walk adds a 32-byte mark row.  The distinct sectors a
@@ -90,15 +99,18 @@ constexpr int kThreads = 128;  // threads a block
 constexpr int kTile = 32;      // ranks a warp takes from the queue at once
 constexpr unsigned kFull = 0xffffffffu;
 
+using fm::Rows;
+
 // one step of a lane's walk of rank i, now at k after `steps` LF steps:
 // the rows of k loaded together, then the walk ends (its position
-// written, i set to -1) or takes an LF step
-template <class Idx, bool Marked>
+// written, i set to -1) or takes an LF step.  Tp: the index's rows in
+// slabs (fm::Slabs)
+template <class Idx, bool Marked, bool Tp>
 __device__ __forceinline__ void walk_step(
-    const fm::Index<Idx>& f, const uint32_t* __restrict__ marks,
-    const Idx* __restrict__ sa_marked, int mark_D,
-    const Idx* __restrict__ sa_sample, Idx* __restrict__ out, int& i, Idx& k,
-    Idx& steps) {
+    const fm::Index<Idx, Rows<uint32_t, Tp>>& f,
+    const Rows<uint32_t, Tp>& marks, const Rows<Idx, Tp>& sa_marked,
+    int mark_D, const Idx* __restrict__ sa_sample, Idx* __restrict__ out,
+    int& i, Idx& k, Idx& steps) {
     if (Marked) {
         const fm::MarkRow m = fm::load_mark_row(marks, k);
         const Idx x = fm::lf_x(f, k);
@@ -109,7 +121,8 @@ __device__ __forceinline__ void walk_step(
         // so the step's five loads are issued together
         const Idx lf = fm::lf_row(f, row, k, x, m.a.x ^ m.b.x);
         if (ends) {
-            out[i] = steps + __ldg(sa_marked + fm::mark_index(m, k));
+            out[i] = steps +
+                     __ldg(fm::row_at<1>(sa_marked, fm::mark_index(m, k)));
             i = -1;
         }
         k = ends ? k : lf;
@@ -125,12 +138,13 @@ __device__ __forceinline__ void walk_step(
 
 // K-sa: each lane walks one rank at a time, from the rank queue (*queue,
 // zero at launch); lanes[i] (where not null) gets the global index of
-// the thread that walked rank i
-template <class Idx, bool Marked>
+// the thread that walked rank i.  Tp: the TP instantiation, the index's
+// rows in slabs
+template <class Idx, bool Marked, bool Tp>
 __global__ void __launch_bounds__(kThreads)
-sa_lookup_kernel(fm::Index<Idx> f, const uint32_t* __restrict__ marks,
-                 const Idx* __restrict__ sa_marked, int mark_D,
-                 const Idx* __restrict__ sa_sample,
+sa_lookup_kernel(fm::Index<Idx, Rows<uint32_t, Tp>> f,
+                 Rows<uint32_t, Tp> marks, Rows<Idx, Tp> sa_marked,
+                 int mark_D, const Idx* __restrict__ sa_sample,
                  const Idx* __restrict__ ranks, Idx* __restrict__ out,
                  int n, int32_t* __restrict__ queue,
                  int32_t* __restrict__ lanes) {
@@ -172,14 +186,16 @@ sa_lookup_kernel(fm::Index<Idx> f, const uint32_t* __restrict__ marks,
             idle = __ballot_sync(kFull, i < 0);
         }
         if (drained && idle == kFull) break;  // every walk written
-        if (i >= 0) walk_step<Idx, Marked>(f, marks, sa_marked, mark_D,
-                                           sa_sample, out, i, k, steps);
+        if (i >= 0)
+            walk_step<Idx, Marked, Tp>(f, marks, sa_marked, mark_D,
+                                       sa_sample, out, i, k, steps);
     }
 }
 
-template <class Idx, bool IsBack>
+template <class Idx, bool IsBack, bool Tp>
 __global__ void __launch_bounds__(kThreads)
-bwt_extend_kernel(fm::Index<Idx> f, const Idx* __restrict__ ik,
+bwt_extend_kernel(fm::Index<Idx, Rows<uint32_t, Tp>> f,
+                  const Idx* __restrict__ ik,
                   Idx* __restrict__ ok, int64_t n) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -210,13 +226,14 @@ struct ShapeSa {
     int64_t blocks = 0;
 };
 
-template <class Idx, bool Marked>
+template <class Idx, bool Marked, bool Tp = false>
 cudaError_t shape_sa(int64_t n, int max_blocks, int device, ShapeSa* s) {
     cudaError_t err = cudaDeviceGetAttribute(
         &s->sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &s->blocks_per_sm, sa_lookup_kernel<Idx, Marked>, kThreads, 0);
+            &s->blocks_per_sm, sa_lookup_kernel<Idx, Marked, Tp>, kThreads,
+            0);
     if (err != cudaSuccess) return err;
     int64_t blocks = (int64_t)s->blocks_per_sm * s->sms;
     if (max_blocks > 0 && max_blocks < blocks) blocks = max_blocks;
@@ -227,42 +244,105 @@ cudaError_t shape_sa(int64_t n, int max_blocks, int device, ShapeSa* s) {
     return s->blocks > 0 || n == 0 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <class Idx, bool Marked>
-cudaError_t launch_sa(const void* occ, const void* L2, const void* marks,
-                      const void* sa_marked, const void* sa_sample,
-                      int64_t primary, int64_t seq_len, int mark_D,
-                      const void* ranks, void* out, int64_t n, void* queue,
-                      void* lanes, int max_blocks, int device,
+template <class Idx, bool Marked, bool Tp>
+cudaError_t launch_sa(const fm::Index<Idx, Rows<uint32_t, Tp>>& f,
+                      const Rows<uint32_t, Tp>& marks,
+                      const Rows<Idx, Tp>& sa_marked, const void* sa_sample,
+                      int mark_D, const void* ranks, void* out, int64_t n,
+                      void* queue, void* lanes, int max_blocks, int device,
                       cudaStream_t stream) {
     ShapeSa s;
-    cudaError_t err = shape_sa<Idx, Marked>(n, max_blocks, device, &s);
+    cudaError_t err = shape_sa<Idx, Marked, Tp>(n, max_blocks, device, &s);
     if (err != cudaSuccess) return err;  // refused: no launch is made
-    // the rows' 16-byte loads (fm.cuh:load16)
-    if ((uintptr_t)occ & 15 || (Marked && (uintptr_t)marks & 15))
+    if (!fm::aligned16(f.occ) || (Marked && !fm::aligned16(marks)))
         return cudaErrorInvalidValue;
     if (n <= 0) return cudaSuccess;
     err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
     if (err != cudaSuccess) return err;
-    const fm::Index<Idx> f = index_of<Idx>(occ, L2, primary, seq_len);
     // (a template-id's comma would split the launch macro's arguments)
-    const auto kernel = sa_lookup_kernel<Idx, Marked>;
-    TPUBWA_LAUNCH(kernel, (int)s.blocks, kThreads, 0, stream, f,
-                  (const uint32_t*)marks, (const Idx*)sa_marked, mark_D,
-                  (const Idx*)sa_sample, (const Idx*)ranks, (Idx*)out, (int)n,
-                  (int32_t*)queue, (int32_t*)lanes);
+    const auto kernel = sa_lookup_kernel<Idx, Marked, Tp>;
+    TPUBWA_LAUNCH(kernel, (int)s.blocks, kThreads, 0, stream, f, marks,
+                  sa_marked, mark_D, (const Idx*)sa_sample, (const Idx*)ranks,
+                  (Idx*)out, (int)n, (int32_t*)queue, (int32_t*)lanes);
+    return cudaGetLastError();
+}
+
+template <class Idx, bool Tp>
+cudaError_t launch_extend(const fm::Index<Idx, Rows<uint32_t, Tp>>& f,
+                          int is_back, const void* ik, void* ok, int64_t n,
+                          cudaStream_t stream) {
+    const auto kernel = is_back ? bwt_extend_kernel<Idx, true, Tp>
+                                : bwt_extend_kernel<Idx, false, Tp>;
+    TPUBWA_LAUNCH(kernel, blocks_for(n), kThreads, 0, stream, f,
+                  (const Idx*)ik, (Idx*)ok, n);
     return cudaGetLastError();
 }
 
 template <class Idx>
-cudaError_t launch_extend(const void* occ, const void* L2, int64_t primary,
-                          int64_t seq_len, int is_back, const void* ik,
-                          void* ok, int64_t n, cudaStream_t stream) {
-    const fm::Index<Idx> f = index_of<Idx>(occ, L2, primary, seq_len);
-    const auto kernel = is_back ? bwt_extend_kernel<Idx, true>
-                                : bwt_extend_kernel<Idx, false>;
-    TPUBWA_LAUNCH(kernel, blocks_for(n), kThreads, 0, stream, f,
-                  (const Idx*)ik, (Idx*)ok, n);
-    return cudaGetLastError();
+cudaError_t extend_flat(const void* occ, const void* L2, int64_t primary,
+                        int64_t seq_len, int is_back, const void* ik, void* ok,
+                        int64_t n, cudaStream_t stream) {
+    return launch_extend<Idx, false>(index_of<Idx>(occ, L2, primary, seq_len),
+                                     is_back, ik, ok, n, stream);
+}
+
+template <class Idx>
+cudaError_t sa_flat(const void* occ, const void* L2, const void* marks,
+                    const void* sa_marked, const void* sa_sample,
+                    int64_t primary, int64_t seq_len, int mark_D,
+                    const void* ranks, void* out, int64_t n, void* queue,
+                    void* lanes, int max_blocks, int device,
+                    cudaStream_t stream) {
+    const auto launch = mark_D > 0 ? launch_sa<Idx, true, false>
+                                   : launch_sa<Idx, false, false>;
+    return launch(index_of<Idx>(occ, L2, primary, seq_len),
+                  (const uint32_t*)marks, (const Idx*)sa_marked, sa_sample,
+                  mark_D, ranks, out, n, queue, lanes, max_blocks, device,
+                  stream);
+}
+
+// the TP instantiations' index: the occ slabs of table occ (3 * n_slabs
+// int64, fm::slab_table), L2 on the launch device
+template <class Idx>
+cudaError_t index_tp(int n_slabs, const int64_t* occ, const void* L2,
+                     int64_t primary, int64_t seq_len, int device,
+                     fm::Index<Idx, fm::Slabs<uint32_t>>* f) {
+    f->L2 = (const Idx*)L2;
+    f->primary = (Idx)primary;
+    f->seq_len = (Idx)seq_len;
+    return fm::slab_table(occ, n_slabs, device, &f->occ);
+}
+
+template <class Idx>
+cudaError_t sa_tp(int n_slabs, const int64_t* occ, const int64_t* marks,
+                  const int64_t* sa_marked, const void* L2, int64_t primary,
+                  int64_t seq_len, int mark_D, const void* ranks, void* out,
+                  int64_t n, void* queue, void* lanes, int max_blocks,
+                  int device, cudaStream_t stream) {
+    fm::Index<Idx, fm::Slabs<uint32_t>> f{};
+    fm::Slabs<uint32_t> m{};
+    fm::Slabs<Idx> sm{};
+    cudaError_t err = index_tp(n_slabs, occ, L2, primary, seq_len, device,
+                               &f);
+    if (err == cudaSuccess) err = fm::slab_table(marks, n_slabs, device, &m);
+    if (err == cudaSuccess)
+        err = fm::slab_table(sa_marked, n_slabs, device, &sm);
+    if (err != cudaSuccess) return err;
+    return launch_sa<Idx, true, true>(f, m, sm, nullptr, mark_D, ranks, out,
+                                      n, queue, lanes, max_blocks, device,
+                                      stream);
+}
+
+template <class Idx>
+cudaError_t extend_tp(int n_slabs, const int64_t* occ, const void* L2,
+                      int64_t primary, int64_t seq_len, int is_back,
+                      const void* ik, void* ok, int64_t n, int device,
+                      cudaStream_t stream) {
+    fm::Index<Idx, fm::Slabs<uint32_t>> f{};
+    const cudaError_t err =
+        index_tp(n_slabs, occ, L2, primary, seq_len, device, &f);
+    if (err != cudaSuccess) return err;
+    return launch_extend<Idx, true>(f, is_back, ik, ok, n, stream);
 }
 
 }  // namespace
@@ -289,14 +369,33 @@ extern "C" int tpubwa_sa_lookup(const void* occ, const void* L2,
                                 int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const auto launch =
-        idx64 ? (mark_D > 0 ? launch_sa<int64_t, true>
-                            : launch_sa<int64_t, false>)
-              : (mark_D > 0 ? launch_sa<int32_t, true>
-                            : launch_sa<int32_t, false>);
-    return (int)launch(occ, L2, marks, sa_marked, sa_sample, primary,
-                       seq_len, mark_D, ranks, out, n, queue, lanes,
-                       max_blocks, device, (cudaStream_t)stream);
+    return (int)(idx64 ? sa_flat<int64_t> : sa_flat<int32_t>)(
+        occ, L2, marks, sa_marked, sa_sample, primary, seq_len, mark_D, ranks,
+        out, n, queue, lanes, max_blocks, device, (cudaStream_t)stream);
+}
+
+// K-sa's TP instantiation, the marked walk over a sharded index (the
+// only walk tpubwa shards): occ, marks and sa_marked are slab tables, 3 *
+// n_slabs int64 each (the slabs' device addresses, first rows and
+// devices, fm.cuh:slab_table), L2 is on the launch device; the rest as
+// tpubwa_sa_lookup.  A slab on another device is read through peer
+// access, enabled here (an error where the two devices cannot reach each
+// other); mark_D <= 0 is refused (cudaErrorInvalidValue).  Nothing runs
+// where an error is returned.
+extern "C" int tpubwa_sa_lookup_tp(int n_slabs, const int64_t* occ,
+                                   const int64_t* marks,
+                                   const int64_t* sa_marked, const void* L2,
+                                   int64_t primary, int64_t seq_len,
+                                   int mark_D, int idx64, const void* ranks,
+                                   void* out, int64_t n, void* queue,
+                                   void* lanes, int max_blocks, int device,
+                                   void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (mark_D <= 0) return (int)cudaErrorInvalidValue;
+    return (int)(idx64 ? sa_tp<int64_t> : sa_tp<int32_t>)(
+        n_slabs, occ, marks, sa_marked, L2, primary, seq_len, mark_D, ranks,
+        out, n, queue, lanes, max_blocks, device, (cudaStream_t)stream);
 }
 
 // K-sa's launch for n ranks into out[3] (a host array): the blocks an SM
@@ -329,8 +428,22 @@ extern "C" int tpubwa_bwt_extend(const void* occ, const void* L2,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n <= 0) return 0;
-    return (int)(idx64 ? launch_extend<int64_t>
-                       : launch_extend<int32_t>)(occ, L2, primary, seq_len,
-                                                 is_back, ik, ok, n,
-                                                 (cudaStream_t)stream);
+    return (int)(idx64 ? extend_flat<int64_t> : extend_flat<int32_t>)(
+        occ, L2, primary, seq_len, is_back, ik, ok, n, (cudaStream_t)stream);
+}
+
+// K-ext's TP instantiation: occ is a slab table (3 * n_slabs int64, as
+// tpubwa_sa_lookup_tp's), L2 on the launch device; the rest as
+// tpubwa_bwt_extend.
+extern "C" int tpubwa_bwt_extend_tp(int n_slabs, const int64_t* occ,
+                                    const void* L2, int64_t primary,
+                                    int64_t seq_len, int idx64, int is_back,
+                                    const void* ik, void* ok, int64_t n,
+                                    int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return 0;
+    return (int)(idx64 ? extend_tp<int64_t> : extend_tp<int32_t>)(
+        n_slabs, occ, L2, primary, seq_len, is_back, ik, ok, n, device,
+        (cudaStream_t)stream);
 }

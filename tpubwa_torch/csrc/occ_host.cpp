@@ -6,7 +6,7 @@
 //
 // INDEX: int64 header (n_blocks, n_mark_blocks, n_marked, n_sample,
 // primary, seq_len, mark_D, idx64, n_ranks, n_ik, max_blocks, reverse,
-// n_call), then occ uint32 [n_blocks, 12], mark rows uint32
+// n_call, n_slabs, peers), then occ uint32 [n_blocks, 12], mark rows uint32
 // [n_mark_blocks, 8], then, of the rank type (int64 where idx64, else
 // int32): L2 [5], sa_marked [n_marked], sa_sample [n_sample], ranks
 // [n_ranks] and ik [n_ik, 3].  OUT gets, of the rank type, the positions
@@ -22,6 +22,14 @@
 // must refuse before it touches anything) and writes only its return
 // code, the queue word (-77 before the call) and the positions.  A
 // launch that returns an error exits with 3.
+//
+// n_slabs > 0 runs the TP instantiations instead (tpubwa_sa_lookup_tp
+// and tpubwa_bwt_extend_tp), on the index cut into slabs: after the
+// arrays come int64 [n_slabs] each, the first rows of the occ, the mark
+// and the sa_marked slabs, then each slab's device (the launch is on
+// device 0); every slab is a heap block of its exact rows, so a row read
+// past a slab's end is the sanitizer's.  peers 0 makes the peer-access
+// query answer that no two devices reach each other.
 
 #define TPUBWA_WARP_HOST
 #include "occ.cu"
@@ -59,12 +67,26 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     std::vector<Idx> pos((size_t)n_ranks, (Idx)-77);
     std::vector<int32_t> lanes((size_t)n_ranks, -77);
     int32_t queue = -77;
-    int rc = tpubwa_sa_lookup(occ.data(), L2.data(), marks.data(),
-                              sa_marked.data(), sa_sample.data(), primary,
-                              seq_len, mark_D, sizeof(Idx) == 8,
-                              ranks.data(), pos.data(),
-                              h[12] >= 0 ? h[12] : n_ranks, &queue,
-                              lanes.data(), max_blocks, 0, nullptr);
+    const int n_slabs = (int)h[13];
+    warp_host::peers = h[14] != 0;
+    std::vector<std::vector<int64_t>> first;
+    for (int j = 0; j < 4; ++j)
+        first.push_back(read_array<int64_t>(f, n_slabs));
+    const warp_host::Cut<uint32_t> occ_tp(occ, 12, first[0], first[3]),
+        marks_tp(marks, 8, first[1], first[3]);
+    const warp_host::Cut<Idx> sam_tp(sa_marked, 1, first[2], first[3]);
+    int rc = n_slabs
+        ? tpubwa_sa_lookup_tp(n_slabs, occ_tp.table.data(),
+                              marks_tp.table.data(), sam_tp.table.data(),
+                              L2.data(), primary, seq_len, mark_D,
+                              sizeof(Idx) == 8, ranks.data(), pos.data(),
+                              n_ranks, &queue, lanes.data(), max_blocks, 0,
+                              nullptr)
+        : tpubwa_sa_lookup(occ.data(), L2.data(), marks.data(),
+                           sa_marked.data(), sa_sample.data(), primary,
+                           seq_len, mark_D, sizeof(Idx) == 8, ranks.data(),
+                           pos.data(), h[12] >= 0 ? h[12] : n_ranks, &queue,
+                           lanes.data(), max_blocks, 0, nullptr);
     if (h[12] >= 0) {  // the refusal case: rc, the queue, the positions
         write_array(o, std::vector<Idx>{(Idx)rc, (Idx)queue});
         write_array(o, pos);
@@ -78,9 +100,14 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     write_array(o, std::vector<Idx>(lanes.begin(), lanes.end()));
     for (int is_back : {1, 0}) {
         std::vector<Idx> ok((size_t)n_ik * 12, (Idx)-77);
-        rc = tpubwa_bwt_extend(occ.data(), L2.data(), primary, seq_len,
-                               sizeof(Idx) == 8, is_back, ik.data(),
-                               ok.data(), n_ik, 0, nullptr);
+        rc = n_slabs
+            ? tpubwa_bwt_extend_tp(n_slabs, occ_tp.table.data(), L2.data(),
+                                   primary, seq_len, sizeof(Idx) == 8,
+                                   is_back, ik.data(), ok.data(), n_ik, 0,
+                                   nullptr)
+            : tpubwa_bwt_extend(occ.data(), L2.data(), primary, seq_len,
+                                sizeof(Idx) == 8, is_back, ik.data(),
+                                ok.data(), n_ik, 0, nullptr);
         if (rc != 0) {
             std::fprintf(stderr, "occ_host: tpubwa_bwt_extend returned %d\n",
                          rc);
@@ -95,7 +122,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: occ_host INDEX OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open INDEX");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 13);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 15);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[7] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

@@ -18,6 +18,13 @@
 // too (at most len: their qe are distinct), so round 2 never depends on
 // `slots` and the first launch's counts are exact.
 //
+// K2 has a TP instantiation (collect12_kernel<Idx, true>, behind
+// tpubwa_smem_rounds12_tp), for an index split into row slabs across
+// devices (tpubwa_torch/dist/index_tp.py:TpIndex): the counterpart of
+// tpubwa/dist/index_tp.py:seed_machine_tp, the same rows, each occ row
+// read from the slab that holds it (fm.cuh:row_at over fm::Slabs).  K3
+// has none: tpubwa scans round 3 on the whole index.
+//
 // K3, seed_strategy_kernel, replaces tpubwa/device/smem.py:
 // _seed_strategy_scan (:199), round 3 (bwt_seed_strategy1 from x across
 // the read); the wrapper is tpubwa_torch/device/smem.py:
@@ -165,9 +172,10 @@ __device__ __forceinline__ void keep_rows(const Intv<Idx>* mem, int n_mem,
 }
 
 // K2: a warp a read, from the read queue (*queue, zero at launch);
-// warp_bytes = kStacks * (L + 1) intervals
-template <class Idx>
-__global__ void collect12_kernel(fm::Index<Idx> f,
+// warp_bytes = kStacks * (L + 1) intervals.  Tp: the TP instantiation,
+// the occ rows in slabs (fm::Slabs)
+template <class Idx, bool Tp>
+__global__ void collect12_kernel(fm::Index<Idx, fm::Rows<uint32_t, Tp>> f,
                                  const uint8_t* __restrict__ q, int64_t L,
                                  const int32_t* __restrict__ lens,
                                  const int32_t* __restrict__ rids, int64_t n,
@@ -376,7 +384,7 @@ struct Shape12 {
     int64_t max_len = 0;
 };
 
-template <class Idx>
+template <class Idx, bool Tp = false>
 cudaError_t shape12(int64_t L, int device, Shape12* s) {
     int optin = 0;
     cudaError_t err = cudaDeviceGetAttribute(
@@ -390,7 +398,7 @@ cudaError_t shape12(int64_t L, int device, Shape12* s) {
     s->max_len = optin / per - 1;
     if (L < 1 || L > s->max_len) return cudaErrorInvalidValue;
     // one opt-in covers every block size below
-    err = cudaFuncSetAttribute(collect12_kernel<Idx>,
+    err = cudaFuncSetAttribute(collect12_kernel<Idx, Tp>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) {
@@ -401,7 +409,7 @@ cudaError_t shape12(int64_t L, int device, Shape12* s) {
         if (w * s->warp_bytes > optin) continue;
         int blocks = 0;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, collect12_kernel<Idx>, 32 * w,
+            &blocks, collect12_kernel<Idx, Tp>, 32 * w,
             (size_t)(w * s->warp_bytes));
         if (err != cudaSuccess) return err;
         if (blocks * w > s->warps * s->blocks_per_sm) {
@@ -412,26 +420,26 @@ cudaError_t shape12(int64_t L, int device, Shape12* s) {
     return s->warps ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <class Idx>
-cudaError_t launch12(const void* occ, const void* L2, int64_t primary,
-                     int64_t seq_len, const void* q, int64_t L,
-                     const void* lens, const void* rids, int64_t n,
-                     int min_seed_len, int split_len, int64_t split_width,
-                     int slots, void* queue, void* rows, void* counts,
-                     void* steps, void* chain, int device,
-                     cudaStream_t stream) {
+template <class Idx, bool Tp>
+cudaError_t launch12(const fm::Index<Idx, fm::Rows<uint32_t, Tp>>& f,
+                     const void* q, int64_t L, const void* lens,
+                     const void* rids, int64_t n, int min_seed_len,
+                     int split_len, int64_t split_width, int slots,
+                     void* queue, void* rows, void* counts, void* steps,
+                     void* chain, int device, cudaStream_t stream) {
     Shape12 s;
-    cudaError_t err = shape12<Idx>(L, device, &s);
+    cudaError_t err = shape12<Idx, Tp>(L, device, &s);
     if (err != cudaSuccess) return err;  // refused: no launch is made
-    if ((uintptr_t)occ & 15) return cudaErrorInvalidValue;  // load16
+    if (!fm::aligned16(f.occ)) return cudaErrorInvalidValue;
     if (n <= 0) return cudaSuccess;
     err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
     if (err != cudaSuccess) return err;
     // a persistent grid: what the card holds at once, or a warp a read
     const int64_t blocks = std::min<int64_t>(
         (int64_t)s.blocks_per_sm * s.sms, (n + s.warps - 1) / s.warps);
-    const fm::Index<Idx> f = index_of<Idx>(occ, L2, primary, seq_len);
-    TPUBWA_LAUNCH(collect12_kernel<Idx>, (int)blocks, 32 * s.warps,
+    // (a template-id's comma would split the launch macro's arguments)
+    const auto kernel = collect12_kernel<Idx, Tp>;
+    TPUBWA_LAUNCH(kernel, (int)blocks, 32 * s.warps,
                   (size_t)(s.warps * s.warp_bytes), stream, f,
                   (const uint8_t*)q, L, (const int32_t*)lens,
                   (const int32_t*)rids, n, min_seed_len, split_len,
@@ -439,6 +447,38 @@ cudaError_t launch12(const void* occ, const void* L2, int64_t primary,
                   (int32_t*)queue, (Intv<Idx>*)rows, (int32_t*)counts,
                   (int32_t*)steps, (int32_t*)chain);
     return cudaGetLastError();
+}
+
+template <class Idx>
+cudaError_t flat12(const void* occ, const void* L2, int64_t primary,
+                   int64_t seq_len, const void* q, int64_t L,
+                   const void* lens, const void* rids, int64_t n,
+                   int min_seed_len, int split_len, int64_t split_width,
+                   int slots, void* queue, void* rows, void* counts,
+                   void* steps, void* chain, int device,
+                   cudaStream_t stream) {
+    return launch12<Idx, false>(index_of<Idx>(occ, L2, primary, seq_len), q,
+                                L, lens, rids, n, min_seed_len, split_len,
+                                split_width, slots, queue, rows, counts,
+                                steps, chain, device, stream);
+}
+
+template <class Idx>
+cudaError_t tp12(int n_slabs, const int64_t* occ, const void* L2,
+                 int64_t primary, int64_t seq_len, const void* q, int64_t L,
+                 const void* lens, const void* rids, int64_t n,
+                 int min_seed_len, int split_len, int64_t split_width,
+                 int slots, void* queue, void* rows, void* counts,
+                 void* steps, void* chain, int device, cudaStream_t stream) {
+    fm::Index<Idx, fm::Slabs<uint32_t>> f{};
+    f.L2 = (const Idx*)L2;
+    f.primary = (Idx)primary;
+    f.seq_len = (Idx)seq_len;
+    const cudaError_t err = fm::slab_table(occ, n_slabs, device, &f.occ);
+    if (err != cudaSuccess) return err;
+    return launch12<Idx, true>(f, q, L, lens, rids, n, min_seed_len,
+                               split_len, split_width, slots, queue, rows,
+                               counts, steps, chain, device, stream);
 }
 
 // K3's launch for n reads (see the header): the lanes a read, the blocks
@@ -521,10 +561,35 @@ extern "C" int tpubwa_smem_rounds12(const void* occ, const void* L2,
                                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    return (int)(idx64 ? launch12<int64_t> : launch12<int32_t>)(
+    return (int)(idx64 ? flat12<int64_t> : flat12<int32_t>)(
         occ, L2, primary, seq_len, q, L, lens, rids, n, min_seed_len,
         split_len, split_width, slots, queue, rows, counts, steps, chain,
         device, (cudaStream_t)stream);
+}
+
+// K2's TP instantiation, over a sharded index: occ is a slab table (3 *
+// n_slabs int64: the slabs' device addresses, their first rows and their
+// devices, fm.cuh:slab_table), L2 on the launch device; the rest as
+// tpubwa_smem_rounds12.  A slab on another device is read through peer
+// access, enabled here (an error where the two devices cannot reach each
+// other).  Nothing runs where an error is returned.
+extern "C" int tpubwa_smem_rounds12_tp(int n_slabs, const int64_t* occ,
+                                       const void* L2, int64_t primary,
+                                       int64_t seq_len, int idx64,
+                                       const void* q, int64_t L,
+                                       const void* lens, const void* rids,
+                                       int64_t n, int min_seed_len,
+                                       int split_len, int64_t split_width,
+                                       int slots, void* queue, void* rows,
+                                       void* counts, void* steps,
+                                       void* chain, int device,
+                                       void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)(idx64 ? tp12<int64_t> : tp12<int32_t>)(
+        n_slabs, occ, L2, primary, seq_len, q, L, lens, rids, n,
+        min_seed_len, split_len, split_width, slots, queue, rows, counts,
+        steps, chain, device, (cudaStream_t)stream);
 }
 
 // K2's launch shape for reads of L bases into out[5] (a host array):

@@ -36,8 +36,8 @@ struct Intv {
 };
 
 // the one-base interval of code c, qb = qe = 0
-template <class Idx>
-__device__ __forceinline__ Intv<Idx> set_intv(const fm::Index<Idx>& f,
+template <class Idx, class Occ>
+__device__ __forceinline__ Intv<Idx> set_intv(const fm::Index<Idx, Occ>& f,
                                               int c) {
     Idx ik[3];
     fm::set_intv(f, c, ik);
@@ -46,8 +46,8 @@ __device__ __forceinline__ Intv<Idx> set_intv(const fm::Index<Idx>& f,
 
 // ik extended by base c (the base in the extension's direction), qb and qe
 // kept
-template <class Idx, bool IsBack>
-__device__ __forceinline__ Intv<Idx> extend(const fm::Index<Idx>& f,
+template <class Idx, bool IsBack, class Occ>
+__device__ __forceinline__ Intv<Idx> extend(const fm::Index<Idx, Occ>& f,
                                             const Intv<Idx>& ik, int c) {
     const Idx in[3] = {ik.x0, ik.x1, ik.size};
     Idx ok[4][3];
@@ -71,8 +71,8 @@ __device__ __forceinline__ uint32_t word_bits(uint32_t w, int nb, int wi) {
 // into bytes (at most 16 each, 128 a row: no carry), and two warp sums
 // (__reduce_add_sync) add them up, one row each.  The same counts as
 // fm::bwt_extend, which counts all 16 words in each lane.
-template <class Idx, bool IsBack>
-__device__ __forceinline__ void bwt_extend_warp(const fm::Index<Idx>& f,
+template <class Idx, bool IsBack, class Occ>
+__device__ __forceinline__ void bwt_extend_warp(const fm::Index<Idx, Occ>& f,
                                                 const Idx ik[3],
                                                 Idx ok[4][3]) {
     const int lane = threadIdx.x & 31;
@@ -86,8 +86,8 @@ __device__ __forceinline__ void bwt_extend_warp(const fm::Index<Idx>& f,
     uint4 ck{}, cl{};
     if (lane < 16 && (of_l ? rl : rk))
         w = __ldg(fm::occ_row(f, x) + 4 + (lane & 7));
-    if (rk) ck = fm::load16(f.occ + (int64_t)(kk >> 7) * fm::kRowWords);
-    if (rl) cl = fm::load16(f.occ + (int64_t)(ll >> 7) * fm::kRowWords);
+    if (rk) ck = fm::load16(fm::occ_block(f, (int64_t)(kk >> 7)));
+    if (rl) cl = fm::load16(fm::occ_block(f, (int64_t)(ll >> 7)));
     const uint32_t bits =
         lane < 16 ? word_bits(w, (int)(x & 127) + 1, lane & 7) : 0u;
     const uint32_t sk = __reduce_add_sync(kFull, of_l ? 0u : bits);
@@ -106,8 +106,8 @@ __device__ __forceinline__ void bwt_extend_warp(const fm::Index<Idx>& f,
 }
 
 // ik extended by base c on one warp (bwt_extend_warp), qb and qe kept
-template <class Idx, bool IsBack>
-__device__ __forceinline__ Intv<Idx> extend_warp(const fm::Index<Idx>& f,
+template <class Idx, bool IsBack, class Occ>
+__device__ __forceinline__ Intv<Idx> extend_warp(const fm::Index<Idx, Occ>& f,
                                                  const Intv<Idx>& ik,
                                                  int c) {
     const Idx in[3] = {ik.x0, ik.x1, ik.size};
@@ -118,8 +118,8 @@ __device__ __forceinline__ Intv<Idx> extend_warp(const fm::Index<Idx>& f,
 
 // the one-base interval of code c (0-3, known at run time) from f.l2
 // (with_l2), picked by selects: no load
-template <class Idx>
-__device__ __forceinline__ Intv<Idx> set_intv_l2(const fm::Index<Idx>& f,
+template <class Idx, class Occ>
+__device__ __forceinline__ Intv<Idx> set_intv_l2(const fm::Index<Idx, Occ>& f,
                                                  int c) {
     const Idx* v = f.l2;
     const Idx lo = fm::pick4(v[0], v[1], v[2], v[3], c);
@@ -154,8 +154,8 @@ __device__ __forceinline__ uint2 load8(const uint32_t* p) {
 // group and one more swaps the halves.  The shuffles take every lane of the warp: a lane whose group
 // has no step to make calls it with live false, loads nothing, and its
 // ok is not to be used.  The same counts as fm::bwt_extend.
-template <int G, class Idx, bool IsBack>
-__device__ __forceinline__ void bwt_extend_group(const fm::Index<Idx>& f,
+template <int G, class Idx, bool IsBack, class Occ>
+__device__ __forceinline__ void bwt_extend_group(const fm::Index<Idx, Occ>& f,
                                                  const Idx ik[3], bool live,
                                                  Idx ok[4][3]) {
     static_assert(G == 4 || G == 8 || G == 16, "a group of 4, 8 or 16");
@@ -184,8 +184,8 @@ __device__ __forceinline__ void bwt_extend_group(const fm::Index<Idx>& f,
             bits = word_bits(__ldg(w), nb, wi);
         }
     }
-    if (live && rk) ck = fm::load16(f.occ + (int64_t)(kk >> 7) * fm::kRowWords);
-    if (live && rl) cl = fm::load16(f.occ + (int64_t)(ll >> 7) * fm::kRowWords);
+    if (live && rk) ck = fm::load16(fm::occ_block(f, (int64_t)(kk >> 7)));
+    if (live && rl) cl = fm::load16(fm::occ_block(f, (int64_t)(ll >> 7)));
 #pragma unroll
     for (int o = 1; o < kHalf; o <<= 1) bits += __shfl_xor_sync(kFull, bits, o);
     const uint32_t other = __shfl_xor_sync(kFull, bits, kHalf);
@@ -208,8 +208,8 @@ __device__ __forceinline__ void bwt_extend_group(const fm::Index<Idx>& f,
 // must not call it), a group of 4, 8 or 16 (bwt_extend_group) or the warp
 // (G 32, bwt_extend_warp); ok[c] is picked by selects, so ok stays in
 // registers.  qb and qe are kept.
-template <int G, class Idx>
-__device__ __forceinline__ Intv<Idx> extend_fwd(const fm::Index<Idx>& f,
+template <int G, class Idx, class Occ>
+__device__ __forceinline__ Intv<Idx> extend_fwd(const fm::Index<Idx, Occ>& f,
                                                 const Intv<Idx>& ik, int c,
                                                 bool live) {
     const Idx in[3] = {ik.x0, ik.x1, ik.size};
@@ -269,8 +269,8 @@ __device__ __forceinline__ int top_lane(unsigned mask) {
 // On an index the sizes grow along the stack (a shorter match's
 // interval holds a longer one's), so failures come before survivors; the
 // rule above does not lean on that.
-template <class Idx>
-__device__ int smem1a(const fm::Index<Idx>& f, const uint8_t* q, int len,
+template <class Idx, class Occ>
+__device__ int smem1a(const fm::Index<Idx, Occ>& f, const uint8_t* q, int len,
                       int x, Idx min_intv, Intv<Idx>* curr, Intv<Idx>* prev,
                       Intv<Idx>* mem, int& n_mem, int& steps, int& chain) {
     const int lane = threadIdx.x & 31;

@@ -8,10 +8,11 @@
 // IN: int64 header (kernel: 0 for K2, tpubwa_smem_rounds12, 1 for K3,
 // tpubwa_seed_strategy; n_blocks, primary, seq_len, idx64, B, L, n,
 // min_seed_len, split_len, split_width, slots, max_intv, maxh,
-// count_rows, reverse, sms, blocks_per_sm), then occ uint32 [n_blocks,
-// 12], L2 of the rank
+// count_rows, reverse, sms, blocks_per_sm, n_slabs, peers), then occ
+// uint32 [n_blocks, 12], L2 of the rank
 // type (int64 where idx64, else int32) [5], reads uint8 [B, L], lens
-// int32 [B] and, for K2, rids int32 [n].  OUT gets int64 values: K2's
+// int32 [B], for K2, rids int32 [n], and where n_slabs > 0 the slabs'
+// first rows and devices, int64 [n_slabs] each.  OUT gets int64 values: K2's
 // rows [n, slots, 5], counts [n], steps [n] and chain [n]; or K3's hits
 // [B, maxh, 5], n_hits [B], steps [B], chain [B] and longest [B]; then,
 // where count_rows, the number of distinct occ rows the launch read and
@@ -25,7 +26,11 @@
 // wrapper allocates them), so a read past an array is the sanitizer's
 // and a slot never written shows in the result.  A launch that returns
 // an error (K2 refuses a read length whose stacks do not fit a block's
-// shared memory) exits with 3.
+// shared memory) exits with 3.  n_slabs > 0 launches K2's TP
+// instantiation (tpubwa_smem_rounds12_tp) on the occ rows cut into
+// slabs at those first rows, each its own heap block, so a row read past
+// a slab's end is the sanitizer's; peers 0 makes the peer-access query
+// answer that no two devices reach each other.
 
 #define TPUBWA_WARP_HOST
 #include "smem.cu"
@@ -67,16 +72,28 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     int rc;
     if (kernel == 0) {
         const auto rids = read_array<int32_t>(f, n);
+        const int n_slabs = (int)h[18];
+        warp_host::peers = h[19] != 0;
+        const auto first = read_array<int64_t>(f, n_slabs);
+        const auto devices = read_array<int64_t>(f, n_slabs);
+        const warp_host::Cut<uint32_t> occ_tp(occ, 12, first, devices);
         std::vector<int32_t> queue(1, -77);
         std::vector<Idx> rows((size_t)(n * slots * 5), (Idx)-77);
         std::vector<int32_t> counts((size_t)n, -77), steps((size_t)n, -77),
             chain((size_t)n, -77);
-        rc = tpubwa_smem_rounds12(occ.data(), L2.data(), primary, seq_len,
-                                  sizeof(Idx) == 8, q.data(), L, lens.data(),
-                                  rids.data(), n, min_seed_len, split_len,
-                                  split_width, slots, queue.data(),
-                                  rows.data(), counts.data(), steps.data(),
-                                  chain.data(), 0, nullptr);
+        rc = n_slabs
+            ? tpubwa_smem_rounds12_tp(
+                  n_slabs, occ_tp.table.data(), L2.data(), primary, seq_len,
+                  sizeof(Idx) == 8, q.data(), L, lens.data(), rids.data(), n,
+                  min_seed_len, split_len, split_width, slots, queue.data(),
+                  rows.data(), counts.data(), steps.data(), chain.data(), 0,
+                  nullptr)
+            : tpubwa_smem_rounds12(occ.data(), L2.data(), primary, seq_len,
+                                   sizeof(Idx) == 8, q.data(), L, lens.data(),
+                                   rids.data(), n, min_seed_len, split_len,
+                                   split_width, slots, queue.data(),
+                                   rows.data(), counts.data(), steps.data(),
+                                   chain.data(), 0, nullptr);
         write_int64(o, rows);
         write_int64(o, counts);
         write_int64(o, steps);
@@ -120,7 +137,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: smem_host IN OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open IN");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 18);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 20);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[4] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

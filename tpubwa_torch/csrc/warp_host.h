@@ -32,6 +32,8 @@
 // SIMD and DPX intrinsics that csrc/extend16.cu uses are written from
 // their documented meaning: each 16-bit half is a signed value, sums
 // wrap modulo 2^16 (none saturates), max and min compare signed halves.
+// Peer access (csrc/fm.cuh's slab tables) is granted between any two
+// devices unless a test clears warp_host::peers.
 
 #pragma once
 
@@ -59,9 +61,32 @@ inline int2* smem;  // the running block's dynamic shared memory
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1;
+constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                      cudaErrorPeerAccessUnsupported = 217,
+                      cudaErrorPeerAccessAlreadyEnabled = 704;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+namespace warp_host {
+inline int device = 0;        // the current device (cudaSetDevice)
+inline bool peers = true;     // whether devices reach each other's memory
+inline std::vector<int> enabled;  // peer access enabled: device * 64 + peer
+}  // namespace warp_host
+inline cudaError_t cudaSetDevice(int d) {
+    warp_host::device = d;
+    return cudaSuccess;
+}
+inline cudaError_t cudaDeviceCanAccessPeer(int* can, int, int) {
+    *can = warp_host::peers;
+    return cudaSuccess;
+}
+// as on the card: an enable already made returns
+// cudaErrorPeerAccessAlreadyEnabled
+inline cudaError_t cudaDeviceEnablePeerAccess(int peer, unsigned) {
+    const int pair = warp_host::device * 64 + peer;
+    for (int p : warp_host::enabled)
+        if (p == pair) return cudaErrorPeerAccessAlreadyEnabled;
+    warp_host::enabled.push_back(pair);
+    return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes,
                                    cudaStream_t) {
@@ -116,6 +141,27 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F,
 }
 
 namespace warp_host {
+
+// a [rows, W] array cut into slabs at first (first[0] = 0), each slab
+// its own heap block, and their table as csrc/fm.cuh:slab_table takes
+// it (the slabs' addresses, first rows and devices)
+template <class T>
+struct Cut {
+    std::vector<std::vector<T>> slabs;
+    std::vector<int64_t> table;
+
+    Cut(const std::vector<T>& a, int W, const std::vector<int64_t>& first,
+        const std::vector<int64_t>& devices) {
+        const int64_t n = (int64_t)first.size(), rows = (int64_t)a.size() / W;
+        for (int64_t i = 0; i < n; ++i) {
+            const int64_t end = i + 1 < n ? first[i + 1] : rows;
+            slabs.emplace_back(a.begin() + first[i] * W, a.begin() + end * W);
+        }
+        for (auto& s : slabs) table.push_back((int64_t)(uintptr_t)s.data());
+        table.insert(table.end(), first.begin(), first.end());
+        table.insert(table.end(), devices.begin(), devices.end());
+    }
+};
 
 constexpr int kLanes = 32;
 constexpr size_t kStack = 256 * 1024;

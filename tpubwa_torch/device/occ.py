@@ -17,7 +17,10 @@ test, as extend_kernel.py has them:
 
 ``sa_lookup`` and ``bwt_extend`` route by the tensors' device: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.  Nothing falls back from one to the other.
+raises.  Nothing falls back from one to the other.  Over an index split
+into row slabs across devices (``dist/index_tp.py:TpIndex``) the plain
+versions read through its routed accessors and the kernels' TP
+instantiations take each row from the slab that holds it.
 
 Unsigned words.  torch has no ``>>``, ``>`` or popcount for uint32 on
 the CPU, so the index's uint32 arrays are kept as int32 bit patterns and
@@ -127,8 +130,8 @@ class DeviceIndex:
 
     # -- index row accessors -------------------------------------------
     # The only surface through which the plain functions read the big
-    # index arrays (tpubwa's seam for its tensor-parallel index,
-    # dist/index_tp.py, which overrides these four).
+    # index arrays: the port's index split into row slabs across devices,
+    # tpubwa_torch/dist/index_tp.py:TpIndex, has its own four.
     def occ_row(self, blk):
         """Fused occ row(s) [.., 12] for block index blk."""
         return self.occ_blocks[blk]
@@ -462,6 +465,13 @@ _SIGNATURES = {
     #  stream) -> cudaError_t
     "tpubwa_bwt_extend": (_CI, [_VP, _VP, _CL, _CL, _CI, _CI, _VP, _VP,
                                 _CL, _CI, _VP]),
+    # the TP instantiations: (n_slabs, the slab tables, then the flat
+    # entry's arguments from L2 on, sa_sample dropped) -> cudaError_t
+    "tpubwa_sa_lookup_tp": (_CI, [_CI, _VP, _VP, _VP, _VP, _CL, _CL, _CI,
+                                  _CI, _VP, _VP, _CL, _VP, _VP, _CI, _CI,
+                                  _VP]),
+    "tpubwa_bwt_extend_tp": (_CI, [_CI, _VP, _VP, _CL, _CL, _CI, _CI, _VP,
+                                   _VP, _CL, _CI, _VP]),
 }
 
 
@@ -493,6 +503,28 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
+def sharded(didx):
+    """``didx`` where it is an index split into row slabs
+    (``dist/index_tp.py:TpIndex``), else None."""
+    from ..dist.index_tp import TpIndex
+    return didx if isinstance(didx, TpIndex) else None
+
+
+def _sa_lookup_tp(lib, tp, ranks: torch.Tensor, out: torch.Tensor):
+    """K-sa's TP instantiation (the marked walk) on ``tp``'s slabs."""
+    tp.check_marked()
+    queue = torch.empty(1, dtype=torch.int32, device=ranks.device)
+    rc = lib.tpubwa_sa_lookup_tp(
+        tp.n, *(tp.kernel_table(k) for k in (
+            "occ_blocks", "mark_rows", "sa_marked")),
+        tp.L2.data_ptr(), tp.primary, tp.seq_len, tp.mark_D,
+        int(tp.idt == I64), ranks.data_ptr(), out.data_ptr(), len(ranks),
+        queue.data_ptr(), None, 0, ranks.device.index,
+        torch.cuda.current_stream(ranks.device).cuda_stream)
+    _raise_on(rc, "sa_lookup (tp)")
+    bump(sa_lookup, "tp_launches")
+
+
 def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
     """tpubwa's sa_lookup contract: ranks idt [n] in [0, seq_len] ->
     text positions idt [n].  CPU tensors run ``sa_lookup_plain``; CUDA
@@ -500,18 +532,24 @@ def sa_lookup(didx: DeviceIndex, ranks: torch.Tensor) -> torch.Tensor:
     its launches, ``sa_lookup.marked_launches`` those of the marked
     walk): the marked walk where the index has marks, else the
     rank-sampled one, on a persistent grid whose lanes take ranks from a
-    rank queue (an int32 allocated here).  Raises RuntimeError where the
-    launch fails or the entry refuses it (n past the queue's range,
-    about 2^31 ranks)."""
+    rank queue (an int32 allocated here).  Over a ``TpIndex`` the marked
+    walk's TP instantiation (``sa_lookup.tp_launches``; a mark-less one
+    raises NotImplementedError on both routes).  Raises RuntimeError
+    where the launch fails or the entry refuses it (n past the queue's
+    range, about 2^31 ranks; a slab on a card the launch's cannot
+    reach)."""
     _check(didx, ranks, "ranks", ())
     if not _kernel_route(ranks):
         return sa_lookup_plain(didx, ranks)
     lib = _build.load("occ", _SIGNATURES)
-    fm = didx.upload_fm()
     ranks = ranks.contiguous()
     out = torch.empty_like(ranks)
     if not len(ranks):
         return out
+    if sharded(didx):
+        _sa_lookup_tp(lib, didx, ranks, out)
+        return out
+    fm = didx.upload_fm()
     queue = torch.empty(1, dtype=torch.int32, device=ranks.device)
     rc = lib.tpubwa_sa_lookup(
         fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(),
@@ -543,16 +581,27 @@ def bwt_extend(didx: DeviceIndex, ik: torch.Tensor,
                is_back: bool) -> torch.Tensor:
     """tpubwa's bwt_extend contract: ik idt [n, 3] (x0, x1, size) ->
     idt [n, 4, 3].  CPU tensors run ``bwt_extend_plain``; CUDA tensors
-    launch csrc/occ.cu's extension (``bwt_extend.launches``)."""
+    launch csrc/occ.cu's extension (``bwt_extend.launches``), over a
+    ``TpIndex`` its TP instantiation (``bwt_extend.tp_launches``)."""
     _check(didx, ik, "ik", (3,))
     if not _kernel_route(ik):
         return bwt_extend_plain(didx, ik, is_back)
     lib = _build.load("occ", _SIGNATURES)
-    fm = didx.upload_fm()
     ik = ik.contiguous()
     out = torch.empty((len(ik), 4, 3), dtype=ik.dtype, device=ik.device)
     if not len(ik):
         return out
+    tp = sharded(didx)
+    if tp:
+        rc = lib.tpubwa_bwt_extend_tp(
+            tp.n, tp.kernel_table("occ_blocks"), tp.L2.data_ptr(),
+            tp.primary, tp.seq_len, int(tp.idt == I64), int(bool(is_back)),
+            ik.data_ptr(), out.data_ptr(), len(ik), ik.device.index,
+            torch.cuda.current_stream(ik.device).cuda_stream)
+        _raise_on(rc, "bwt_extend (tp)")
+        bump(bwt_extend, "tp_launches")
+        return out
+    fm = didx.upload_fm()
     rc = lib.tpubwa_bwt_extend(
         fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
         didx.seq_len, int(didx.idt == I64), int(bool(is_back)),
@@ -565,4 +614,6 @@ def bwt_extend(didx: DeviceIndex, ik: torch.Tensor,
 
 sa_lookup.launches = 0
 sa_lookup.marked_launches = 0
+sa_lookup.tp_launches = 0
 bwt_extend.launches = 0
+bwt_extend.tp_launches = 0

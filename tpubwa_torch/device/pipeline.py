@@ -36,7 +36,10 @@ device (K-sa), as in tpubwa.
 With a ``dp`` (``dist.sharding.DataParallel``, tpubwa's mesh mode) the
 index is replicated, one ``DeviceIndex`` a replica, and stages A, B and
 D split their reads, ranks and jobs over the replicas; the host stages
-run once, on what one device would have given them.
+run once, on what one device would have given them.  With a ``tp``
+(``dist.index_tp.TpIndex``, tpubwa's 'tp' mesh axis) megaq's rounds 1+2
+and its fused SA walk read an index split into row slabs across
+devices, K3, the extension and pac the aligner's whole index.
 
 The regions equal tpubwa's DeviceAligner and the scalar host path
 (tests/test_torch_pipeline.py), so pairing, MAPQ and SAM are the host
@@ -52,6 +55,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..dist.index_tp import TpIndex
 from ..host import native_emit, native_smem
 from ..host.chain import chain_flt, flt_chained_seeds, mem_chain
 from ..host.native_emit import (FlatRegs, chain_batch_native,
@@ -113,9 +117,17 @@ class DeviceAligner:
     With a ``dp`` the devices are its replicas' (``device`` is not
     read): ``didxs`` holds one index a replica, ``didx`` replica 0's for
     the host-side code, and the seed mode defaults to ``megaq``, as in
-    tpubwa's mesh mode (one host core cannot feed several devices)."""
+    tpubwa's mesh mode (one host core cannot feed several devices).
 
-    def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda", dp=None):
+    ``tp`` (a list of devices, or a ``dist.index_tp.TpIndex`` of
+    ``fmi``) gives ``self.tp``, the index in row slabs over those
+    devices: seed mode megaq (the default under ``tp``, tpubwa's mesh
+    default) runs K2 and the fused SA walk on the slabs, each replica's
+    under a ``dp`` too; ``didx`` stays whole on the aligner's device for
+    K3, the extension and pac, as tpubwa keeps it."""
+
+    def __init__(self, opt: MemOpt, fmi: FMIndex, device="cuda", dp=None,
+                 tp=None):
         self.opt = opt
         self.fmi = fmi
         self.mat = opt.scoring_matrix()
@@ -132,6 +144,9 @@ class DeviceAligner:
             self.didxs = dp.replicate_index(fmi)
             self.didx = self.didxs[0]
             self.device = self.didx.device
+        self.tp = tp
+        if tp is not None and not isinstance(tp, TpIndex):
+            self.tp = TpIndex(fmi, tp)
         self.extender = WaveExtender(opt, self.mat, self.device, dp=dp)
         # longer reads go to the scalar path (the kernel's lane bound)
         self.read_len_cap = 510
@@ -142,7 +157,7 @@ class DeviceAligner:
         # 'hybrid' (both, split by self.hybrid); device/smem.py raises
         # on the others
         default_mode = "host" if (native_smem._lib() is not None
-                                  and dp is None) else "megaq"
+                                  and dp is None and tp is None) else "megaq"
         self.seed_mode = os.environ.get("TPUBWA_SEED_MODE") or default_mode
         self.hybrid = HybridSplit.from_env()
 
@@ -240,7 +255,7 @@ class DeviceAligner:
         flat, frid, qd, sa = collect_intv_device(
             self.opt, self._index(), arr, lens, self.fmi,
             mode=self.seed_mode, split=self.hybrid, dp=self.dp,
-            return_sa=True)
+            return_sa=True, tp=self.tp)
         counts = np.bincount(frid, minlength=arr.shape[0])[:len(chunk)]
         intv = (flat, counts)
         positions = (self._sa_positions(intv) if sa is None
@@ -403,5 +418,5 @@ def _serialize_per_read(plans_by_read):
 
 
 def make_device_aligner(opt: MemOpt, fmi: FMIndex, device="cuda",
-                        dp=None) -> DeviceAligner:
-    return DeviceAligner(opt, fmi, device=device, dp=dp)
+                        dp=None, tp=None) -> DeviceAligner:
+    return DeviceAligner(opt, fmi, device=device, dp=dp, tp=tp)

@@ -25,6 +25,12 @@ the native walk's positions, or -1 counts where the index has no marks.
 Over a ``DataParallel`` (``dp``), megaq splits the reads it seeds over
 the replicas (in hybrid, the device share's), each replica holding the
 whole chunk for the extension, and host mode uploads the reads to each.
+
+Over an index split into row slabs (``tp``, a ``dist/index_tp.py:
+TpIndex``; tpubwa's 'tp' mesh axis), megaq runs K2 and the fused SA walk
+on the slabs and K3 on the whole index, as tpubwa seeds its rounds 1+2
+on the shards and scans round 3 on the replicated index; hybrid ignores
+``tp``, as tpubwa's does.
 tpubwa's other machine modes are not ported on purpose (ROADMAP).
 """
 
@@ -242,12 +248,15 @@ class Seeded:
 
 
 def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
-                  ld: torch.Tensor, sa: bool = False) -> Seeded:
+                  ld: torch.Tensor, sa: bool = False, tp=None) -> Seeded:
     """K2's rounds 1+2 and K3's round 3 on reads already on the device,
     and with ``sa`` their rows' SA positions (``sa_ranks``, then K-sa on
     the same stream, no launch where no rank is sampled), all copied to
-    the host after the last launch (the copies synchronise)."""
-    rows12, rids12 = rounds12_megaq(opt, didx, qd, ld)
+    the host after the last launch (the copies synchronise).  With a
+    ``tp`` (a ``TpIndex``) K2 and K-sa read its slabs, launched from the
+    reads' device, and K3 ``didx``."""
+    slabs = didx if tp is None else tp.at(qd.device)
+    rows12, rids12 = rounds12_megaq(opt, slabs, qd, ld)
     round3 = ()
     if opt.max_mem_intv > 0:
         round3 = _seed_strategy_scan(didx, qd, ld, opt.min_seed_len,
@@ -262,7 +271,7 @@ def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
                 hits.shape[1], device=qd.device)[None, :]
                 < n_hits[:, None]).reshape(-1)])
         cnt, ranks = sa_ranks(didx, rows, keep, opt.max_occ)
-        pos = sa_lookup(didx, ranks) if len(ranks) else ranks
+        pos = sa_lookup(slabs, ranks) if len(ranks) else ranks
     out = Seeded(rows12.cpu().numpy(), rids12.cpu().numpy(),
                  tuple(x.cpu().numpy() for x in round3))
     if sa:
@@ -341,21 +350,24 @@ def _upload_dp(didxs, reads: np.ndarray, lens: np.ndarray, dp):
                   [None] * dp.n)
 
 
-def _collect_megaq_dp(opt, didxs, uploads, n: int, dp, sa: bool = False):
+def _collect_megaq_dp(opt, didxs, uploads, n: int, dp, sa: bool = False,
+                      tp=None):
     """Mode megaq over ``dp``'s replicas (tpubwa/device/smem.py:634-640:
     the reads replicated, the lanes sharded) for reads [0, n) of a chunk
     each replica holds (``uploads``): replica i seeds its part [lo, hi)
     through K2 and K3 (and with ``sa`` walks its rows' ranks on K-sa; a
     replica with an empty part launches nothing), and ``_merge`` runs
-    once, on what one device would have seeded.  Returns (flat, frid, sa
-    or None)."""
+    once, on what one device would have seeded.  With a ``tp`` every
+    replica's K2 and K-sa read its one set of slabs.  Returns (flat,
+    frid, sa or None)."""
     def part(i, bounds):
         lo, hi = bounds
         if hi == lo:
             return None
         dp.note(i, "reads", hi - lo)
         qd, ld = uploads[i]
-        got = _megaq_rounds(opt, didxs[i], qd[lo:hi], ld[lo:hi], sa=sa)
+        got = _megaq_rounds(opt, didxs[i], qd[lo:hi], ld[lo:hi], sa=sa,
+                            tp=tp)
         if sa:
             dp.note(i, "ranks", len(got.sa12[1]) + len(got.sa3[1]))
         return lo, got
@@ -428,16 +440,17 @@ def _resident(uploads, dp):
     return uploads[0] if dp is None else [qd for qd, _ in uploads]
 
 
-def _seed_megaq(opt, didx, uploads, n: int, dp, sa: bool):
+def _seed_megaq(opt, didx, uploads, n: int, dp, sa: bool, tp=None):
     """Mode megaq for reads [0, n) of an uploaded chunk, on the device or
     over ``dp``'s replicas: K2 seeds rounds 1+2 and K3 round 3 (with
-    ``sa``, K-sa walks their rows' ranks), and the host merges their
-    rows.  Returns (flat, frid, sa or None)."""
+    ``sa``, K-sa walks their rows' ranks; K2 and K-sa on ``tp``'s slabs
+    where one is given), and the host merges their rows.  Returns (flat,
+    frid, sa or None)."""
     if dp is not None:
-        return _collect_megaq_dp(opt, didx, uploads, n, dp, sa=sa)
+        return _collect_megaq_dp(opt, didx, uploads, n, dp, sa=sa, tp=tp)
     qd, ld = uploads
-    return _merge([(0, _megaq_rounds(opt, didx, qd[:n], ld[:n], sa=sa))],
-                  sa)
+    return _merge([(0, _megaq_rounds(opt, didx, qd[:n], ld[:n], sa=sa,
+                                     tp=tp))], sa)
 
 
 def _collect_host(opt, didx, reads: np.ndarray, lens: np.ndarray, fmi,
@@ -509,7 +522,7 @@ def _collect_hybrid(opt, didx, reads: np.ndarray, lens: np.ndarray, fmi,
 
 def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
                         fmi, mode: str = "host", split: HybridSplit = None,
-                        dp=None, return_sa: bool = False):
+                        dp=None, return_sa: bool = False, tp=None):
     """Full 3-round mem_collect_intv for a packed chunk (uint8 reads
     [B, L], int32 lens [B]).  Returns (flat int64 [n, 5] rows (x0, x1,
     size, qb, qe), frid int64 [n] read ids, qd uint8 [B, L] on the
@@ -521,6 +534,9 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     ``dp`` (``dist.sharding.DataParallel``), ``didx`` is the list of its
     replicas' indexes, megaq (in hybrid, its share) splits the reads
     over them, and ``qd`` is a list, the chunk's reads on each replica.
+    With a ``tp`` (``dist/index_tp.py:TpIndex``) mode megaq seeds rounds
+    1+2 and walks the fused SA on its slabs (round 3 on ``didx``); the
+    other modes do not read it.
 
     ``return_sa`` (tpubwa's): also return ``sa``, (cnt int64 [n], pos
     int64 [sum of cnt >= 0]) in the rows' order: megaq's rows get their
@@ -532,7 +548,8 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     sa = return_sa and not os.environ.get("TPUBWA_NO_SA_FUSE")
     if mode == "megaq":
         up = _uploads(didx, reads, lens, dp)
-        flat, frid, got_sa = _seed_megaq(opt, didx, up, len(lens), dp, sa)
+        flat, frid, got_sa = _seed_megaq(opt, didx, up, len(lens), dp, sa,
+                                         tp=tp)
         out = (flat, frid, _resident(up, dp), got_sa)
     elif mode == "hybrid":
         out = _collect_hybrid(opt, didx, reads, lens, fmi,

@@ -14,7 +14,10 @@ Two versions, bit-identical by test:
   tensors.
 
 ``rounds12_megaq`` routes by the tensors' device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.  Nothing
+plain version, a CUDA tensor launches the kernel or raises.  Over an
+index split into row slabs (``dist/index_tp.py:TpIndex``) the plain
+version reads through its routed accessors and the card runs K2's TP
+instantiation, which takes each row from the slab that holds it.  Nothing
 falls back from one to the other, and no row is seeded on the host.  K2
 keeps a read's stacks in shared memory, so it takes reads of at most
 ``k2_max_len`` bases; both routes refuse longer ones.
@@ -39,7 +42,7 @@ import torch
 from . import _build
 from .counts import bump
 from .occ import (DeviceIndex, I64, _kernel_route, _raise_on,
-                  bwt_extend_plain, set_intv)
+                  bwt_extend_plain, set_intv, sharded)
 
 # row slots a read in K2's first launch: a 100 bp read has a few rows,
 # a repeat more; a read with more is re-run (collect12), a launch whose
@@ -65,6 +68,12 @@ _SIGNATURES = {
                                    _VP, _VP, _VP, _CI, _VP]),
     # (idx64, L, device, out int64[5]) -> cudaError_t
     "tpubwa_smem_rounds12_shape": (_CI, [_CI, _CL, _CI, _VP]),
+    # K2's TP instantiation: (n_slabs, the occ slab table, then
+    # tpubwa_smem_rounds12's arguments from L2 on) -> cudaError_t
+    "tpubwa_smem_rounds12_tp": (_CI, [_CI, _VP, _VP, _CL, _CL, _CI, _VP,
+                                      _CL, _VP, _VP, _CL, _CI, _CI, _CL,
+                                      _CI, _VP, _VP, _VP, _VP, _VP, _CI,
+                                      _VP]),
     # (occ, L2, primary, seq_len, idx64, q, L, lens, n, min_len,
     #  max_intv, maxh, queue, hits, n_hits, steps, chain, longest, device,
     #  stream) -> cudaError_t
@@ -363,15 +372,26 @@ def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
     card the card's own limit, which the launch reports by refusing).  A
     ``stats`` dict gets ``steps`` and ``chain`` (int32 [B], bwt_extend
     calls a read and the rounds of them made one after another) and
-    ``second_launch_reads``."""
+    ``second_launch_reads``.  Over a ``TpIndex`` the card runs K2's TP
+    instantiation (``rounds12_megaq.tp_launches``); a mark-less one
+    raises NotImplementedError on both routes (tpubwa's)."""
     B, L = check_reads(didx, qd, ld)
     if slots < 1:
         raise ValueError(f"slots must be positive, got {slots}")
+    tp = sharded(didx)
+    if tp:
+        tp.check_marked()
     if not _kernel_route(qd):
         check_k2_len(L, didx.idt, k2_max_len(didx.idt))
         return rounds12_plain(opt, didx, qd, ld, stats=stats)
     lib = _build.load("smem", _SIGNATURES)
-    index = index_args(didx)
+    if tp:
+        entry, count = lib.tpubwa_smem_rounds12_tp, "tp_launches"
+        index = (tp.n, tp.kernel_table("occ_blocks"), tp.L2.data_ptr(),
+                 tp.primary, tp.seq_len, int(tp.idt == I64))
+    else:
+        entry, count = lib.tpubwa_smem_rounds12, "launches"
+        index = index_args(didx)
     dev, idt = qd.device, didx.idt
     queue = torch.empty(1, dtype=torch.int32, device=dev)
 
@@ -381,7 +401,7 @@ def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
         counts = torch.empty(n, dtype=torch.int32, device=dev)
         steps = torch.empty(n, dtype=torch.int32, device=dev)
         chain = torch.empty(n, dtype=torch.int32, device=dev)
-        rc = lib.tpubwa_smem_rounds12(
+        rc = entry(
             *index, qd.data_ptr(), L, ld.data_ptr(), rids.data_ptr(), n,
             opt.min_seed_len, split_len_of(opt), opt.split_width, width,
             queue.data_ptr(), rows.data_ptr(), counts.data_ptr(),
@@ -390,10 +410,11 @@ def rounds12_megaq(opt, didx: DeviceIndex, qd: torch.Tensor,
             _, shape = k2_shape(lib, idt == I64, L, dev.index)
             check_k2_len(L, idt, shape["max_len"])
         _raise_on(rc, "smem_rounds12")
-        bump(rounds12_megaq)
+        bump(rounds12_megaq, count)
         return rows, counts, steps, chain
 
     return collect12(launch, B, slots, dev, stats=stats)
 
 
 rounds12_megaq.launches = 0
+rounds12_megaq.tp_launches = 0

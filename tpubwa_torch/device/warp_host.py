@@ -177,7 +177,24 @@ def intrinsics16_host(a, b, c):
     return dict(zip(INTRINSICS16, got.reshape(len(INTRINSICS16), len(a))))
 
 
-def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call):
+def _slab_input(first, devices, n_arrays):
+    """(n_slabs, the int64 arrays of the harness's slab cuts): ``first``,
+    one list of first rows an array (``n_arrays`` of them, all of one
+    length; None: the flat entries), and the slabs' ``devices`` (all 0
+    where None)."""
+    if first is None:
+        return 0, ()
+    first = [np.asarray(f, np.int64) for f in first]
+    if len(first) != n_arrays or len({len(f) for f in first}) != 1:
+        raise ValueError(f"{n_arrays} lists of first rows of one length")
+    n = len(first[0])
+    devices = np.zeros(n, np.int64) if devices is None else np.asarray(
+        devices, np.int64)
+    return n, (*first, devices)
+
+
+def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call, slabs=None,
+               devices=None, peers=True):
     """(rank type, the occ_host input arrays)."""
     dt = np.asarray(arrays["sa_sample"]).dtype
     if dt not in (np.int32, np.int64):
@@ -186,17 +203,19 @@ def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call):
                   for k in ("occ_blocks", "mark_rows"))
     ranks = np.ascontiguousarray(ranks, dt)
     ik = np.ascontiguousarray(ik, dt).reshape(-1, 3)
+    n_slabs, cuts = _slab_input(slabs, devices, 3)
     head = np.asarray([len(occ), len(marks), len(arrays["sa_marked"]),
                        len(arrays["sa_sample"]), arrays["primary"],
                        arrays["seq_len"], arrays["mark_D"], dt == np.int64,
                        len(ranks), len(ik), max_blocks, int(reverse),
-                       n_call], np.int64)
+                       n_call, n_slabs, int(peers)], np.int64)
     return dt, (head, occ, marks, *(
         np.ascontiguousarray(arrays[k], dt)
-        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik)
+        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik, *cuts)
 
 
-def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None):
+def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None,
+             slabs=None, devices=None, peers=True):
     """csrc/occ.cu's C entries on the host, on a tpubwa-layout index:
     ``arrays`` maps ``occ_blocks``, ``mark_rows`` (uint32), ``L2``,
     ``sa_marked``, ``sa_sample`` (the rank type, int32 or int64, taken
@@ -206,12 +225,18 @@ def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None):
     through ``tpubwa_bwt_extend``), of the rank type.  ``max_blocks`` > 0
     caps K-sa's grid; ``reverse`` runs each warp's lanes 31..0; a
     ``stats`` dict gets ``lanes``, the global thread index that walked
-    each rank.  Raises RuntimeError with the harness's report if a
-    sanitizer or the lockstep check stops it or an entry returns an
-    error."""
-    dt, inputs = _occ_input(arrays, ranks, ik, max_blocks, reverse, -1)
+    each rank.  ``slabs`` (the first rows of the occ, the mark and the
+    sa_marked slabs, three lists of one length, each from 0) runs the TP
+    instantiations (``tpubwa_sa_lookup_tp``, the marked walk, and
+    ``tpubwa_bwt_extend_tp``) on the arrays cut there, each slab its own
+    heap block, on ``devices`` (one a slab; all 0, the launch's, where
+    None); ``peers`` False makes the peer-access query refuse every
+    pair.  Raises RuntimeError with the harness's report if a sanitizer
+    or the lockstep check stops it or an entry returns an error."""
+    dt, inputs = _occ_input(arrays, ranks, ik, max_blocks, reverse, -1,
+                            slabs, devices, peers)
     got = _exec("occ_host", inputs, dtype=dt)
-    n, m = len(inputs[-2]), len(inputs[-1]) * 12
+    n, m = len(ranks), len(inputs[7]) * 12
     if stats is not None:
         stats["lanes"] = got[n:2 * n].astype(np.int64)
     return (got[:n], got[2 * n:2 * n + m].reshape(-1, 4, 3),
@@ -230,7 +255,8 @@ def sa_lookup_refusal(arrays, ranks, n_call):
 
 
 def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
-              count_rows=False, sanitize=True, reverse=False, card=(0, 0)):
+              count_rows=False, sanitize=True, reverse=False, card=(0, 0),
+              slabs=None, devices=None, peers=True):
     """One launch of csrc/smem.cu's K2 (``kernel`` 0,
     ``tpubwa_smem_rounds12``, on the reads ``rids`` with ``slots`` row
     slots each, a warp a read) or K3 (1, ``tpubwa_seed_strategy``, on
@@ -241,6 +267,11 @@ def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
     warp's lanes 31..0; ``card`` (SMs, blocks an SM), where nonzero, makes
     the attribute and occupancy queries answer for a smaller card than an
     H100, so that a persistent grid holds fewer warps than the work.
+    ``slabs`` (K2 only: the first rows of the occ slabs, from 0) launches
+    K2's TP instantiation (``tpubwa_smem_rounds12_tp``) on the occ rows
+    cut there, each slab its own heap block, on ``devices`` (one a slab;
+    all 0, the launch's, where None); ``peers`` False makes the
+    peer-access query refuse every pair.
     Returns int64 arrays: (rows [n, slots, 5], counts [n], steps [n],
     chain [n]) for K2, (hits [B, maxh, 5], n_hits [B], steps [B], chain
     [B], longest [B]) for K3, and with ``count_rows`` the distinct occ
@@ -258,13 +289,17 @@ def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
                                 np.int32)
     n = len(rids) if kernel == 0 else B
     min_seed_len, split_len, split_width, max_intv, maxh = params
+    if slabs is not None and kernel != 0:
+        raise ValueError("K3 has no TP instantiation")
+    n_slabs, cuts = _slab_input(None if slabs is None else [slabs],
+                                devices, 1)
     head = np.asarray([kernel, len(occ), arrays["primary"],
                        arrays["seq_len"], L2.dtype == np.int64, B, L, n,
                        min_seed_len, split_len, split_width, slots,
                        max_intv, maxh, int(count_rows), int(reverse),
-                       *card], np.int64)
+                       *card, n_slabs, int(peers)], np.int64)
     got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
-        lens, np.int32), *((rids,) if kernel == 0 else ())),
+        lens, np.int32), *((rids, *cuts) if kernel == 0 else ())),
         dtype=np.int64, sanitize=sanitize)
     width = slots if kernel == 0 else maxh
     k = n * width * 5

@@ -1,16 +1,21 @@
 """The whole pipeline on several devices, held to one device: the
-counterpart of the data-parallel leg of tpubwa's dryrun
-(``__graft_entry__.dryrun_multichip``).
+counterpart of tpubwa's dryrun (``__graft_entry__.dryrun_multichip``),
+its data-parallel leg and its tensor-parallel one.
 
 ``DeviceAligner`` over a ``DataParallel`` (the FM-index replicated,
 seeding, the SA walk and the extension waves split over the replicas)
 runs a realistic multi-contig genome's PE reads through pairing and SAM
 emission, and its SAM must equal the single-device run's record for
-record.  tpubwa's tensor-parallel leg (the seeding index sharded over a
-'tp' axis) waits for ROADMAP [index-tp].
+record.  Then the tp leg: an aligner over ``TpIndex(fmi, devices)`` (the
+seeding index in row slabs across the devices, megaq's K2 and fused SA
+walk reading each row from the slab that holds it) on the first
+TPUBWA_DRYRUN_TP_PAIRS pairs (default 128, tpubwa's), SAM-equal to the
+single-device run, each slab 1/n of the padded rows.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -21,8 +26,9 @@ def dryrun_multidevice(devices, mb: float = 1.5, n_pairs: int = 1024,
     100 bp pairs from ``seed``; align them through an aligner on
     ``devices[0]`` alone and through one over ``DataParallel(devices)``
     (seed mode megaq unless TPUBWA_SEED_MODE says otherwise), and raise
-    unless the two SAMs are equal.  Prints one line and returns its
-    facts."""
+    unless the two SAMs are equal; then the tp leg (the module's
+    docstring), skipped where TPUBWA_DRYRUN_TP_PAIRS is 0.  Prints one
+    line a leg and returns their facts (the tp leg's under ``tp``)."""
     from .sharding import DataParallel
 
     dp = DataParallel.over(devices)
@@ -69,5 +75,39 @@ def _dryrun(dp, mb, n_pairs, seed):
           f"{n_bp} bp realistic multi-contig genome incl. ALT; seeding "
           f"{multi.seed_mode} over the replicas, {single.seed_mode} on "
           "one)", flush=True)
+    n_tp = int(os.environ.get("TPUBWA_DRYRUN_TP_PAIRS", "128"))
+    if n_tp > 0:
+        facts["tp"] = _tp_leg(opt, fmi, reads[:2 * n_tp], single, dp.devices)
+    return facts
+
+
+def _tp_leg(opt, fmi, reads, single, devices):
+    """The tp leg: ``reads`` through an aligner over ``TpIndex(fmi,
+    devices)`` SAM-equal to ``single``'s, each slab 1/n of the padded
+    rows."""
+    from ..device.pipeline import make_device_aligner
+    from ..host.pipeline import process_seqs
+    from .index_tp import TpIndex
+    tp = TpIndex(fmi, devices)
+    aligner = make_device_aligner(opt, fmi, device=devices[0], tp=tp)
+    sam_t = process_seqs(opt, fmi, reads, 0, align_fn=aligner)
+    sam_s = process_seqs(opt, fmi, reads, 0, align_fn=single)
+    if sam_t != sam_s:
+        raise AssertionError(
+            "index-sharded SAM != single-device SAM: "
+            + repr([d for d in zip(sam_s, sam_t) if d[0] != d[1]][:2]))
+    for name, per in tp.slab_rows.items():
+        if per * tp.n != tp.rows_total[name]:
+            raise AssertionError(f"{name}: {tp.n} slabs of {per} rows for "
+                                 f"{tp.rows_total[name]}")
+    facts = {"records": len(sam_t), "reads": len(reads), "slabs": tp.n,
+             "devices": [str(d) for d in tp.devices],
+             "slab_rows": tp.slab_rows, "rows_total": tp.rows_total,
+             "seed_mode": aligner.seed_mode}
+    print(f"[dryrun_multidevice] TP: index-sharded seeding (occ slab "
+          f"1/{tp.n} a device, {tp.slab_rows['occ_blocks']} of "
+          f"{tp.rows_total['occ_blocks']} rows) SAM-equal on "
+          f"{len(reads)} reads over {','.join(facts['devices'])}",
+          flush=True)
     return facts
 

@@ -120,6 +120,22 @@ def merge_shard_files(shard_paths: Sequence[str], out_path: str,
 # Device-level sharding: replicas of the index, the job axis split
 # ---------------------------------------------------------------------
 
+def resolve(d) -> torch.device:
+    """``d`` as a torch.device; 'cuda' without an index is the current
+    card.  Raises where torch sees no card, and for a type other than
+    cuda and cpu."""
+    d = torch.device(d)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {d} requested but torch sees no "
+                               "CUDA device")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    elif d.type != "cpu":
+        raise ValueError(f"unsupported device {d}")
+    return d
+
+
 class DataParallel:
     """Replicas of the aligner's device state over ``devices`` (a list of
     ``torch.device``; one may be named more than once, so that one card
@@ -131,19 +147,9 @@ class DataParallel:
     Its worker threads live until ``close``."""
 
     def __init__(self, devices: Sequence):
-        devices = [torch.device(d) for d in devices]
+        devices = [resolve(d) for d in devices]
         if not devices:
             raise ValueError("DataParallel needs at least one device")
-        for i, d in enumerate(devices):
-            if d.type == "cuda":
-                if not torch.cuda.is_available():
-                    raise RuntimeError(f"device {d} requested but torch "
-                                       "sees no CUDA device")
-                if d.index is None:
-                    devices[i] = torch.device(
-                        "cuda", torch.cuda.current_device())
-            elif d.type != "cpu":
-                raise ValueError(f"unsupported device {d}")
         self.devices = devices
         # one stream a replica, made once; None on the CPU
         self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
