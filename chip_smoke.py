@@ -75,6 +75,13 @@ Phases, one output line each (a failing phase raises, exit != 0):
      cells; then the ported breakdown experiment
      (tpubwa_torch.scripts.exp_kernel_breakdown.main at 512 and
      131,072 jobs), whose K1-bd launches are counted;
+ 3i. K1-mat (extend.cu's kMat instantiation: the score from a 5 x 5
+     table) == extend_batch_plain(mat=), exactly, each launch
+     synchronised, on phase 3's twelve job sets under three matrices
+     (the entry step's, transition/transversion, a positive entry off
+     the diagonal), and == K1's kernel at bwa_fill_scmat's matrix; at
+     phase 3's main shape K1-mat alone (tt and scmat) beside K1 alone in
+     interleaved passes, with its plain version's band cells;
   4. `mem --device cuda` on tests/golden: SE and PE SAM byte-equal to
      the snapshots (tpubwa's own output), @PG stripped;
  4b. `mem --device cuda --shard i/3` on the golden SE reads, the three
@@ -94,6 +101,11 @@ Phases, one output line each (a failing phase raises, exit != 0):
      its tp leg, the first 128 pairs through an aligner over the index
      in two slabs on the card (K2's and K-sa's TP instantiations
      launched), SAM-equal to the card alone;
+  6. tpubwa_torch.entry's step on the card (K-reach over every position
+     of 64 reads on a 4 kb genome, K-sa on its anchors, K1-mat under the
+     step's matrix), the three counts at 0 just before it: e, pos and
+     score == the same step on the CPU (the plain versions), each kernel
+     launched;
   5. the main path at real size: 2 batches x 8,192 pairs of 100 bp PE
      reads on the 64 Mbp repeat-realistic synthetic genome, through
      the port's process_batches with its aligner on cuda; the first 512
@@ -175,6 +187,11 @@ Phases, one output line each (a failing phase raises, exit != 0):
      slabs) in the same interleaved passes, with their bounds; each TP
      instantiation's registers and the rounds of its row loads in SASS
      beside the flat one's;
+ 3j. (after 3h) K-reach == rightmost_reach_plain over every start 0-99 of
+     every read of 5c's first chunk on the 64 Mbp index (1,638,400 jobs),
+     int32, and int64 on the first 65,536; K-reach alone warm
+     (interleaved passes) and cold, beside its plain version and its
+     bound, with the steps a job and the longest walk;
  5d. phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa index: K2 and
      K3 seed every read and K-sa walks every SA position (fused into
      seeding, once a chunk) in one run, with the counts at 0 just
@@ -231,6 +248,17 @@ Phases, one output line each (a failing phase raises, exit != 0):
      just before each run.  Each run's launches, waves, jobs,
      scalar-loop jobs, reads/s and wall beside the card's name and
      power limit.
+ 5j. the first 2,048 reads of phase 5: (a) chained by the host stages,
+     then WaveExtender.run (plain waves) over extension_plan() generators
+     (per-side waves of 512-job blocks) under bwa_fill_scmat's matrix (K1)
+     and a transition/transversion one (K1-mat), each run's regions ==
+     host/regions.py:chain2aln's; (b) process_batches with the aligner on
+     cuda under that matrix (the non-descriptor route, K1-mat), SAM ==
+     the same run with extension through the scalar trial loops
+     (tpubwa's route for such a matrix); K1 or K1-mat launched where
+     expected, with the counts at 0 just before each run; waves, jobs,
+     scalar-loop jobs and reads/s beside the card's name and power
+     limit.
 Then the bounds (each kernel's least time on this card: the band cells
 its plain version counted on the timed inputs, times the integer
 instructions per cell, over the card's integer rate; or its bytes over
@@ -239,11 +267,11 @@ constants of the recurrence, RECURRENCE_OPS, so the bound does not move
 with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), the smoke's
-wall, a JSON line of the kernels (launches on each kernel's paths: K1
-in phase 5, 5f, 5g and 5h, K-sa in 5b, 5c, 5d, 5e, 5f, 5g and 5h, K2
-and K3 in 5c, 5d, 5e, 5f, 5g and 5h, K2's and K-sa's TP
-instantiations in 5i and 4d's tp leg, K-ext's on 3g's extension path
-over slabs, the int16 kernel in the
+wall and each phase's, a JSON line of the kernels (launches on each kernel's paths: K1
+in phase 5, 5f, 5g, 5h and 5j, K1-mat in 6 and 5j, K-reach in 6, K-sa in
+5b, 5c, 5d, 5e, 5f, 5g, 5h and 6, K2 and K3 in 5c, 5d, 5e, 5f, 5g and 5h,
+K2's and K-sa's TP instantiations in 5i and 4d's tp leg, K-ext's on 3g's
+extension path over slabs, the int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
 K1-bd in that of 3f, K-ext on 3g's extension path; errors, times,
 bounds) and, last,
@@ -327,7 +355,9 @@ KERNEL_ROWS = (
      r"extend_kernelILi1EE", {"cells": "ksw_extend_floor"}),
     ("ksw_extend_bd", "extend_bd", "scripts/exp_kernel_breakdown.py:54",
      r"extend_bd_liveILi0ELb0ELb1ELb1ELb1ELb1EE",
-     {"live_cells": "ksw_extend_bd", "frozen_cells": "ksw_extend_bd_frozen"}))
+     {"live_cells": "ksw_extend_bd", "frozen_cells": "ksw_extend_bd_frozen"}),
+    ("ksw_extend_mat", "extend", "tpubwa/device/extend.py:33",
+     r"extend_kernelILi2048EE", {"cells": "ksw_extend"}))
 
 
 def cell_ops(case, charge):
@@ -4021,6 +4051,361 @@ def seeding_sass():
                              ("seed_strategy", r"seed_strategy_kernelIiE"))}
 
 
+def phase_kernel_mat(torch, np):
+    """[3i K1-mat]: K1-mat (csrc/extend.cu's kMat instantiation) ==
+    extend_batch_plain(mat=) on phase 3's twelve job sets under three
+    matrices (the entry step's, transition/transversion, a positive
+    entry off the diagonal), and == K1's kernel at bwa_fill_scmat's
+    matrix, each launch synchronised; then, at phase 3's main shape
+    under the transition/transversion matrix, K1-mat alone beside K1
+    alone (and K1-mat at scmat) in interleaved passes, with the band
+    cells of its plain version.  Returns (the row's case, its largest
+    difference from plain)."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.entry import ENTRY_MAT
+    from tpubwa_torch.opts import MemOpt
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    o = MemOpt()
+    pen4 = (o.o_del, o.e_del, o.o_ins, o.e_ins)
+    scmat = o.scoring_matrix()
+    mats = {"entry": ENTRY_MAT, "tt": ek.tt_matrix(),
+            "positive": ek.positive_matrix()}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0x5EED)   # phase 3's sets, in its order
+    cases, max_err, main = [], 0, None
+    for W, tmax in ((128, 256), (256, 512), (512, 512)):
+        for n in (512, 8192):
+            for zdrop in (0, 100):
+                q, t, p = (torch.from_numpy(x).to(DEV)
+                           for x in make_jobs(rng, n, W, tmax))
+                case = {"W": W, "tmax": tmax, "n": n, "zdrop": zdrop}
+                for name, mat in mats.items():
+                    got = ek.extend_batch(q, t, p, None, None, *pen4, zdrop,
+                                          mat=mat)
+                    torch.cuda.synchronize()
+                    stats = {}
+                    want, plain_ms = timed_once(
+                        torch, lambda: ek.extend_batch_plain(
+                            q, t, p, None, None, *pen4, zdrop, stats=stats,
+                            mat=mat))
+                    max_err = max(max_err, held_to_plain(
+                        torch, f"K1-mat != plain under {name} at W={W} "
+                        f"n={n} zdrop={zdrop}", got, want))
+                    case[name] = {"cells": stats["cells"],
+                                  "plain_ms": round(plain_ms, 3)}
+                k1 = ek.extend_batch(q, t, p, o.a, o.b, *pen4, zdrop)
+                held_to_plain(torch, f"K1-mat at scmat != K1 at W={W} n={n} "
+                              f"zdrop={zdrop}", ek.extend_batch(
+                                  q, t, p, None, None, *pen4, zdrop,
+                                  mat=scmat), k1)
+                case["equal_to_k1_at_scmat"] = True
+                cases.append(case)
+                if (W, tmax, n, zdrop) == (128, 256, 8192, 100):
+                    main = (q, t, p, case)
+    q, t, p, case = main
+    tt = mats["tt"]
+    alone = interleaved_min(
+        {"K1": lambda: ek._extend_cuda(q, t, p, o.a, o.b, *pen4, 100),
+         "K1-mat/tt": lambda: ek._extend_mat_cuda(q, t, p, tt, *pen4, 100),
+         "K1-mat/scmat": lambda: ek._extend_mat_cuda(q, t, p, scmat, *pen4,
+                                                     100)},
+        16, 4, torch.device(DEV))
+    stats = {}
+    ek.extend_batch_plain(q, t, p, o.a, o.b, *pen4, 100, stats=stats)
+    row = {"W": 128, "tmax": 256, "n": len(q), "zdrop": 100, "matrix": "tt",
+           "ms": round(alone["K1-mat/tt"], 4),
+           "k1_ms": round(alone["K1"], 4),
+           "scmat_ms": round(alone["K1-mat/scmat"], 4),
+           "mat_over_k1_at_scmat": round(alone["K1-mat/scmat"]
+                                         / alone["K1"], 4),
+           "plain_ms": case["tt"]["plain_ms"], "cells": case["tt"]["cells"],
+           "k1_cells": stats["cells"],
+           "bytes": 4 * (q.numel() + t.numel() + p.numel() + 6 * len(q)
+                         + 25)}
+    print("[3i K1-mat==plain] " + json.dumps(
+        {"tolerance": 0, "matrices": {k: v.tolist() for k, v in mats.items()},
+         "cases": cases, "main_shape": row, "max_abs_err": max_err,
+         "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+    return row, max_err
+
+
+REACH_STARTS = 100      # starts a read in phase 3j (the reads' length)
+
+
+def reach_alone(torch, didx, q, lens, read_idx, starts, min_intv):
+    """K-reach's C entry alone on preallocated buffers (``.buffers``), a
+    launch not counted on the wrapper."""
+    from tpubwa_torch.device import _build, occ
+    lib = _build.load("occ", occ._SIGNATURES)
+    fm = didx.upload_fm()
+    n = len(read_idx)
+    ik = torch.empty((n, 3), dtype=didx.idt, device=q.device)
+    e = torch.empty(n, dtype=didx.idt, device=q.device)
+    args = (fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
+            didx.seq_len, int(didx.idt == torch.int64), q.data_ptr(),
+            q.shape[1], lens.data_ptr(), read_idx.data_ptr(),
+            starts.data_ptr(), min_intv.data_ptr(), ik.data_ptr(),
+            e.data_ptr(), n, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def launch():
+        if lib.tpubwa_rightmost_reach(*args):
+            raise AssertionError("K-reach's launch failed")
+    launch.buffers = (q, lens, read_idx, starts, min_intv, ik, e)
+    return launch
+
+
+def phase_reach(torch, np, megaq):
+    """[3j K-reach]: (after 5c, whose first chunk it uses) K-reach ==
+    rightmost_reach_plain over every start 0-99 of every read of 5c's
+    first chunk on the 64 Mbp index (16,384 reads: 1,638,400 jobs,
+    min_intv 1), int32, and int64 on its first 65,536 jobs; then K-reach
+    alone (its C entry) warm, in interleaved passes, and cold (after a
+    64 MB write), beside its plain version and its bound (the distinct
+    sectors of the occ rows its plain version reads, with its inputs and
+    outputs), with the steps a job, the longest walk and the jobs that
+    fail at once.  Returns (the row's case, its largest difference)."""
+    from tpubwa_torch.device import smem
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    t0 = time.perf_counter()
+    _, didx, qd, ld = megaq["chunk"]
+    B = len(ld)
+    dev = qd.device
+    read_idx = torch.arange(B, dtype=torch.int32,
+                            device=dev).repeat_interleave(REACH_STARTS)
+    starts = torch.arange(REACH_STARTS, dtype=torch.int32,
+                          device=dev).repeat(B)
+    n = len(read_idx)
+    facts = {"reads": B, "jobs": n, "L": qd.shape[1]}
+    max_err = 0
+    for dt, idx, k in (("int32", didx, n),
+                       ("int64", int64_twin(torch, didx), min(n, 1 << 16))):
+        mi = torch.ones(k, dtype=idx.idt, device=dev)
+        args = (idx, qd, ld, read_idx[:k], starts[:k], mi)
+        ik, e = smem.rightmost_reach(*args)
+        torch.cuda.synchronize()
+        stats = {}
+        (pik, pe), plain_ms = timed_once(
+            torch, lambda: smem.rightmost_reach_plain(*args, stats=stats))
+        for what, got, want in (("ik", ik, pik), ("e", e, pe)):
+            max_err = max(max_err, held_fm(torch, f"K-reach {what} ({dt})",
+                                           got, want)[1])
+        steps = stats["steps"]
+        facts[dt] = {"jobs": k, "equal": True, "plain_ms": round(plain_ms, 3),
+                     "steps_mean": round(float(steps.float().mean()), 3),
+                     "longest_walk": stats["rounds"],
+                     "fail_at_once": int((e == starts[:k]).sum())}
+        if dt == "int32":
+            rows = torch.unique(stats["occ_rows"]).cpu().numpy()
+            flat = (plain_ms, rows, pik, pe)
+    plain_ms, rows, pik, pe = flat
+    mi = torch.ones(n, dtype=didx.idt, device=dev)
+    fn = reach_alone(torch, didx, qd, ld, read_idx, starts, mi)
+    ms = interleaved_min({"reach": fn}, 8, 4, torch.device(DEV))["reach"]
+    cold = cold_ms(torch, fn, reps=4)
+    _, _, _, _, _, ik_a, e_a = fn.buffers
+    if not torch.equal(e_a, pe) or not torch.equal(ik_a, pik):
+        raise AssertionError("K-reach alone wrote other results")
+    isz = 8 if didx.idt == torch.int64 else 4
+    io = qd.numel() + 4 * len(ld) + 4 * 2 * n + isz * n + isz * 4 * n
+    case = {"n": n, "ms": round(ms, 4), "cold_ms": round(cold, 4),
+            "plain_ms": round(plain_ms, 3), "distinct_occ_rows": len(rows),
+            "bytes": fm_bytes(io, [(rows, OCC_ROW)]),
+            "max_abs_err": max_err}
+    facts.update(alone=case, seconds=round(time.perf_counter() - t0, 1))
+    print("[3j K-reach==plain] " + json.dumps(facts), flush=True)
+    return case, max_err
+
+
+def phase_entry(torch, np):
+    """[6 entry]: tpubwa_torch.entry's step on the card (K-reach, K-sa and
+    K1-mat under the step's matrix), with those three counts at 0 just
+    before it; e, pos and score must equal the same step on the CPU (every
+    kernel's plain version), and each kernel must launch.  Returns the
+    launches."""
+    from tpubwa_torch import entry
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ, smem
+    step, args = entry.entry(DEV)
+    counts = {"rightmost_reach": (smem.rightmost_reach, "launches"),
+              "sa_lookup": (occ.sa_lookup, "launches"),
+              "ksw_extend_mat": (ek.extend_batch, "mat_launches")}
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"6 entry launched {launches}")
+    cpu_step, cpu_args = entry.entry("cpu")
+    want = cpu_step(*cpu_args)
+    for name, g, w in zip(("e", "pos", "score"), got, want):
+        if not torch.equal(g.cpu(), w):
+            bad = (g.cpu() != w).nonzero()[:3, 0].tolist()
+            raise AssertionError(f"6 entry: {name} != plain at {bad}")
+    print("[6 entry] " + json.dumps({
+        "shapes": [list(g.shape) for g in got], "equal_to_plain": True,
+        "launches": launches, "first_call_s": round(wall, 4),
+        "step_ms": round(cuda_ms(lambda: step(*args), 10), 4)}), flush=True)
+    return launches
+
+
+WAVES_READS = 2048      # phase 5j: the first 1,024 pairs of phase 5
+
+
+def _regs_key(regs_per_read):
+    """The regions of each read, as the fields the planner computed."""
+    return [[(r.rb, r.re, r.qb, r.qe, r.rid, r.score, r.truesc, r.sub,
+              r.csub, r.w, r.seedcov, r.seedlen0, r.frac_rep) for r in regs]
+            for regs in regs_per_read]
+
+
+def phase_waves_plain(torch, np, main):
+    """[5j waves-plain]: the first 2,048 reads of phase 5's first batch.
+    (a) Seeded and chained by the aligner's host stages, then extended by
+    ``WaveExtender.run`` (the plain waves) over ``extension_plan()``
+    generators (per-side jobs, 512-job blocks through
+    extend_batch_kernel_np) under
+    bwa_fill_scmat's matrix (K1) and the transition/transversion one
+    (K1-mat): each run's regions must equal the scalar path's
+    (``host/regions.py:chain2aln``) under its matrix.  (b) `mem`'s path
+    (process_batches) with the aligner on cuda under the
+    transition/transversion matrix: the non-descriptor route, sequence-
+    tile jobs through extend_seed_batch_np on K1-mat; its SAM must equal
+    the same run with that extension through tpubwa's route for such a
+    matrix, the scalar trial loops (``extend_fused.scalar_fused`` over the
+    native ksw_extend).  The counts at 0 just before each run; K1-mat
+    must launch in (a) under tt and in (b), and not in (b)'s scalar run.
+    Returns {"ksw_extend": K1's launches, "ksw_extend_mat": K1-mat's}."""
+    from tpubwa_torch.device import dispatch
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import pipeline as dp
+    from tpubwa_torch.device.dispatch import WaveExtender
+    from tpubwa_torch.device.extend_fused import scalar_fused
+    from tpubwa_torch.host.native_emit import chain_batch_native
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.host.regions import chain2aln, extension_plan
+    from tpubwa_torch.opts import MEM_F_PE, MemOpt
+    fmi, opt = main["fmi"], main["opt"]
+    reads = main["batches"][0][:WAVES_READS]
+    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+    facts = {"reads": len(reads), "card": card}
+    aligner = dp.make_device_aligner(opt, fmi, device=DEV)
+    intv, positions, _ = aligner._seed_chunk(reads)
+
+    def chains():
+        out = chain_batch_native(opt, fmi, reads, intv, positions)
+        if out is None:
+            raise AssertionError("5j: the native chainer is unavailable")
+        return out
+
+    total = {"ksw_extend": 0, "ksw_extend_mat": 0}
+    for name, mat in (("scmat", opt.scoring_matrix()),
+                      ("tt", ek.tt_matrix())):
+        waves = WaveExtender(opt, mat, aligner.device)
+        cs = chains()
+        regs = [[] for _ in reads]
+        plans = dp._serialize_per_read([
+            [extension_plan(opt, fmi.bnt, r.l_seq, r.seq, c, regs[i])
+             for c in cs[i]] for i, r in enumerate(reads)])
+        ek.extend_batch.launches = ek.extend_batch.mat_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves.run(plans)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {"ksw_extend": ek.extend_batch.launches,
+               "ksw_extend_mat": ek.extend_batch.mat_launches}
+        cs = chains()
+        scalar = [[] for _ in reads]
+        for i, r in enumerate(reads):
+            for c in cs[i]:
+                chain2aln(opt, fmi.bnt, r.l_seq, r.seq, c, scalar[i], mat)
+        if _regs_key(regs) != _regs_key(scalar):
+            bad = next(i for i, (a, b) in enumerate(zip(
+                _regs_key(regs), _regs_key(scalar))) if a != b)
+            raise AssertionError(f"5j (a) {name}: read {bad}'s regions != "
+                                 "chain2aln's")
+        need = "ksw_extend_mat" if name == "tt" else "ksw_extend"
+        if got[need] <= 0:
+            raise AssertionError(f"5j (a) {name} launched {got}")
+        facts[f"waves_{name}"] = {
+            "seconds": round(dt, 3), "reads_per_s": round(len(reads) / dt, 1),
+            "launches": got, "n_waves": waves.n_waves,
+            "n_jobs": waves.n_jobs, "n_fallback": waves.n_fallback,
+            "regions": sum(map(len, regs)), "equal_to_chain2aln": True}
+        for k in total:
+            total[k] += got[k]
+    # (b): `mem`'s path under the transition/transversion matrix
+    tt = ek.tt_matrix()
+
+    class TtOpt(MemOpt):
+        """`mem`'s options with the transition/transversion matrix."""
+        def scoring_matrix(self):
+            return tt.copy()
+
+    opt_tt = TtOpt(flag=MEM_F_PE)
+    real = dispatch.extend_seed_batch_np
+
+    def scalar_loops(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop, tmax,
+                     device, extend=None, dp=None):
+        return np.stack([scalar_fused(j, mat, o_del, e_del, o_ins, e_ins,
+                                      zdrop) for j in jobs]).astype(np.int32)
+
+    sams = {}
+    for name, fn in (("k1_mat", real), ("scalar_loops", scalar_loops)):
+        dispatch.extend_seed_batch_np = fn
+        try:
+            al = dp.make_device_aligner(opt_tt, fmi, device=DEV)
+            if al.mat_scmat:
+                raise AssertionError("5j: the tt matrix read as scmat")
+            ek.extend_batch.launches = ek.extend_batch.mat_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sams[name] = [l for _, ls in process_batches(
+                opt_tt, fmi, iter([reads]), 0, align_fn=al) for l in ls]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            dispatch.extend_seed_batch_np = real
+        got = {"ksw_extend": ek.extend_batch.launches,
+               "ksw_extend_mat": ek.extend_batch.mat_launches}
+        ext = al.extender
+        facts[f"mem_tt_{name}"] = {
+            "seconds": round(dt, 3), "reads_per_s": round(len(reads) / dt, 1),
+            "launches": got, "n_waves": ext.n_waves, "n_jobs": ext.n_jobs,
+            "n_fallback": ext.n_fallback, "sam_lines": len(sams[name])}
+        if (got["ksw_extend_mat"] > 0) != (name == "k1_mat") \
+                or got["ksw_extend"]:
+            raise AssertionError(f"5j (b) {name} launched {got}")
+        if name == "k1_mat":
+            total["ksw_extend_mat"] += got["ksw_extend_mat"]
+    if sams["k1_mat"] != sams["scalar_loops"]:
+        raise AssertionError(
+            f"5j (b): the K1-mat SAM != the scalar loops' "
+            f"({len(sams['k1_mat'])} vs {len(sams['scalar_loops'])} lines, "
+            f"first diff {sam_diff(sams['k1_mat'], sams['scalar_loops'])})")
+    facts["mem_tt_sam_equal"] = True
+    facts["launches"] = total
+    print("[5j waves-plain] " + json.dumps(facts), flush=True)
+    return total
+
+
+PHASE_S = {}            # this run's wall of each phase, by function name
+
+
+def timed(fn, *args):
+    """fn(*args), its wall kept in PHASE_S under fn's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[fn.__name__] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4030,32 +4415,38 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     import tpubwa_torch  # noqa: F401  (fails outside a checkout)
-    phase_toolchain(torch)
-    phase_build()
-    main_case, max_err = phase_kernel(torch, np)
-    case16, err16, launches16 = phase_kernel16(torch, np)
-    case_real, err_real, launches_real = phase_kernel_real(torch, np)
-    case_floor, err_floor, launches_floor = phase_kernel_floor(torch, np)
-    phase_sanitizer()
-    case_bd, err_bd, launches_bd = phase_kernel_bd(torch, np)
-    phase_golden(torch)
-    phase_shard(torch)
-    phase_dist(torch)
-    dryrun_tp = phase_dryrun(torch)
-    main_path = phase_main_path(torch, np)
+    timed(phase_toolchain, torch)
+    timed(phase_build)
+    main_case, max_err = timed(phase_kernel, torch, np)
+    case16, err16, launches16 = timed(phase_kernel16, torch, np)
+    case_real, err_real, launches_real = timed(phase_kernel_real, torch, np)
+    case_floor, err_floor, launches_floor = timed(phase_kernel_floor, torch,
+                                                  np)
+    timed(phase_sanitizer)
+    case_bd, err_bd, launches_bd = timed(phase_kernel_bd, torch, np)
+    case_mat, err_mat = timed(phase_kernel_mat, torch, np)
+    timed(phase_golden, torch)
+    timed(phase_shard, torch)
+    timed(phase_dist, torch)
+    dryrun_tp = timed(phase_dryrun, torch)
+    entry_launches = timed(phase_entry, torch, np)
+    main_path = timed(phase_main_path, torch, np)
     launches = main_path["launches"]
-    stock, sa_case, sa_launches, _ = phase_stock_bwa(torch, np, main_path)
+    stock, sa_case, sa_launches, _ = timed(phase_stock_bwa, torch, np,
+                                           main_path)
     ext_case, ext_launches, sa_err, (ext_tp_case, ext_tp_launches) = \
-        phase_occ(torch, np, main_path["fmi"], stock)
+        timed(phase_occ, torch, np, main_path["fmi"], stock)
     sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
-    megaq = phase_megaq(torch, np, main_path)
-    seeding = phase_seeding(torch, np, main_path, megaq)
-    tp_launches = phase_megaq_tp(torch, np, main_path, megaq)
-    d5 = phase_megaq_stock(torch, np, main_path, stock)
-    dp_launches = phase_megaq_dp(torch, np, main_path, stock, d5)
-    hybrid = phase_hybrid(torch, np, main_path, megaq)
-    hybrid_dp = phase_hybrid_dp(torch, np, main_path, hybrid)
-    no_native = phase_no_native(torch, np, main_path)["launches"]
+    megaq = timed(phase_megaq, torch, np, main_path)
+    seeding = timed(phase_seeding, torch, np, main_path, megaq)
+    reach_case, _ = timed(phase_reach, torch, np, megaq)
+    tp_launches = timed(phase_megaq_tp, torch, np, main_path, megaq)
+    d5 = timed(phase_megaq_stock, torch, np, main_path, stock)
+    dp_launches = timed(phase_megaq_dp, torch, np, main_path, stock, d5)
+    hybrid = timed(phase_hybrid, torch, np, main_path, megaq)
+    hybrid_dp = timed(phase_hybrid_dp, torch, np, main_path, hybrid)
+    no_native = timed(phase_no_native, torch, np, main_path)["launches"]
+    waves = timed(phase_waves_plain, torch, np, main_path)
     bad = sorted(k for k in sys.modules if k in ("jax", "tpubwa")
                  or k.startswith(("jax.", "tpubwa.")))
     if bad:
@@ -4065,8 +4456,12 @@ def main() -> int:
     kernels, sass, disasm = [], {}, {}
     results = {"ksw_extend": (launches + no_native["ksw_extend"]
                               + dp_launches["ksw_extend"]
-                              + hybrid_dp["ksw_extend"], max_err,
+                              + hybrid_dp["ksw_extend"]
+                              + waves["ksw_extend"], max_err,
                               main_case),
+               "ksw_extend_mat": (entry_launches["ksw_extend_mat"]
+                                  + waves["ksw_extend_mat"], err_mat,
+                                  case_mat),
                "ksw_extend16": (launches16, err16, case16),
                "extend_real": (launches_real, err_real, case_real),
                "ksw_extend_floor": (launches_floor, err_floor, case_floor),
@@ -4098,9 +4493,12 @@ def main() -> int:
             ("sa_lookup", "tpubwa/device/occ.py:303",
              sa_launches + sum(x["sa_lookup"] for x in (
                  megaq["launches"], d5["launches"], hybrid["launches"],
-                 hybrid_dp, no_native, dp_launches)), sa_case),
+                 hybrid_dp, no_native, dp_launches, entry_launches)),
+             sa_case),
             ("bwt_extend", "tpubwa/device/occ.py:202", ext_launches,
-             ext_case)):
+             ext_case),
+            ("rightmost_reach", "tpubwa/device/smem.py:62",
+             entry_launches["rightmost_reach"], reach_case)):
         bound_ms, bound_by, parts = bytes_bound(case)
         sass[name] = dict(bytes=case["bytes"], n=case["n"],
                           **{k: round(v, 6) for k, v in parts.items()})
@@ -4154,7 +4552,8 @@ def main() -> int:
                                     HBM_BYTES_S, "kernels": sass}),
           flush=True)
     print("[smoke] " + json.dumps(
-        {"wall_s": round(time.perf_counter() - t_start, 1)}), flush=True)
+        {"wall_s": round(time.perf_counter() - t_start, 1),
+         "phase_s": PHASE_S}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

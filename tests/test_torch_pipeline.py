@@ -22,6 +22,8 @@ from tpubwa.cli import main_mem as tpubwa_main_mem
 from tpubwa.device.pipeline import make_device_aligner as jax_aligner
 from tpubwa_torch.cli import main_index, main_mem
 from tpubwa_torch.device import pipeline as tp
+from tpubwa_torch.device.smem import collect_intv_device
+from tpubwa_torch.host.native_emit import FlatRegs
 from tpubwa_torch.index import FMIndex
 from tpubwa_torch.io.fastq import Read
 from tpubwa_torch.opts import MEM_F_PE, MemOpt
@@ -318,12 +320,32 @@ def test_cuda_without_a_card_raises(setup, monkeypatch):
 
 
 def test_missing_paths_raise_not_implemented(setup, monkeypatch):
-    """A scoring matrix that is not bwa_fill_scmat-structured (tpubwa
-    extends it in host scalar loops) raises, naming its ROADMAP item.
-    `mem` builds only scmat matrices."""
-    _, fmi, _ = setup
+    """A scoring matrix that is not bwa_fill_scmat-structured extends
+    through K1-mat on tpubwa's non-descriptor route: the regions equal
+    tpubwa's aligner's (its host scalar loops) under the same patched
+    matrix, with no descriptor wave.  What the port leaves out on purpose
+    still raises: here a seed mode."""
+    codes, fmi, jfmi = setup
     bad = MemOpt().scoring_matrix()
     bad[0, 1] = -7
-    monkeypatch.setattr(MemOpt, "scoring_matrix", lambda self: bad)
-    with pytest.raises(NotImplementedError, match=r"\[scmat\]"):
-        tp.make_device_aligner(MemOpt(), fmi, device="cpu")
+    for cls in (MemOpt, tpubwa.opts.MemOpt):
+        monkeypatch.setattr(cls, "scoring_matrix", lambda self: bad.copy())
+    rng = np.random.default_rng(12)
+    reads, jreads = _reads([(n, s) for n, s, *_ in simulate_reads(
+        codes, 30, 100, rng, snp_rate=0.02, indel_rate=0.004)])
+    opt, jopt = _opts()
+    port = tp.make_device_aligner(opt, fmi, device="cpu")
+    assert not port.mat_scmat
+    desc = []
+    real = tp.extend_seed_desc_np
+    monkeypatch.setattr(tp, "extend_seed_desc_np",
+                        lambda *a, **k: desc.append(1) or real(*a, **k))
+    got = port(reads)
+    want = jax_aligner(jopt, jfmi, platform="cpu")(jreads)
+    assert isinstance(got, list) and not desc
+    assert _flat(FlatRegs.from_lists(got)) == \
+        _flat(FlatRegs.from_lists(want))
+    assert port.extender.n_waves > 0
+    arr, lens = port._pack(reads[:4], 4)
+    with pytest.raises(NotImplementedError, match="on purpose"):
+        collect_intv_device(opt, port.didx, arr, lens, fmi, mode="cursor")

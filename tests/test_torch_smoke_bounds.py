@@ -165,7 +165,7 @@ def test_no_global_store_in_a_loop_raises_only_for_sass_read_rows():
     assert {r for *_, ops in c.KERNEL_ROWS
             for r in ops.values()} <= set(c.RECURRENCE_OPS)
     names = [row[0] for row in c.KERNEL_ROWS]
-    assert len(names) == len(set(names)) == 5
+    assert len(names) == len(set(names)) == 6
     rates = {"int32_per_s": 132 * 64 * 1980e6,
              "issue_per_s": 132 * 128 * 1980e6}
     for *_, ops in c.KERNEL_ROWS:

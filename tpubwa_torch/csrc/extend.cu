@@ -1,5 +1,6 @@
 // Batched banded Smith-Waterman seed extension (bwa ksw.c:ksw_extend2)
-// for Hopper (sm_90a), and its timing-only ablations (K1-floor, K1-real).
+// for Hopper (sm_90a), under a general 5 x 5 scoring matrix (K1-mat), and
+// its timing-only ablations (K1-floor, K1-real).
 //
 // Replaces: tpubwa/device/extend_pallas.py:_extend_kernel, launched by
 // extend_batch_pallas.  Same contract at the Python wrapper
@@ -7,8 +8,9 @@
 // t int32 [N, tmax], params int32 [N, pstride] with lanes (qlen, tlen,
 // h0, w, end_bonus); out int32 [N, ostride], lanes 0-5 = (score, qle,
 // tle, gtle, gscore, max_off).  Codes are 0-3 for bases and anything
-// above for N (query codes are kept as bytes).  The score is match a /
-// mismatch -b / N -1 arithmetic, with no profile table.
+// above for N (query codes are kept as bytes).  K1's score is match a /
+// mismatch -b / N -1 arithmetic, with no profile table; K1-mat's (below)
+// is a 5 x 5 table.
 //
 // What bounds it on this card: operations, and under them latency.  A
 // job is a chain of dependent rows, each a chain of dependent steps, and
@@ -60,6 +62,20 @@
 //           qlen).
 // The JAX `trees` ablation is kPk | kHopen | kTrim.  These variants are
 // wrong on purpose: they exist to time K1 less one piece.
+//
+// K1-mat (tpubwa/device/extend.py:33 extend_batch, an XLA fori_loop over
+// the target rows, :172): K1's body, instantiation kMat, whose cell score
+// is mat[t][q] from a 25-int table, behind tpubwa_extend_mat.  Codes 0-3
+// are bases and anything else (N, the padding) is row or column 4, on
+// both sides.  The table comes by value as a kernel parameter; each warp
+// copies it into its own 25 ints of shared memory once (static indices:
+// a kernel parameter indexed at run time would go through local memory),
+// and a cell reads its score there, from the row of the target base, so
+// a score is one shared load where K1 compares and selects.  The band
+// cap and the wrapper's bound on the packed row max take mmax =
+// max(max(mat), 0) where K1 takes a (bwa's ksw_extend2 does the same):
+// the entry passes mmax as a.  At a bwa_fill_scmat matrix it computes
+// K1's rows exactly.
 //
 // K1-real (scripts/exp_kernel_real.py:build_kernel, body :87, launched
 // at :259): K1's body with one feature stripped per variant, under the
@@ -117,6 +133,13 @@ constexpr int kScan = 1, kPk = 2, kHopen = 4, kTrim = 8;
 // K1-real's bits, above K1-floor's
 constexpr int kNoMj = 16, kNoGscore = 32, kNoOfftrack = 64, kNoTrim = 128,
               kNoWbmask = 256, kUnroll2 = 512, kUnroll4 = 1024;
+// K1-mat: the score from a 5 x 5 table
+constexpr int kMat = 2048;
+
+// mat[t][q], row-major; only kMat reads it
+struct ScoreTable {
+    int s[25];
+};
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -134,10 +157,20 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
               const int32_t* __restrict__ params, int32_t* __restrict__ out,
               int n, int W, int tmax, int pstride, int ostride, int sh,
               int a, int b, int o_del, int e_del, int o_ins, int e_ins,
-              int zdrop) {
+              int zdrop, const ScoreTable tab) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int job = blockIdx.x * kWarps + warp;
     if (job >= n) return;
+    // kMat: the warp's copy of the table, after the block's query codes
+    int* stab = nullptr;
+    if constexpr (ABLATE & kMat) {
+        stab = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(
+                   smem + kWarps * (W + 2)) + kWarps * W) + warp * 25;
+#pragma unroll
+        for (int k = 0; k < 25; ++k)
+            if (lane == k) stab[k] = tab.s[k];
+        __syncwarp();
+    }
     const int32_t* p = params + (size_t)job * pstride;
     const int qlen = p[0], tlen = p[1], h0 = p[2], w_in = p[3];
     const int end_bonus = p[4];
@@ -197,6 +230,10 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
                 return false;
             }
             const int tb = __shfl_sync(kFull, tcodes, i & 31);
+            // kMat: the table's row of this target base (N: row 4)
+            const int* srow =
+                (ABLATE & kMat) ? stab + 5 * ((unsigned)tb > 3u ? 4 : tb)
+                                : nullptr;
             // carried from strip to strip: the F scan's running max, and
             // H(i, j0 - 1) for the first lane's write-back (no-wbmask
             // rolls in the 0 left of the band)
@@ -216,7 +253,10 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
                     e = c.y;
                     qc = qs[j];
                 }
-                const int sc = (tb > 3 || qc > 3) ? -1 : (tb == qc ? a : -b);
+                const int sc = (ABLATE & kMat)
+                                   ? srow[qc]
+                                   : (tb > 3 || qc > 3) ? -1
+                                                        : (tb == qc ? a : -b);
                 // M = H(i-1, j-1) + score, 0 where H(i-1, j-1) == 0
                 const int M = hd ? hd + sc : 0;
                 int h = imax(M, e);
@@ -356,7 +396,8 @@ extend_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ t,
 // kernel opts in, and past the card's limit for a block that fails
 template <int ABLATE>
 cudaError_t block_bytes(int W, size_t* bytes) {
-    *bytes = (size_t)kWarps * ((W + 2) * sizeof(int2) + W);
+    *bytes = (size_t)kWarps * ((W + 2) * sizeof(int2) + W +
+                              ((ABLATE & kMat) ? 25 * sizeof(int) : 0));
     if (*bytes <= (size_t)kSmemDefault) return cudaSuccess;
     const cudaError_t err = cudaFuncSetAttribute(
         extend_kernel<ABLATE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -367,11 +408,13 @@ cudaError_t block_bytes(int W, size_t* bytes) {
     return err;
 }
 
+// a launch of instantiation ABLATE; only kMat reads tab
 template <int ABLATE>
-cudaError_t launch(const void* q, const void* t, const void* params,
-                   void* out, int n, int W, int tmax, int pstride,
-                   int ostride, int a, int b, int o_del, int e_del,
-                   int o_ins, int e_ins, int zdrop, cudaStream_t stream) {
+cudaError_t launch_with(const void* q, const void* t, const void* params,
+                        void* out, int n, int W, int tmax, int pstride,
+                        int ostride, int a, int b, int o_del, int e_del,
+                        int o_ins, int e_ins, int zdrop, cudaStream_t stream,
+                        const ScoreTable& tab) {
     size_t bytes;
     cudaError_t err = block_bytes<ABLATE>(W, &bytes);
     if (err != cudaSuccess) return err;  // refused: no launch is made
@@ -381,8 +424,18 @@ cudaError_t launch(const void* q, const void* t, const void* params,
     TPUBWA_LAUNCH(extend_kernel<ABLATE>, blocks, kWarps * 32, bytes, stream,
                   (const int32_t*)q, (const int32_t*)t,
                   (const int32_t*)params, (int32_t*)out, n, W, tmax, pstride,
-                  ostride, sh, a, b, o_del, e_del, o_ins, e_ins, zdrop);
+                  ostride, sh, a, b, o_del, e_del, o_ins, e_ins, zdrop, tab);
     return cudaGetLastError();
+}
+
+template <int ABLATE>
+cudaError_t launch(const void* q, const void* t, const void* params,
+                   void* out, int n, int W, int tmax, int pstride,
+                   int ostride, int a, int b, int o_del, int e_del,
+                   int o_ins, int e_ins, int zdrop, cudaStream_t stream) {
+    return launch_with<ABLATE>(q, t, params, out, n, W, tmax, pstride,
+                               ostride, a, b, o_del, e_del, o_ins, e_ins,
+                               zdrop, stream, ScoreTable{});
 }
 
 #ifndef TPUBWA_WARP_HOST
@@ -487,6 +540,28 @@ extern "C" int tpubwa_extend_real(int variant, const void* q, const void* t,
     return (int)kReal[variant](q, t, params, out, n, W, tmax, pstride,
                                ostride, a, b, o_del, e_del, o_ins, e_ins,
                                zdrop, (cudaStream_t)stream);
+}
+
+// K1-mat: tpubwa_extend_batch under the 5 x 5 scoring matrix mat (25
+// ints, row-major mat[t][q], in host memory, read before the launch) in
+// place of (a, b).  The band cap takes max(max(mat), 0) for a.
+extern "C" int tpubwa_extend_mat(const void* q, const void* t,
+                                 const void* params, void* out, int n, int W,
+                                 int tmax, int pstride, const int* mat,
+                                 int o_del, int e_del, int o_ins, int e_ins,
+                                 int zdrop, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return 0;
+    ScoreTable tab;
+    int mmax = 0;
+    for (int k = 0; k < 25; ++k) {
+        tab.s[k] = mat[k];
+        if (mat[k] > mmax) mmax = mat[k];
+    }
+    return (int)launch_with<kMat>(q, t, params, out, n, W, tmax, pstride, 6,
+                                  mmax, 0, o_del, e_del, o_ins, e_ins, zdrop,
+                                  (cudaStream_t)stream, tab);
 }
 
 #ifndef TPUBWA_WARP_HOST

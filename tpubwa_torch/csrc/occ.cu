@@ -20,6 +20,17 @@
 // :155); the wrapper is tpubwa_torch/device/occ.py:bwt_extend.  ik idt
 // [n, 3] (x0, x1, size) -> idt [n, 4, 3].
 //
+// K-reach replaces tpubwa/device/smem.py:_rightmost_reach (:62, a
+// while_loop over bwt_extend :108); the wrapper is
+// tpubwa_torch/device/smem.py:rightmost_reach.  A job (read, start,
+// min_intv) extends forward from q[read, start:] one base a step, as far
+// as the interval of the matched text keeps size >= min_intv: ik idt [n,
+// 3], the last interval taken, and e idt [n], the end of the match (e ==
+// start where the first base fails).  One thread a job, each step K-ext's
+// device function (fm.cuh:bwt_extend, two occ rows) and the complement's
+// interval taken from its four; the XLA loop steps every job until the
+// last stops (an any() a step), the kernel each job to its own end.
+//
 // Each kernel has a TP instantiation (Tp true), for an index split into
 // row slabs across devices (tpubwa_torch/dist/index_tp.py:TpIndex, the
 // counterpart of tpubwa/dist/index_tp.py): K-sa's marked walk (tpubwa's
@@ -208,6 +219,54 @@ bwt_extend_kernel(fm::Index<Idx, Rows<uint32_t, Tp>> f,
         for (int j = 0; j < 3; ++j) o[3 * c + j] = res[c][j];
 }
 
+// K-reach: the rightmost forward reach of each job (_rightmost_reach's
+// semantics: a base past 3 or the read's end stops it, a read position
+// is clipped into [0, L - 1] as the XLA gather clips it, and the first
+// base's interval is kept, whatever its size, as the job's ik)
+template <class Idx>
+__global__ void __launch_bounds__(kThreads)
+reach_kernel(fm::Index<Idx> f, const uint8_t* __restrict__ q, int L,
+             const int32_t* __restrict__ lens,
+             const int32_t* __restrict__ read_idx,
+             const int32_t* __restrict__ starts,
+             const Idx* __restrict__ min_intv, Idx* __restrict__ ik_out,
+             Idx* __restrict__ e_out, int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    f = fm::with_l2(f);
+    const uint8_t* qr = q + (int64_t)read_idx[i] * L;
+    const Idx b = starts[i], jl = lens[read_idx[i]], mi = min_intv[i];
+    const auto base_at = [&](Idx pos) -> int {
+        return qr[pos < 0 ? 0 : pos > L - 1 ? L - 1 : pos];
+    };
+    const int c0 = base_at(b);
+    const bool valid0 = c0 <= 3 && b < jl;
+    Idx ik[3];
+    fm::set_intv(f, valid0 ? c0 : 0, ik);
+    bool live = valid0 && ik[2] >= mi;
+    Idx e = live ? b + 1 : b;
+    for (Idx pos = b + 1; live; ++pos) {
+        const int c = base_at(pos);
+        if (pos >= jl || c > 3) break;
+        Idx ok[4][3];
+        fm::bwt_extend<Idx, false>(f, ik, ok);
+        // the complement's interval, picked by selects (fm::pick4: an
+        // index by c would put ok in local memory)
+        Idx nik[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+            nik[j] = fm::pick4(ok[0][j], ok[1][j], ok[2][j], ok[3][j], 3 - c);
+        live = nik[2] >= mi;
+        if (live) {
+#pragma unroll
+            for (int j = 0; j < 3; ++j) ik[j] = nik[j];
+            e = pos + 1;
+        }
+    }
+    for (int j = 0; j < 3; ++j) ik_out[3 * i + j] = ik[j];
+    e_out[i] = e;
+}
+
 int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 
 template <class Idx>
@@ -284,6 +343,21 @@ cudaError_t extend_flat(const void* occ, const void* L2, int64_t primary,
                         int64_t n, cudaStream_t stream) {
     return launch_extend<Idx, false>(index_of<Idx>(occ, L2, primary, seq_len),
                                      is_back, ik, ok, n, stream);
+}
+
+template <class Idx>
+cudaError_t reach_flat(const void* occ, const void* L2, int64_t primary,
+                       int64_t seq_len, const void* q, int L,
+                       const void* lens, const void* read_idx,
+                       const void* starts, const void* min_intv, void* ik,
+                       void* e, int64_t n, cudaStream_t stream) {
+    const auto f = index_of<Idx>(occ, L2, primary, seq_len);
+    if (!fm::aligned16(f.occ)) return cudaErrorInvalidValue;
+    TPUBWA_LAUNCH(reach_kernel<Idx>, blocks_for(n), kThreads, 0, stream, f,
+                  (const uint8_t*)q, L, (const int32_t*)lens,
+                  (const int32_t*)read_idx, (const int32_t*)starts,
+                  (const Idx*)min_intv, (Idx*)ik, (Idx*)e, n);
+    return cudaGetLastError();
 }
 
 template <class Idx>
@@ -430,6 +504,26 @@ extern "C" int tpubwa_bwt_extend(const void* occ, const void* L2,
     if (n <= 0) return 0;
     return (int)(idx64 ? extend_flat<int64_t> : extend_flat<int32_t>)(
         occ, L2, primary, seq_len, is_back, ik, ok, n, (cudaStream_t)stream);
+}
+
+// K-reach: the rightmost forward reach of n jobs (read_idx, starts int32
+// [n], min_intv Idx [n]) over the reads q (uint8 [B, L], codes 0-4) of
+// lengths lens (int32 [B]) -> ik Idx [n, 3] and e Idx [n].  L must be at
+// least 1.
+extern "C" int tpubwa_rightmost_reach(const void* occ, const void* L2,
+                                      int64_t primary, int64_t seq_len,
+                                      int idx64, const void* q, int L,
+                                      const void* lens, const void* read_idx,
+                                      const void* starts,
+                                      const void* min_intv, void* ik, void* e,
+                                      int64_t n, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (L < 1) return (int)cudaErrorInvalidValue;
+    if (n <= 0) return 0;
+    return (int)(idx64 ? reach_flat<int64_t> : reach_flat<int32_t>)(
+        occ, L2, primary, seq_len, q, L, lens, read_idx, starts, min_intv, ik,
+        e, n, (cudaStream_t)stream);
 }
 
 // K-ext's TP instantiation: occ is a slab table (3 * n_slabs int64, as

@@ -6,7 +6,8 @@
 //
 // INDEX: int64 header (n_blocks, n_mark_blocks, n_marked, n_sample,
 // primary, seq_len, mark_D, idx64, n_ranks, n_ik, max_blocks, reverse,
-// n_call, n_slabs, peers), then occ uint32 [n_blocks, 12], mark rows uint32
+// n_call, n_slabs, peers, n_reach, B, L), then occ uint32 [n_blocks, 12],
+// mark rows uint32
 // [n_mark_blocks, 8], then, of the rank type (int64 where idx64, else
 // int32): L2 [5], sa_marked [n_marked], sa_sample [n_sample], ranks
 // [n_ranks] and ik [n_ik, 3].  OUT gets, of the rank type, the positions
@@ -22,6 +23,12 @@
 // must refuse before it touches anything) and writes only its return
 // code, the queue word (-77 before the call) and the positions.  A
 // launch that returns an error exits with 3.
+//
+// n_reach > 0 (flat entries only) also runs K-reach
+// (tpubwa_rightmost_reach): after the arrays (and the slab cuts) come
+// the reads q uint8 [B, L], lens int32 [B], read_idx and starts int32
+// [n_reach] and min_intv [n_reach] of the rank type, and OUT gets, after
+// the extensions, ik [n_reach, 3] and e [n_reach] of the rank type.
 //
 // n_slabs > 0 runs the TP instantiations instead (tpubwa_sa_lookup_tp
 // and tpubwa_bwt_extend_tp), on the index cut into slabs: after the
@@ -75,6 +82,12 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     const warp_host::Cut<uint32_t> occ_tp(occ, 12, first[0], first[3]),
         marks_tp(marks, 8, first[1], first[3]);
     const warp_host::Cut<Idx> sam_tp(sa_marked, 1, first[2], first[3]);
+    const int64_t n_reach = h[15], B = h[16], L = h[17];
+    const auto q = read_array<uint8_t>(f, B * L);
+    const auto lens = read_array<int32_t>(f, B);
+    const auto read_idx = read_array<int32_t>(f, n_reach);
+    const auto starts = read_array<int32_t>(f, n_reach);
+    const auto min_intv = read_array<Idx>(f, n_reach);
     int rc = n_slabs
         ? tpubwa_sa_lookup_tp(n_slabs, occ_tp.table.data(),
                               marks_tp.table.data(), sam_tp.table.data(),
@@ -115,6 +128,22 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
         }
         write_array(o, ok);
     }
+    if (n_reach > 0) {
+        std::vector<Idx> ik((size_t)n_reach * 3, (Idx)-77),
+            e((size_t)n_reach, (Idx)-77);
+        rc = tpubwa_rightmost_reach(occ.data(), L2.data(), primary, seq_len,
+                                    sizeof(Idx) == 8, q.data(), (int)L,
+                                    lens.data(), read_idx.data(),
+                                    starts.data(), min_intv.data(), ik.data(),
+                                    e.data(), n_reach, 0, nullptr);
+        if (rc != 0) {
+            std::fprintf(stderr, "occ_host: tpubwa_rightmost_reach returned "
+                         "%d\n", rc);
+            return 3;
+        }
+        write_array(o, ik);
+        write_array(o, e);
+    }
     return 0;
 }
 
@@ -122,7 +151,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: occ_host INDEX OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open INDEX");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 15);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 18);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[7] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

@@ -19,7 +19,12 @@ and one int32 [16] row per job:
 
 Every extension goes through ``extend_kernel.extend_batch`` (the CUDA
 kernel on a CUDA device, the plain version on the CPU); callers that
-compare the two pass ``extend=extend_batch_plain``.  With a ``dp``
+compare the two pass ``extend=extend_batch_plain``.  Sequence-tile jobs
+take any 5 x 5 scoring matrix: K1 for a bwa_fill_scmat one, K1-mat (the
+same four launches) for any other, where tpubwa runs its host scalar
+loops (tpubwa/device/extend_fused.py:462-466).  The descriptor route
+takes only bwa_fill_scmat matrices, as tpubwa sends no other down it.
+With a ``dp``
 (``dist.sharding.DataParallel``), a wave's sorted jobs are split into
 contiguous parts, one a replica, each run on its replica's device and
 the rows put back in order (tpubwa's ``extend_seed_desc_sharded``).
@@ -47,16 +52,20 @@ def _retry(res, qlen, w, prev):
 
 def _fused_passes(qL, tL, qR, tR, qlenL, tlenL, qlenR, tlenR, h0, w0,
                   pen5, pen3, a, b, o_del, e_del, o_ins, e_ins, zdrop,
-                  extend=extend_batch):
+                  extend=extend_batch, mat=None):
     """Tiles int32 [N, W] / [N, tmax]; per-job columns int32 [N].
-    Returns int32 [N, 16] (layout above): four extend launches."""
+    Returns int32 [N, 16] (layout above): four extend launches, each
+    scoring (a, b), or ``mat`` (5 x 5) where it is given."""
     def pack(qlen, tlen, hh, ww, eb):
         # the kernel assumes h0 > 0
         return torch.stack([qlen, tlen, torch.clamp_min(hh, 1), ww, eb],
                            dim=1).to(I32).contiguous()
 
     def run(q, t, p):
-        return extend(q, t, p, a, b, o_del, e_del, o_ins, e_ins, zdrop)
+        if mat is None:
+            return extend(q, t, p, a, b, o_del, e_del, o_ins, e_ins, zdrop)
+        return extend(q, t, p, a, b, o_del, e_del, o_ins, e_ins, zdrop,
+                      mat=mat)
 
     # left, trial 0 (prev = -1: a score never equals it)
     rL0 = run(qL, tL, pack(qlenL, tlenL, h0, w0, pen5))
@@ -246,16 +255,14 @@ def extend_seed_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
 
     The jobs run sorted by total target length (stable); their four
     tiles and meta columns are packed on the host, uploaded once to
-    ``device`` and run through ``_fused_passes`` (four extend launches),
-    and the rows come back in job order.  A longest side past the
-    kernel's lanes raises (the caller routes such jobs to the scalar
-    loops).  With a ``dp`` the sorted jobs are split over its replicas,
-    each part's tiles uploaded to its replica's device (``device`` is
-    not read)."""
+    ``device`` and run through ``_fused_passes`` (four extend launches:
+    K1 for a bwa_fill_scmat ``mat``, K1-mat for any other), and the rows
+    come back in job order.  A longest side past the kernel's lanes
+    raises (the caller routes such jobs to the scalar loops).  With a
+    ``dp`` the sorted jobs are split over its replicas, each part's
+    tiles uploaded to its replica's device (``device`` is not read)."""
     ab = _mat_ab(mat)
-    if ab is None:
-        raise ValueError("fused extension needs a "
-                         "bwa_fill_scmat-structured scoring matrix")
+    a, b, table = (None, None, mat) if ab is None else (*ab, None)
     n = len(jobs)
     if n == 0:
         return np.zeros((0, 16), np.int32)
@@ -288,9 +295,9 @@ def extend_seed_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
         md = torch.from_numpy(meta[lo:hi]).to(dev)
         qL, tL, qR, tR = (td[:, c:c + w].contiguous() for c, w in
                           zip(offs, (W, tm, W, tm)))
-        return _fused_passes(qL, tL, qR, tR, *md.unbind(1), ab[0], ab[1],
-                             o_del, e_del, o_ins, e_ins, zdrop,
-                             extend=extend).cpu().numpy()
+        return _fused_passes(qL, tL, qR, tR, *md.unbind(1), a, b, o_del,
+                             e_del, o_ins, e_ins, zdrop, extend=extend,
+                             mat=table).cpu().numpy()
 
     out = np.zeros((n, 16), np.int32)
     out[order] = run(0, 0, n) if dp is None else dp.map_rows(run, n, "jobs")

@@ -1,5 +1,6 @@
 """Batched banded-SW seed extension (bwa ksw.c:ksw_extend2), the
-counterpart of tpubwa/device/extend_pallas.py.
+counterpart of tpubwa/device/extend_pallas.py, and of the general-matrix
+scoring of tpubwa/device/extend.py (``mat=``).
 
 Two versions of one function, bit-identical by test:
 
@@ -14,6 +15,13 @@ Two versions of one function, bit-identical by test:
 ``extend_batch`` routes by the tensors' device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.  Nothing
 falls back from one to the other.
+
+Both score a cell in one of two ways: bwa_fill_scmat arithmetic (match
+``a``, mismatch ``-b``, N -1; K1) or, with ``mat``, a general int32
+[5, 5] table ``mat[t][q]`` (tpubwa's XLA extension's; K1-mat, an
+instantiation of the same kernel).  ``extend_batch_kernel_np`` is the
+counterpart of tpubwa's ``extend_batch_pallas_np``: dict jobs in, K1 for
+a bwa_fill_scmat matrix and K1-mat for any other.
 
 Both also take the JAX kernel's timing-only arguments (K1-floor,
 driven by ``tpubwa_torch/scripts/exp_kernel_floor.py``): ``ablate``, a
@@ -73,6 +81,40 @@ def _mat_ab(mat):
     return (a, b) if ok else None
 
 
+def mat_max(mat) -> int:
+    """max(max(mat), 0): what the band cap and the packed row max take
+    for ``a`` under a general scoring matrix (bwa's ksw_extend2)."""
+    return max(int(np.max(np.asarray(mat))), 0)
+
+
+def tt_matrix() -> np.ndarray:
+    """A matrix that is not bwa_fill_scmat-structured: match 1,
+    transition (A<->G, C<->T) -2, transversion -4, N -1."""
+    m = np.full((5, 5), -1, np.int32)
+    for i in range(4):
+        for j in range(4):
+            m[i, j] = 1 if i == j else (-2 if i ^ j == 2 else -4)
+    return m
+
+
+def positive_matrix() -> np.ndarray:
+    """bwa_fill_scmat(1, 4) with two positive entries off the diagonal,
+    one above the match score (mat_max 2: the band cap moves with it)."""
+    m = np.full((5, 5), -1, np.int32)
+    m[:4, :4] = np.where(np.eye(4, dtype=bool), 1, -4)
+    m[0, 2], m[3, 1] = 2, 1
+    return m
+
+
+def _mat25(mat) -> np.ndarray:
+    """The 5 x 5 scoring matrix as 25 int32, row-major; raises unless it
+    is 5 x 5."""
+    m = np.asarray(mat, np.int32)
+    if m.shape != (5, 5):
+        raise ValueError(f"mat must be 5 x 5, got {m.shape}")
+    return m.reshape(25)
+
+
 def _check(q, t, params, a=None):
     """Raise unless the call lies in the domain of both versions.  With
     ``a``, the match score, also unless the packed row max fits: no H
@@ -128,10 +170,13 @@ def ablate_mask(ablate=(), trees=None) -> int:
 
 
 def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
-                       zdrop, stats=None, ablate=(), trees=None):
+                       zdrop, stats=None, ablate=(), trees=None, mat=None):
     """q int32 [N, W]; t int32 [N, tmax]; params int32 [N, >=5] with
     lanes (qlen, tlen, h0, w, end_bonus), h0 > 0.  Returns int32
-    [N, 6]: (score, qle, tle, gtle, gscore, max_off).
+    [N, 6]: (score, qle, tle, gtle, gscore, max_off).  With ``mat``
+    (int32 [5, 5]) a cell scores ``mat[t][q]`` (codes outside 0-3 are
+    row or column 4) and ``a``/``b`` are not read: the band cap takes
+    ``mat_max(mat)`` for ``a``, as tpubwa/device/extend.py does.
 
     The row step mirrors extend_pallas.py:_extend_kernel lane for lane:
     the shifted eh arrays of upstream (eh_h[j] = H(i-1, j-1)), band
@@ -140,8 +185,13 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
     ``ablate`` and ``trees`` as in ``ablate_mask``: an ablated reduction
     reads lane 0 of its input, as the JAX kernel's does."""
     mask = ablate_mask(ablate, trees)
-    _check(q, t, params, a)
     dev = q.device
+    if mat is not None:
+        if mask:
+            raise ValueError("K1-floor's ablations take no scoring matrix")
+        table = torch.from_numpy(_mat25(mat).copy()).to(dev)
+        a = mat_max(mat)
+    _check(q, t, params, a)
 
     def red(x, op, bit):
         # one of the row step's full-row reductions, or its lane 0
@@ -159,6 +209,9 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
     ebon = params[:, 4:5]
 
     qpad = torch.where(lane < qlen, q, 4)
+    if mat is not None:
+        # a table column a lane: codes outside 0-3 are N
+        qcol = torch.where((qpad < 0) | (qpad > 3), 4, qpad).long()
     # band cap w = min(w, max_ins, max_del) (mat max = a)
     max_ins = torch.clamp_min(torch.div(qlen * a + ebon - o_ins, e_ins,
                                         rounding_mode="floor") + 1, 1)
@@ -201,9 +254,14 @@ def extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
             beg_i == 0, torch.clamp_min(h0 - (o_del + e_del * (i + 1)), 0),
             0)
         tb = t[:, i:i + 1]
-        # score: match a, mismatch -b, N on either side -1
-        isn = (tb > 3) | (qpad > 3)
-        prof = torch.where(isn, -1, (tb == qpad).to(I32) * (a + b) - b)
+        if mat is not None:
+            # score: the table's row of the target base (N: row 4)
+            trow = torch.where((tb < 0) | (tb > 3), 4, tb).long()
+            prof = table[trow * 5 + qcol]
+        else:
+            # score: match a, mismatch -b, N on either side -1
+            isn = (tb > 3) | (qpad > 3)
+            prof = torch.where(isn, -1, (tb == qpad).to(I32) * (a + b) - b)
         in_band = (lane >= beg_i) & (lane < end_i)
         M = torch.where(eh_h != 0, eh_h + prof, 0)
         M = torch.where(in_band, M, NEG)
@@ -287,6 +345,10 @@ _SIGNATURES = {
     "tpubwa_extend_floor": (_CI, [_VP] * 4 + [_CI] * 12 + [_VP, _CI]),
     # (W, ablate_mask, device, info int[3]) -> cudaError_t
     "tpubwa_extend_occupancy": (_CI, [_CI] * 3 + [ctypes.POINTER(_CI)]),
+    # K1-mat: (q, t, params, out, n, W, tmax, pstride, mat int[25] in host
+    #  memory, o_del, e_del, o_ins, e_ins, zdrop, device, stream)
+    "tpubwa_extend_mat": (_CI, [_VP] * 4 + [_CI] * 4 + [_VP] + [_CI] * 6
+                          + [_VP]),
     # K1-real (tpubwa_torch/scripts/exp_kernel_real.py): (variant, q, t,
     # params, out, n, W, tmax, pstride, ostride, a, b, o_del, e_del, o_ins,
     # e_ins, zdrop, device, stream)
@@ -342,6 +404,29 @@ def _extend_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop):
     return out
 
 
+def _extend_mat_cuda(q, t, params, mat, o_del, e_del, o_ins, e_ins, zdrop):
+    """K1-mat's entry under the 5 x 5 matrix ``mat``."""
+    lib = _build.load("extend", _SIGNATURES)
+    N, W = q.shape
+    q = q.contiguous()
+    t = t.contiguous()
+    params = params.contiguous()
+    out = torch.empty((N, 6), dtype=I32, device=q.device)
+    if N == 0:
+        return out
+    table = (_CI * 25)(*_mat25(mat).tolist())
+    rc = lib.tpubwa_extend_mat(
+        q.data_ptr(), t.data_ptr(), params.data_ptr(), out.data_ptr(), N, W,
+        t.shape[1], params.shape[1], table, o_del, e_del, o_ins, e_ins,
+        zdrop, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"extend kernel launch failed (tpubwa_extend_mat, "
+                           f"W {W}): cudaError {rc}")
+    bump(extend_batch, "mat_launches")
+    return out
+
+
 def _extend_floor_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
                        zdrop, mask):
     """K1-floor's entry with ablation mask ``mask`` (0 is K1's
@@ -353,7 +438,7 @@ def _extend_floor_cuda(q, t, params, a, b, o_del, e_del, o_ins, e_ins,
 
 
 def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
-                 ablate=(), trees=None):
+                 ablate=(), trees=None, mat=None):
     """The extend_batch_pallas contract (extend_pallas.py:341-376):
     q int32 [N, W]; t int32 [N, tmax]; params int32 [N, >=5] lanes
     (qlen, tlen, h0, w, end_bonus), h0 > 0, qlen < W.  Returns int32
@@ -361,19 +446,31 @@ def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
     bases and 4 (any larger value) for N; h0 + a * qlen stays below
     2^31 / W (the packed row max), or the call raises.  ``ablate`` and
     ``trees`` as in ``ablate_mask`` (timing only: never on the main
-    path).
+    path).  ``mat`` (int32 [5, 5]) scores each cell from the table, as
+    ``extend_batch_plain`` says, ``a`` and ``b`` unread: then the bound is
+    h0 + mat_max(mat) * qlen.
 
     CPU tensors run ``extend_batch_plain``; CUDA tensors launch the
     hand-written kernel: K1 with no ablation (``extend_batch.launches``
-    counts its launches), else its K1-floor instantiation
+    counts its launches), K1-mat with a ``mat``
+    (``extend_batch.mat_launches``), else its K1-floor instantiation
     (``extend_batch.floor_launches``)."""
     mask = ablate_mask(ablate, trees)
+    if mat is not None:
+        if mask:
+            raise ValueError("K1-floor's ablations take no scoring matrix")
+        _mat25(mat)
+        a = mat_max(mat)
     _check(q, t, params, a)
     if q.device.type == "cpu":
         return extend_batch_plain(q, t, params, a, b, o_del, e_del, o_ins,
-                                  e_ins, zdrop, ablate=ablate, trees=trees)
+                                  e_ins, zdrop, ablate=ablate, trees=trees,
+                                  mat=mat)
     if q.device.type != "cuda":
         raise ValueError(f"no extend kernel for device {q.device}")
+    if mat is not None:
+        return _extend_mat_cuda(q, t, params, mat, o_del, e_del, o_ins,
+                                e_ins, zdrop)
     if mask:
         return _extend_floor_cuda(q, t, params, a, b, o_del, e_del, o_ins,
                                   e_ins, zdrop, mask)
@@ -383,3 +480,61 @@ def extend_batch(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
 
 extend_batch.launches = 0
 extend_batch.floor_launches = 0
+extend_batch.mat_launches = 0
+
+
+def extend_batch_kernel_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
+                           qmax, tmax, device="cuda"):
+    """tpubwa's ``extend_batch_pallas_np`` (extend_pallas.py:393-430):
+    dict jobs (``q``, ``t`` code arrays, ``h0``, ``w``, ``end_bonus``)
+    -> a 6-tuple of int32 [n] (score, qle, tle, gtle, gscore, max_off),
+    through ``extend_batch`` on ``device``: K1 for a bwa_fill_scmat
+    ``mat``, K1-mat for any other (tpubwa sends those to its XLA
+    extension, whose counterpart K1-mat is).  The jobs run sorted by
+    target length (stable, longest first), one launch a ``chunk_for``
+    bucket of jobs, as tpubwa launches them; the port pads no job rows
+    (they bounded recompiles) and its target tile is the smallest power
+    of two from 128 that holds the longest target, at most ``tmax``.  A
+    ``qmax`` past the kernel's ``LANES - 1`` lanes, a query past
+    ``qmax`` or a target past ``tmax`` raises ValueError (the caller
+    routes such jobs)."""
+    if qmax > LANES - 1:
+        raise ValueError(f"qmax {qmax} exceeds the kernel's {LANES - 1} bp "
+                         "lanes")
+    n = len(jobs)
+    ab = _mat_ab(mat)
+    order = sorted(range(n), key=lambda i: -len(jobs[i]["t"]))
+    ql = max((len(j["q"]) for j in jobs), default=0)
+    tl = max((len(j["t"]) for j in jobs), default=0)
+    if ql > qmax or tl > tmax:
+        raise ValueError(f"a job of {ql} / {tl} bases exceeds qmax {qmax} "
+                         f"/ tmax {tmax}")
+    W = width_for(ql)
+    tm = 128
+    while tm < tl:
+        tm <<= 1
+    tm = min(tm, tmax)
+    q = np.full((n, W), 4, np.int32)
+    t = np.full((n, tm), 4, np.int32)
+    p = np.zeros((n, 5), np.int32)
+    for slot, i in enumerate(order):
+        j = jobs[i]
+        q[slot, :len(j["q"])] = j["q"]
+        t[slot, :len(j["t"])] = j["t"]
+        p[slot] = (len(j["q"]), len(j["t"]), j["h0"], j["w"],
+                   j["end_bonus"])
+    qd, td, pd = (torch.from_numpy(x).to(device) for x in (q, t, p))
+    pen = (o_del, e_del, o_ins, e_ins, zdrop)
+    step = chunk_for(W)
+    res = np.zeros((n, 6), np.int32)
+    for off in range(0, n, step):
+        sl = slice(off, off + step)
+        if ab is None:
+            got = extend_batch(qd[sl], td[sl], pd[sl], None, None, *pen,
+                               mat=mat)
+        else:
+            got = extend_batch(qd[sl], td[sl], pd[sl], *ab, *pen)
+        res[sl] = got.cpu().numpy()
+    out = np.zeros((6, n), np.int32)
+    out[:, order] = res.T
+    return tuple(out)

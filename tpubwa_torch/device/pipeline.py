@@ -33,6 +33,12 @@ every native host stage away (seeding, SA walk, chaining, planning and
 emit), so that seeding runs in megaq (K2 and K3) and the SA walk on the
 device (K-sa), as in tpubwa.
 
+A scoring matrix that is not bwa_fill_scmat-structured takes tpubwa's
+non-descriptor route (tpubwa/device/pipeline.py:296-366): no native
+planner and no descriptors, the Python planner's sequence-tile jobs
+through ``extend_seed_batch_np`` on K1-mat, where tpubwa runs its host
+scalar loops.  ``mem`` builds only bwa_fill_scmat matrices.
+
 With a ``dp`` (``dist.sharding.DataParallel``, tpubwa's mesh mode) the
 index is replicated, one ``DeviceIndex`` a replica, and stages A, B and
 D split their reads, ranks and jobs over the replicas; the host stages
@@ -131,10 +137,9 @@ class DeviceAligner:
         self.opt = opt
         self.fmi = fmi
         self.mat = opt.scoring_matrix()
-        if _mat_ab(self.mat) is None:
-            raise NotImplementedError(
-                "a scoring matrix that is not bwa_fill_scmat-structured "
-                "has no extension on the device (ROADMAP Queue 1 [scmat])")
+        # descriptor extension (and the native planner) only for
+        # bwa_fill_scmat matrices, as tpubwa's use_desc
+        self.mat_scmat = _mat_ab(self.mat) is not None
         self.dp = dp
         if dp is None:
             self.device = resolve_device(device)
@@ -271,27 +276,30 @@ class DeviceAligner:
 
     def _chunk_regs(self, chunk, intv_rows, positions, qd):
         """Chaining + planning, device extension waves and region post
-        for one chunk: the native planner's FlatRegs, or, without it,
-        per-read region lists from the Python planner."""
+        for one chunk: the native planner's FlatRegs, or, without it or
+        under a matrix that is not bwa_fill_scmat-structured, per-read
+        region lists from the Python planner."""
         opt, fmi, mat = self.opt, self.fmi, self.mat
         ext = self.extender
-        # on this (the main) thread: the prefetch thread seeds the next
-        # chunk meanwhile
-        ext.set_chunk_ctx(self._index(), qd, chunk, fmi.bnt)
+        use_desc = self.mat_scmat
+        if use_desc:
+            # on this (the main) thread: the prefetch thread seeds the
+            # next chunk meanwhile
+            ext.set_chunk_ctx(self._index(), qd, chunk, fmi.bnt)
 
-        def extend_fn(desc):
-            return extend_seed_desc_np(
-                self._index(), qd, desc, mat, opt.o_del, opt.e_del,
-                opt.o_ins, opt.e_ins, opt.zdrop, ext.tmax, dp=self.dp)
+            def extend_fn(desc):
+                return extend_seed_desc_np(
+                    self._index(), qd, desc, mat, opt.o_del, opt.e_del,
+                    opt.o_ins, opt.e_ins, opt.zdrop, ext.tmax, dp=self.dp)
 
-        planned = plan_batch_native(opt, fmi, chunk, intv_rows,
-                                    positions, extend_fn, qmax=ext.qmax,
-                                    tmax=ext.tmax, flat=True)
-        if planned is not None:
-            regs_flat, n_waves, n_jobs = planned
-            ext.n_waves += n_waves
-            ext.n_jobs += n_jobs
-            return regs_flat
+            planned = plan_batch_native(opt, fmi, chunk, intv_rows,
+                                        positions, extend_fn, qmax=ext.qmax,
+                                        tmax=ext.tmax, flat=True)
+            if planned is not None:
+                regs_flat, n_waves, n_jobs = planned
+                ext.n_waves += n_waves
+                ext.n_jobs += n_jobs
+                return regs_flat
         # the Python planner (tpubwa/device/pipeline.py:328-367): chains
         # from the native chainer where it is built, else mem_chain
         chains_per_read = chain_batch_native(opt, fmi, chunk, intv_rows,
@@ -315,10 +323,12 @@ class DeviceAligner:
             all_regs.append(regs)
             # chains of one read share `regs` and extend in order (the
             # skip test reads earlier regions); reads extend side by
-            # side in waves, as descriptors of the resident reads
+            # side in waves, as descriptors of the resident reads (or
+            # as sequence tiles, without descriptors)
             plans_by_read.append([
                 extension_plan(opt, fmi.bnt, read.l_seq, read.seq, c,
-                               regs, fused=True, read_row=ri)
+                               regs, fused=True,
+                               read_row=ri if use_desc else -1)
                 for c in chains])
         ext.run_fused(_serialize_per_read(plans_by_read))
         out = []

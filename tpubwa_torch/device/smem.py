@@ -31,7 +31,11 @@ TpIndex``; tpubwa's 'tp' mesh axis), megaq runs K2 and the fused SA walk
 on the slabs and K3 on the whole index, as tpubwa seeds its rounds 1+2
 on the shards and scans round 3 on the replicated index; hybrid ignores
 ``tp``, as tpubwa's does.
-tpubwa's other machine modes are not ported on purpose (ROADMAP).
+tpubwa's other machine modes are not ported on purpose (ROADMAP).  Of
+mode ``reach`` the port has the function it is built on,
+``rightmost_reach`` (tpubwa's ``_rightmost_reach``, K-reach on the card),
+which the entry step (``tpubwa_torch/entry.py``) runs; the mode itself
+raises.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ from ..host.native_smem import (sa_positions_native,
                                 smem_collect_batch_native)
 from . import _build
 from .counts import bump
-from .occ import DeviceIndex, _kernel_route, _raise_on, sa_lookup
+from .occ import (DeviceIndex, _kernel_route, _raise_on, bwt_extend_plain,
+                  sa_lookup, set_intv)
+from .occ import _SIGNATURES as _OCC_SIGNATURES
 from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
                          index_args, read_lists, rounds12_megaq, run_reads,
                          stream_of)
@@ -57,6 +63,152 @@ from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
 _NOT_PORTED = ("seed mode {!r} is one of tpubwa's TPU seeding machines "
                "that the port leaves out on purpose (ROADMAP Queue 1, 'Not "
                "ported on purpose'); use 'megaq' or 'host'")
+
+
+def _reach_codes(q: torch.Tensor) -> torch.Tensor:
+    """Read codes as K-reach takes them: uint8, anything outside 0-3 as
+    4 (N)."""
+    if q.dtype == torch.uint8:
+        return q.contiguous()
+    return torch.where((q < 0) | (q > 3), 4, q).to(torch.uint8).contiguous()
+
+
+def rightmost_reach_plain(didx: DeviceIndex, q: torch.Tensor,
+                          lens: torch.Tensor, read_idx: torch.Tensor,
+                          starts: torch.Tensor, min_intv: torch.Tensor,
+                          stats=None):
+    """``rightmost_reach``'s contract in PyTorch ops: every live job one
+    forward ``bwt_extend_plain`` a step, until none is left.  A ``stats``
+    dict gets ``steps`` (int64 [n], the extensions a job made),
+    ``occ_rows`` (the occ rows their occ4 queries read) and ``rounds``
+    (the steps of the longest job)."""
+    dt = didx.idt
+    dev = q.device
+    qc = _reach_codes(q).long()
+    B, L = qc.shape
+    ri = read_idx.long()
+    b = starts.to(dt)
+    jl = lens.long()[ri].to(dt)
+    mi = min_intv.to(dt)
+
+    def base_at(pos, rows):
+        return qc[rows, torch.clamp(pos, 0, L - 1).long()].to(dt)
+
+    c0 = base_at(b, ri)
+    valid0 = (c0 <= 3) & (b < jl)
+    ik = set_intv(didx, torch.where(valid0, c0, 0)).to(dt)
+    live = valid0 & (ik[:, 2] >= mi)
+    e = torch.where(live, b + 1, b)
+    steps = torch.zeros(len(b), dtype=torch.int64, device=dev)
+    rows = []
+    t = 1
+    idx = live.nonzero()[:, 0]
+    while len(idx):
+        pos = b[idx] + t
+        c = base_at(pos, ri[idx])
+        can = (pos < jl[idx]) & (c <= 3)
+        idx, pos, c = idx[can], pos[can], c[can]
+        if not len(idx):
+            break
+        st = {} if stats is not None else None
+        ok = bwt_extend_plain(didx, ik[idx], False, stats=st)
+        if st is not None:
+            rows.append(st["occ_rows"])
+        steps[idx] += 1
+        nik = ok[torch.arange(len(idx), device=dev), (3 - c).long()]
+        good = nik[:, 2] >= mi[idx]
+        idx, pos, nik = idx[good], pos[good], nik[good]
+        ik[idx] = nik
+        e[idx] = pos + 1
+        t += 1
+    if stats is not None:
+        stats["steps"] = steps
+        stats["occ_rows"] = (torch.cat(rows) if rows else
+                             torch.zeros(0, dtype=torch.int64, device=dev))
+        stats["rounds"] = int(steps.max()) if len(steps) else 0
+    return ik, e
+
+
+def _reach_check(didx: DeviceIndex, q, lens, read_idx, starts, min_intv):
+    """Raise unless the jobs lie in K-reach's domain."""
+    if q.dim() != 2 or not q.shape[1]:
+        raise ValueError(f"q must be [B, L >= 1], got {tuple(q.shape)}")
+    n = len(read_idx)
+    for name, x, dt in (("lens", lens, torch.int32),
+                        ("read_idx", read_idx, torch.int32),
+                        ("starts", starts, torch.int32),
+                        ("min_intv", min_intv, didx.idt)):
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+        if x.device != didx.device or x.dim() != 1:
+            raise ValueError(f"{name} must be 1-D on {didx.device}")
+        if name != "lens" and len(x) != n:
+            raise ValueError(f"{name} has {len(x)} jobs, read_idx {n}")
+    if q.device != didx.device:
+        raise ValueError(f"q is on {q.device}, the index on {didx.device}")
+    if len(lens) != q.shape[0]:
+        raise ValueError(f"{len(lens)} lens for {q.shape[0]} reads")
+    if n and not bool(((read_idx >= 0) & (read_idx < q.shape[0])).all()):
+        raise ValueError("read_idx outside the reads")
+
+
+def rightmost_reach(didx: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
+                    read_idx: torch.Tensor, starts: torch.Tensor,
+                    min_intv: torch.Tensor):
+    """tpubwa's ``_rightmost_reach`` (smem.py:62): for each job (a read of
+    q, a start, a min_intv) the rightmost forward extension of
+    ``q[read, start:]`` whose interval keeps size >= min_intv.  q
+    uint8 or int32 [B, L] (codes 0-3; anything else is N), lens int32
+    [B], read_idx and starts int32 [n], min_intv idt [n], all on the
+    index's device.  Returns (ik idt [n, 3], the last interval taken: the
+    first base's where it fails at once; e idt [n], the match's end, e
+    == start where the first base fails).  CPU tensors run
+    ``rightmost_reach_plain``; CUDA tensors launch csrc/occ.cu's K-reach
+    (``rightmost_reach.launches``)."""
+    _reach_check(didx, q, lens, read_idx, starts, min_intv)
+    if not _kernel_route(q):
+        return rightmost_reach_plain(didx, q, lens, read_idx, starts,
+                                     min_intv)
+    n = len(read_idx)
+    ik = torch.empty((n, 3), dtype=didx.idt, device=q.device)
+    e = torch.empty(n, dtype=didx.idt, device=q.device)
+    if not n:
+        return ik, e
+    lib = _build.load("occ", _OCC_SIGNATURES)
+    qc = _reach_codes(q)
+    fm = didx.upload_fm()
+    parts = [x.contiguous() for x in (lens, read_idx, starts, min_intv)]
+    rc = lib.tpubwa_rightmost_reach(
+        fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
+        didx.seq_len, int(didx.idt == torch.int64), qc.data_ptr(),
+        qc.shape[1], *(x.data_ptr() for x in parts), ik.data_ptr(),
+        e.data_ptr(), n, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "rightmost_reach")
+    bump(rightmost_reach)
+    return ik, e
+
+
+rightmost_reach.launches = 0
+
+
+def reach_jobs(B: int, L: int, idt, device):
+    """The job arrays of every (read, start) of B reads of L columns
+    (tpubwa's ``_rightmost_reach_all``, smem.py:48): read_idx and starts
+    int32 [B * L], read-major, and min_intv ``idt`` ones."""
+    read_idx = torch.arange(B, dtype=torch.int32,
+                            device=device).repeat_interleave(L)
+    starts = torch.arange(L, dtype=torch.int32, device=device).repeat(B)
+    min_intv = torch.ones(B * L, dtype=idt, device=device)
+    return read_idx, starts, min_intv
+
+
+def rightmost_reach_all(didx: DeviceIndex, q: torch.Tensor,
+                        lens: torch.Tensor):
+    """tpubwa's ``_rightmost_reach_all`` (smem.py:48): ``reach_jobs``
+    of q [B, L], built on q's device."""
+    return rightmost_reach(didx, q, lens,
+                           *reach_jobs(*q.shape, didx.idt, q.device))
 
 
 def max_hits(L: int, min_len: int) -> int:

@@ -10,10 +10,11 @@ one harness (``csrc/extend_host.cpp``, ``csrc/extend16_host.cpp``,
 ``csrc/smem_host.cpp``) with g++ under ``-fsanitize=address,undefined``
 into ``build/host`` in the checkout (or ``$TPUBWA_TORCH_HOST_BUILD``),
 keyed by a hash of its sources; ``extend_host`` (K1 and K1-floor),
-``extend_real_host`` (K1-real), ``extend16_host`` (K1-i16),
-``extend_bd_host`` (K1-bd, both passes), ``occ_host`` (K-sa and K-ext;
-``sa_lookup_refusal``, K-sa's refusal of an n past its rank queue)
-and ``smem_host`` (K2 and K3) run one on a set of jobs, and
+``extend_mat_host`` (K1-mat), ``extend_real_host`` (K1-real),
+``extend16_host`` (K1-i16), ``extend_bd_host`` (K1-bd, both passes),
+``occ_host`` (K-sa and K-ext; ``sa_lookup_refusal``, K-sa's refusal of
+an n past its rank queue), ``reach_host`` (K-reach) and ``smem_host``
+(K2 and K3) run one on a set of jobs, and
 ``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
@@ -102,18 +103,22 @@ def _jobs(q, t, params):
     return tuple(np.ascontiguousarray(x, np.int32) for x in (q, t, params))
 
 
-def _run(q, t, params, pen, masks, variants, reverse):
+def _run(q, t, params, pen, masks, variants, reverse, mats=()):
     """The harness on one set of jobs: (one int32 [N, 6] per mask, one
-    int32 [N, 128] per K1-real variant index)."""
+    int32 [N, 128] per K1-real variant index, one int32 [N, 6] per 5 x 5
+    matrix of ``mats``)."""
     q, t, params = _jobs(q, t, params)
     n, W = q.shape
     head = np.asarray([n, W, t.shape[1], params.shape[1], *pen, int(reverse),
-                       len(masks), len(variants), *masks, *variants],
-                      np.int32)
-    got = _exec("extend_host", (head, q, t, params))
+                       len(masks), len(variants), len(mats), *masks,
+                       *variants], np.int32)
+    tables = np.asarray(mats, np.int32).reshape(-1)
+    got = _exec("extend_host", (head, tables, q, t, params))
     k = len(masks) * n * 6
+    r = k + len(variants) * n * 128
     return (list(got[:k].reshape(len(masks), n, 6)),
-            list(got[k:].reshape(len(variants), n, 128)))
+            list(got[k:r].reshape(len(variants), n, 128)),
+            list(got[r:].reshape(len(mats), n, 6)))
 
 
 def extend_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
@@ -126,6 +131,15 @@ def extend_host(q, t, params, a, b, o_del, e_del, o_ins, e_ins, zdrop,
     lockstep check stops it."""
     return _run(q, t, params, (a, b, o_del, e_del, o_ins, e_ins, zdrop),
                 masks, (), reverse)[0]
+
+
+def extend_mat_host(q, t, params, mats, o_del, e_del, o_ins, e_ins, zdrop,
+                    reverse=False):
+    """K1-mat's C entry (``tpubwa_extend_mat``) on the host: one int32
+    [N, 6] per int32 [5, 5] scoring matrix of ``mats``.  Raises as
+    ``extend_host``."""
+    return _run(q, t, params, (0, 0, o_del, e_del, o_ins, e_ins, zdrop), (),
+                (), reverse, mats)[2]
 
 
 def extend_real_host(q, t, params, variants, scoring, reverse=False):
@@ -194,8 +208,9 @@ def _slab_input(first, devices, n_arrays):
 
 
 def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call, slabs=None,
-               devices=None, peers=True):
-    """(rank type, the occ_host input arrays)."""
+               devices=None, peers=True, reach=None):
+    """(rank type, the occ_host input arrays); ``reach`` as in
+    ``reach_host``."""
     dt = np.asarray(arrays["sa_sample"]).dtype
     if dt not in (np.int32, np.int64):
         raise TypeError(f"rank type {dt}")
@@ -204,14 +219,23 @@ def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call, slabs=None,
     ranks = np.ascontiguousarray(ranks, dt)
     ik = np.ascontiguousarray(ik, dt).reshape(-1, 3)
     n_slabs, cuts = _slab_input(slabs, devices, 3)
+    if reach is None:
+        jobs, shape = (), (0, 0, 0)
+    else:
+        q, lens, read_idx, starts, min_intv = reach
+        q = np.ascontiguousarray(q, np.uint8)
+        jobs = (q, *(np.ascontiguousarray(x, np.int32)
+                     for x in (lens, read_idx, starts)),
+                np.ascontiguousarray(min_intv, dt))
+        shape = (len(read_idx), *q.shape)
     head = np.asarray([len(occ), len(marks), len(arrays["sa_marked"]),
                        len(arrays["sa_sample"]), arrays["primary"],
                        arrays["seq_len"], arrays["mark_D"], dt == np.int64,
                        len(ranks), len(ik), max_blocks, int(reverse),
-                       n_call, n_slabs, int(peers)], np.int64)
+                       n_call, n_slabs, int(peers), *shape], np.int64)
     return dt, (head, occ, marks, *(
         np.ascontiguousarray(arrays[k], dt)
-        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik, *cuts)
+        for k in ("L2", "sa_marked", "sa_sample")), ranks, ik, *cuts, *jobs)
 
 
 def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None,
@@ -241,6 +265,19 @@ def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None,
         stats["lanes"] = got[n:2 * n].astype(np.int64)
     return (got[:n], got[2 * n:2 * n + m].reshape(-1, 4, 3),
             got[2 * n + m:].reshape(-1, 4, 3))
+
+
+def reach_host(arrays, q, lens, read_idx, starts, min_intv):
+    """K-reach's C entry (``tpubwa_rightmost_reach``) on the host, on an
+    index as ``occ_host`` takes it: reads ``q`` (uint8 [B, L]) of lengths
+    ``lens`` and the jobs ``read_idx``, ``starts`` (int32) and
+    ``min_intv`` (the rank type).  Returns (ik [n, 3], e [n]) of the rank
+    type.  Raises as ``occ_host``."""
+    dt, inputs = _occ_input(arrays, np.zeros(0), np.zeros((0, 3)), 0, False,
+                            -1, reach=(q, lens, read_idx, starts, min_intv))
+    got = _exec("occ_host", inputs, dtype=dt)
+    n = len(read_idx)
+    return got[:3 * n].reshape(n, 3), got[3 * n:]
 
 
 def sa_lookup_refusal(arrays, ranks, n_call):
