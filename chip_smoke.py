@@ -2219,11 +2219,12 @@ def ksa_alone(torch, didx, ranks, lib=None, max_blocks=0, n=None):
     return launch
 
 
-def kext_alone(torch, didx, ik, is_back):
+def kext_alone(torch, didx, ik, is_back, lib=None):
     """K-ext's C entry alone on preallocated buffers (``.buffers``: ik,
-    out), a launch not counted on the wrapper."""
+    out), a launch not counted on the wrapper; ``lib`` as in
+    ``ksa_alone``."""
     from tpubwa_torch.device import _build, occ
-    lib = _build.load("occ", occ._SIGNATURES)
+    lib = lib or _build.load("occ", occ._SIGNATURES)
     fm = didx.upload_fm()
     out = torch.empty((len(ik), 4, 3), dtype=ik.dtype, device=ik.device)
     args = (fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
@@ -3964,6 +3965,7 @@ def phase_seeding(torch, np, main, megaq):
         "main_launch": out, "card": "the first chunk of 5c (16,384 reads)",
         "k2_refusals": k2_refusals(torch, didx, qd, ld, opt_),
         "sass_loads": seeding_sass(), "tp_sass": tp_sass(),
+        "sass_digest": seeding_digest(),
         "seconds": round(time.perf_counter() - t_phase, 1)}), flush=True)
     return out
 
@@ -4039,6 +4041,32 @@ def k3_launch_facts(torch, n):
                       for dt, m in (("int32", "i"), ("int64", "l"))},
             "step": load_rounds(text, r"seed_strategy_kernelIiE",
                                 min_width=64)}
+
+
+# K2, K2-tp and K3, each rank type: their SASS functions' names
+SEEDING_KERNELS = {
+    f"{k}/{dt}": fn.format(m)
+    for dt, m in (("int32", "i"), ("int64", "l"))
+    for k, fn in (("smem_rounds12", r"collect12_kernelI{}Lb0EE"),
+                  ("smem_rounds12_tp", r"collect12_kernelI{}Lb1EE"),
+                  ("seed_strategy", r"seed_strategy_kernelI{}E"))}
+
+
+def seeding_digest(so=None):
+    """{kernel/rank type: its SASS instructions and a digest of their
+    text} of every instantiation of K2, K2-tp and K3, from the package's
+    build of csrc/smem.cu or the library ``so`` (another checkout's
+    build, for a side by side): two builds whose kernels compile alike
+    give equal digests."""
+    import hashlib
+    from tpubwa_torch.device import _build
+    text = _run([_cuobjdump(), "-sass", so or _build.build_info["smem"]["so"]])
+    out = {}
+    for key, fn in SEEDING_KERNELS.items():
+        _, ins, _ = sass_function(text, fn)
+        out[key] = {"instructions": len(ins), "sha256": hashlib.sha256(
+            "\n".join(op for _, op in ins).encode()).hexdigest()[:16]}
+    return out
 
 
 def seeding_sass():
@@ -4132,20 +4160,22 @@ def phase_kernel_mat(torch, np):
 REACH_STARTS = 100      # starts a read in phase 3j (the reads' length)
 
 
-def reach_alone(torch, didx, q, lens, read_idx, starts, min_intv):
+def reach_alone(torch, didx, q, lens, read_idx, starts, min_intv,
+                lib=None):
     """K-reach's C entry alone on preallocated buffers (``.buffers``), a
-    launch not counted on the wrapper."""
+    launch not counted on the wrapper; ``lib`` as in ``ksa_alone``."""
     from tpubwa_torch.device import _build, occ
-    lib = _build.load("occ", occ._SIGNATURES)
+    lib = lib or _build.load("occ", occ._SIGNATURES)
     fm = didx.upload_fm()
     n = len(read_idx)
     ik = torch.empty((n, 3), dtype=didx.idt, device=q.device)
     e = torch.empty(n, dtype=didx.idt, device=q.device)
+    queue = torch.empty(1, dtype=torch.int64, device=q.device)
     args = (fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
             didx.seq_len, int(didx.idt == torch.int64), q.data_ptr(),
             q.shape[1], lens.data_ptr(), read_idx.data_ptr(),
             starts.data_ptr(), min_intv.data_ptr(), ik.data_ptr(),
-            e.data_ptr(), n, q.device.index,
+            e.data_ptr(), n, queue.data_ptr(), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
 
     def launch():
@@ -4155,18 +4185,77 @@ def reach_alone(torch, didx, q, lens, read_idx, starts, min_intv):
     return launch
 
 
+def reach_rows(torch, np, didx, qd, ld, read_idx, starts, min_intv):
+    """K-reach's shipped design on the host harness (csrc/occ_host.cpp,
+    without the sanitizers) on these jobs: its results, its extension
+    steps (one trip to memory each), the occ rows they load and the
+    distinct rows, ascending."""
+    from tpubwa_torch.device import warp_host
+    fm = didx.upload_fm()
+    one = np.zeros(1, didx.np_idt)
+    arrays = {"occ_blocks": fm["occ_blocks"].cpu().numpy().view(np.uint32),
+              "mark_rows": np.zeros((1, 8), np.uint32),
+              "L2": fm["L2"].cpu().numpy(), "sa_marked": one,
+              "sa_sample": one, "primary": didx.primary,
+              "seq_len": didx.seq_len, "mark_D": 0}
+    stats = {}
+    ik, e = warp_host.reach_host(
+        arrays, qd.cpu().numpy(), ld.cpu().numpy(),
+        *(x.cpu().numpy() for x in (read_idx, starts, min_intv)),
+        stats=stats, sanitize=False)
+    return ik, e, stats
+
+
+def reach_chains(np, q, lens, read_idx, starts, e, steps, seg):
+    """The chained design's trips on these jobs, from the plain walk's
+    results (e, and ``steps``, the extensions each job's own walk
+    makes): a job linked to its right neighbour in its segment of
+    ``seg`` (the same read, the next start; min_intv 1 throughout), whose
+    neighbour matched and whose own first base is valid, makes one
+    backward step, and walks forward as well where its e differs from
+    the neighbour's; any other job walks forward.  Returns the trips a
+    job, and of a segment (each a chain) the mean, 99th percentile and
+    most, and the mean over warps (32 segments in a row) of their most,
+    for which a warp's lanes wait."""
+    n = len(e)
+    idx = np.arange(n - 1)
+    valid = (q[read_idx[:-1], np.clip(starts[:-1], 0, q.shape[1] - 1)] <= 3) \
+        & (starts[:-1] < lens[read_idx[:-1]])
+    back = ((read_idx[:-1] == read_idx[1:]) & (starts[:-1] + 1 == starts[1:])
+            & (e[1:] > starts[1:]) & valid & ((idx + 1) % seg != 0))
+    cost = steps.astype(np.int64).copy()
+    cost[:-1] = np.where(back, 1 + np.where(e[:-1] != e[1:], steps[:-1], 0),
+                         steps[:-1])
+    per = np.add.reduceat(cost, np.arange(0, n, seg))
+    warps = per[:len(per) // 32 * 32].reshape(-1, 32).max(1)
+    return {"trips_a_job": round(float(cost.sum()) / n, 4),
+            "segment_mean": round(float(per.mean()), 2),
+            "segment_p99": float(np.percentile(per, 99)),
+            "segment_max": int(per.max()),
+            "warp_max_mean": round(float(warps.mean()), 2)}
+
+
 def phase_reach(torch, np, megaq):
     """[3j K-reach]: (after 5c, whose first chunk it uses) K-reach ==
     rightmost_reach_plain over every start 0-99 of every read of 5c's
     first chunk on the 64 Mbp index (16,384 reads: 1,638,400 jobs,
-    min_intv 1), int32, and int64 on its first 65,536 jobs; then K-reach
-    alone (its C entry) warm, in interleaved passes, and cold (after a
-    64 MB write), beside its plain version and its bound (the distinct
-    sectors of the occ rows its plain version reads, with its inputs and
-    outputs), with the steps a job, the longest walk and the jobs that
-    fail at once.  Returns (the row's case, its largest difference)."""
+    min_intv 1, read-major: one chain a read), int32, and int64 on its
+    first 65,536 jobs; and on the same jobs shuffled with mixed min_intv
+    (1, 1, 2, 3 or 8 a job: no job linked to its neighbour), and in read
+    order with mixed min_intv (chains broken where it changes), int32.
+    Then K-reach alone (its C entry) warm, in interleaved passes (the
+    read-major jobs and the shuffled ones), and cold (after a 64 MB
+    write), beside its plain version and its bound: the distinct sectors
+    of the occ rows its plain version reads, or the shipped design's
+    where fewer (counted on the host harness over every job), with its
+    inputs and outputs.  With the steps a job of the plain walk (the
+    first design's), the longest walk and the jobs that fail at once,
+    and the shipped design's trips and occ rows, over the first 65,536
+    jobs beside the plain walk's and over every job.  Returns (the
+    row's case, its largest difference)."""
     from tpubwa_torch.device import smem
     from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    from tpubwa_torch.scripts.exp_reach_forms import constant
     t0 = time.perf_counter()
     _, didx, qd, ld = megaq["chunk"]
     B = len(ld)
@@ -4195,22 +4284,77 @@ def phase_reach(torch, np, megaq):
                      "steps_mean": round(float(steps.float().mean()), 3),
                      "longest_walk": stats["rounds"],
                      "fail_at_once": int((e == starts[:k]).sum())}
+        # the occ rows the plain walk reads (the first 65,536 jobs' in
+        # the int64 pass: the same arrays)
+        facts[dt]["rows"] = torch.unique(stats["occ_rows"]).cpu().numpy()
         if dt == "int32":
-            rows = torch.unique(stats["occ_rows"]).cpu().numpy()
-            flat = (plain_ms, rows, pik, pe)
-    plain_ms, rows, pik, pe = flat
+            flat = (plain_ms, pik, pe, stats["steps"])
+    plain_ms, pik, pe, steps = flat
+    rows, first_rows = (facts[dt].pop("rows") for dt in ("int32", "int64"))
+    # the shuffled jobs with mixed min_intv, and the read-major ones
+    rng = np.random.default_rng(0x3A)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    mixed = torch.from_numpy(rng.choice([1, 1, 2, 3, 8], n)).to(
+        dev, didx.idt)
+    other = {"shuffled_mixed_min_intv": (read_idx[perm], starts[perm],
+                                          mixed[perm]),
+             "mixed_min_intv": (read_idx, starts, mixed)}
+    for name, (ri, st, mi) in other.items():
+        ik, e = smem.rightmost_reach(didx, qd, ld, ri, st, mi)
+        torch.cuda.synchronize()
+        pik2, pe2 = smem.rightmost_reach_plain(didx, qd, ld, ri, st, mi)
+        for what, got, want in (("ik", ik, pik2), ("e", e, pe2)):
+            max_err = max(max_err, held_fm(torch, f"K-reach {what} ({name})",
+                                           got, want)[1])
+        facts[name] = {"jobs": n, "equal": True}
     mi = torch.ones(n, dtype=didx.idt, device=dev)
     fn = reach_alone(torch, didx, qd, ld, read_idx, starts, mi)
-    ms = interleaved_min({"reach": fn}, 8, 4, torch.device(DEV))["reach"]
+    shuffled = reach_alone(torch, didx, qd, ld,
+                           *other["shuffled_mixed_min_intv"])
+    best = interleaved_min({"reach": fn, "shuffled": shuffled}, 8, 4,
+                           torch.device(DEV))
+    ms = best["reach"]
+    facts["shuffled_mixed_min_intv"]["ms"] = round(best["shuffled"], 4)
     cold = cold_ms(torch, fn, reps=4)
     _, _, _, _, _, ik_a, e_a = fn.buffers
     if not torch.equal(e_a, pe) or not torch.equal(ik_a, pik):
         raise AssertionError("K-reach alone wrote other results")
+    # the shipped design's trips and rows on the host harness: the
+    # first 65,536 jobs beside the plain walk's, then every job
+    t1 = time.perf_counter()
+    k = min(n, 1 << 16)
+    hik, he, first = reach_rows(torch, np, didx, qd, ld, read_idx[:k],
+                                starts[:k], mi[:k])
+    if not (np.array_equal(hik, pik[:k].cpu().numpy())
+            and np.array_equal(he, pe[:k].cpu().numpy())):
+        raise AssertionError("K-reach on the host harness != plain")
+    _, _, every = reach_rows(torch, np, didx, qd, ld, read_idx, starts, mi)
+    facts["harness"] = {
+        "first_jobs": k,
+        "first": {"trips_a_job": round(first["steps"] / k, 4),
+                  "row_loads": first["row_loads"],
+                  "distinct_occ_rows": len(first["rows"]),
+                  "plain_steps_a_job": facts["int64"]["steps_mean"],
+                  "plain_distinct_occ_rows": len(first_rows)},
+        "every": {"trips_a_job": round(every["steps"] / n, 4),
+                  "row_loads": every["row_loads"],
+                  "distinct_occ_rows": len(every["rows"])},
+        # the same trips from the plain walk's results, a segment each
+        "chains": reach_chains(
+            np, qd.cpu().numpy(), ld.cpu().numpy(),
+            *(x.cpu().numpy().astype(np.int64) for x in (
+                read_idx, starts, pe, steps)), constant("kSeg")),
+        "seconds": round(time.perf_counter() - t1, 1)}
     isz = 8 if didx.idt == torch.int64 else 4
     io = qd.numel() + 4 * len(ld) + 4 * 2 * n + isz * n + isz * 4 * n
+    plain_bytes = fm_bytes(io, [(rows, OCC_ROW)])
+    chain_bytes = fm_bytes(io, [(every["rows"], OCC_ROW)])
     case = {"n": n, "ms": round(ms, 4), "cold_ms": round(cold, 4),
             "plain_ms": round(plain_ms, 3), "distinct_occ_rows": len(rows),
-            "bytes": fm_bytes(io, [(rows, OCC_ROW)]),
+            "chained_distinct_occ_rows": len(every["rows"]),
+            "bytes": min(plain_bytes, chain_bytes),
+            "bytes_from": ("plain walk" if plain_bytes <= chain_bytes
+                           else "chained design"),
             "max_abs_err": max_err}
     facts.update(alone=case, seconds=round(time.perf_counter() - t0, 1))
     print("[3j K-reach==plain] " + json.dumps(facts), flush=True)

@@ -100,6 +100,36 @@ def test_kernels_equal_plain(indexes, marks, idt):
             didx, ik, is_back).numpy()), is_back
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("idt", [np.int32, np.int64])
+def test_extension_groups_equal_plain(indexes, idt, reverse):
+    """K-ext, one interval on a group of lanes, its result written as
+    16-byte chunks by the group's lanes: == the plain extension in both
+    directions and both lane orders, on interval counts that leave a
+    warp's last groups, or all but one, without an interval (the
+    harness's outputs start as -77, so a chunk not written shows)."""
+    fmi = indexes["marked"]
+    didx = DeviceIndex.from_fmindex(fmi, "cpu")
+    arrays = host_arrays(didx)
+    if idt is np.int64:
+        for k in ("sa_sample", "L2", "sa_marked"):
+            arrays[k] = arrays[k].astype(np.int64)
+        didx = DeviceIndex.from_numpy(dict(arrays, pac_words=np.zeros(
+            1, np.uint32), l_pac=fmi.bnt.l_pac), "cpu")
+    _, ik = queries(fmi, didx, np.random.default_rng(6))
+    ik = ik.to(didx.idt)
+    from tpubwa_torch.scripts.exp_reach_forms import constant
+    per_warp = 32 // constant("kExtGroup")
+    for n in sorted({1, per_warp - 1, per_warp + 1, 3 * per_warp + 1,
+                     len(ik)} - {0}):
+        _, back, fwd = warp_host.occ_host(arrays, np.zeros(0, idt),
+                                          ik[:n].numpy(), reverse=reverse)
+        for got, is_back in ((back, True), (fwd, False)):
+            assert got.dtype == idt and got.shape == (n, 4, 3)
+            assert np.array_equal(got, tocc.bwt_extend_plain(
+                didx, ik[:n], is_back).numpy()), (n, is_back)
+
+
 def test_extension_reads_counts_past_2_31_as_unsigned():
     """A checkpoint count above 2^31 (GRCh38 scale) is widened in the
     kernel, not read as a negative int32."""

@@ -80,6 +80,29 @@ def test_ksa_and_kext_tp_equal_flat_and_plain(indexes, idt, n, reverse):
         assert np.array_equal(g, f) and np.array_equal(g, w)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("idt", [np.int32, np.int64])
+def test_kext_tp_groups_on_partial_warps(indexes, idt, reverse):
+    """K-ext's TP instantiation keeps K-ext's design, an interval on a
+    group of lanes: on interval counts that leave a warp's last groups
+    without one, over 2 slabs, both directions and lane orders, == the
+    flat instantiation and the plain extension."""
+    from tpubwa_torch.scripts.exp_reach_forms import constant
+    arrays, didx, _, ik = occ_case(indexes["marked"], idt)
+    cuts = slab_cuts(arrays, 2)
+    per_warp = 32 // constant("kExtGroup")
+    for n in sorted({1, per_warp + 1, 5 * per_warp - 1} - {0}):
+        none = np.zeros(0, idt)
+        got = warp_host.occ_host(arrays, none, ik[:n], reverse=reverse,
+                                 slabs=cuts)[1:]
+        flat = warp_host.occ_host(arrays, none, ik[:n], reverse=reverse)[1:]
+        for g, f, b in zip(got, flat, (True, False)):
+            assert g.dtype == idt and g.shape == (n, 4, 3)
+            assert np.array_equal(g, f) and np.array_equal(
+                g, tocc.bwt_extend_plain(didx, torch.from_numpy(ik[:n]),
+                                         b).numpy()), (n, b)
+
+
 def test_tp_rows_at_every_slab_edge(indexes):
     """Ranks and intervals on the rows either side of every cut, over 3
     slabs whose cuts are odd in each array."""

@@ -6,7 +6,8 @@
 //
 // INDEX: int64 header (n_blocks, n_mark_blocks, n_marked, n_sample,
 // primary, seq_len, mark_D, idx64, n_ranks, n_ik, max_blocks, reverse,
-// n_call, n_slabs, peers, n_reach, B, L), then occ uint32 [n_blocks, 12],
+// n_call, n_slabs, peers, n_reach, B, L, count, sms, blocks_per_sm),
+// then occ uint32 [n_blocks, 12],
 // mark rows uint32
 // [n_mark_blocks, 8], then, of the rank type (int64 where idx64, else
 // int32): L2 [5], sa_marked [n_marked], sa_sample [n_sample], ranks
@@ -29,6 +30,12 @@
 // the reads q uint8 [B, L], lens int32 [B], read_idx and starts int32
 // [n_reach] and min_intv [n_reach] of the rank type, and OUT gets, after
 // the extensions, ik [n_reach, 3] and e [n_reach] of the rank type.
+// count 1 adds, of the rank type, K-reach's extension steps (its trips),
+// the occ rows they loaded, and the m distinct rows (block indices) in
+// ascending order after m.  sms and blocks_per_sm, where > 0, make the
+// attribute and occupancy queries answer for a card of that many SMs
+// holding that many blocks each, so that the grid holds fewer lanes than
+// K-reach has segments.
 //
 // n_slabs > 0 runs the TP instantiations instead (tpubwa_sa_lookup_tp
 // and tpubwa_bwt_extend_tp), on the index cut into slabs: after the
@@ -131,11 +138,23 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     if (n_reach > 0) {
         std::vector<Idx> ik((size_t)n_reach * 3, (Idx)-77),
             e((size_t)n_reach, (Idx)-77);
+        unsigned long long reach_queue = 77;
+        int64_t steps = 0;
+        std::vector<int64_t> rows;
+        if (h[18]) {
+            reach_steps = &steps;
+            reach_rows = &rows;
+        }
+        if (h[19] > 0) warp_host::sms = (int)h[19];
+        if (h[20] > 0) warp_host::blocks_per_sm = (int)h[20];
         rc = tpubwa_rightmost_reach(occ.data(), L2.data(), primary, seq_len,
                                     sizeof(Idx) == 8, q.data(), (int)L,
                                     lens.data(), read_idx.data(),
                                     starts.data(), min_intv.data(), ik.data(),
-                                    e.data(), n_reach, 0, nullptr);
+                                    e.data(), n_reach, &reach_queue, 0,
+                                    nullptr);
+        reach_steps = nullptr;
+        reach_rows = nullptr;
         if (rc != 0) {
             std::fprintf(stderr, "occ_host: tpubwa_rightmost_reach returned "
                          "%d\n", rc);
@@ -143,6 +162,14 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
         }
         write_array(o, ik);
         write_array(o, e);
+        if (h[18]) {
+            const int64_t loads = (int64_t)rows.size();
+            std::sort(rows.begin(), rows.end());
+            rows.erase(std::unique(rows.begin(), rows.end()), rows.end());
+            std::vector<Idx> out{(Idx)steps, (Idx)loads, (Idx)rows.size()};
+            out.insert(out.end(), rows.begin(), rows.end());
+            write_array(o, out);
+        }
     }
     return 0;
 }
@@ -151,7 +178,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: occ_host INDEX OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open INDEX");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 18);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 21);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[7] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

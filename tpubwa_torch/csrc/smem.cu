@@ -81,7 +81,7 @@
 // What K3's design does about it:
 //   * a group of kGroup = 8 lanes a read, 4 reads a warp: each forward
 //     step's two occ rows are counted across the group
-//     (smem.cuh:bwt_extend_group), each lane loading two of a row's 8
+//     (fm.cuh:bwt_extend_group), each lane loading two of a row's 8
 //     BWT words (one 8-byte load) and both rows' checkpoint counts, all
 //     at once, so a step is one trip to memory and a few dozen
 //     instructions a lane, where one thread loading and counting both

@@ -1,9 +1,9 @@
 // SMEM seeding device functions (bwt.c:bwt_smem1a and
 // bwt_seed_strategy1) over the FM-index functions of csrc/fm.cuh
-// (set_intv, bwt_extend), for the seeding kernels of csrc/smem.cu: smem1a
-// runs one read on a warp (K2); round 3 (K3) runs a read on a group of
-// G lanes, each forward step counted across the group
-// (bwt_extend_group), the scan itself in csrc/smem.cu.
+// (set_intv, bwt_extend, bwt_extend_group), for the seeding kernels of
+// csrc/smem.cu: smem1a runs one read on a warp (K2); round 3 (K3) runs a
+// read on a group of G lanes, each forward step counted across the group
+// (fm.cuh:bwt_extend_group), the scan itself in csrc/smem.cu.
 // They follow the port's native scalar seeder step for step
 // (tpubwa_torch/native/smem.cpp smem1a :235-318, seed_strategy1
 // :321-344), and so bwa's scalar protocol, not the lockstep machines of
@@ -30,6 +30,9 @@ namespace seed {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+using fm::bwt_extend_group;
+using fm::word_bits;
+
 template <class Idx>
 struct Intv {
     Idx x0, x1, size, qb, qe;
@@ -53,14 +56,6 @@ __device__ __forceinline__ Intv<Idx> extend(const fm::Index<Idx, Occ>& f,
     Idx ok[4][3];
     fm::bwt_extend<Idx, IsBack>(f, in, ok);
     return Intv<Idx>{ok[c][0], ok[c][1], ok[c][2], ik.qb, ik.qe};
-}
-
-// the packed counts (low, high and both bits of the pairs under the cover
-// of nb bases, a byte each) of BWT word wi (0-7) of a row
-__device__ __forceinline__ uint32_t word_bits(uint32_t w, int nb, int wi) {
-    const uint32_t m = fm::low_cover(nb - 16 * wi);
-    const uint32_t lo = w & m, hi = (w >> 1) & m;
-    return __popc(lo) | __popc(hi) << 8 | __popc(lo & hi) << 16;
 }
 
 // bwt_extend of ik on one warp: every lane gives the same ik and gets
@@ -125,82 +120,6 @@ __device__ __forceinline__ Intv<Idx> set_intv_l2(const fm::Index<Idx, Occ>& f,
     const Idx lo = fm::pick4(v[0], v[1], v[2], v[3], c);
     return Intv<Idx>{lo + 1, fm::pick4(v[3], v[2], v[1], v[0], c) + 1,
                      fm::pick4(v[1], v[2], v[3], v[4], c) - lo, 0, 0};
-}
-
-// the 8 bytes at p (8-byte aligned: two BWT words from an even word of a
-// row), one load
-__device__ __forceinline__ uint2 load8(const uint32_t* p) {
-#ifdef TPUBWA_WARP_HOST
-    if ((uintptr_t)p & 7) {
-        std::fprintf(stderr, "smem: an 8-byte load at a misaligned address\n");
-        std::abort();
-    }
-    uint2 v;
-    std::memcpy(&v, p, sizeof v);
-    return v;
-#else
-    return __ldg(reinterpret_cast<const uint2*>(p));
-#endif
-}
-
-// bwt_extend of ik on a group of G (4, 8 or 16) consecutive lanes,
-// aligned to G: every lane of the group gives the same ik and gets the
-// same ok.  The group's first G / 2 lanes count piv - 1's row, the others
-// piv - 1 + size's, 16 / G of the row's 8 BWT words a lane (one 16-, 8-
-// or 4-byte load, all issued at once, with every lane's broadcast loads
-// of both rows' checkpoint counts).  Each lane packs its words' counts
-// into bytes (word_bits: at most 16 each, 128 a row, no carry);
-// log2(G / 2) __shfl_xor_sync rounds sum a row's inside its half of the
-// group and one more swaps the halves.  The shuffles take every lane of the warp: a lane whose group
-// has no step to make calls it with live false, loads nothing, and its
-// ok is not to be used.  The same counts as fm::bwt_extend.
-template <int G, class Idx, bool IsBack, class Occ>
-__device__ __forceinline__ void bwt_extend_group(const fm::Index<Idx, Occ>& f,
-                                                 const Idx ik[3], bool live,
-                                                 Idx ok[4][3]) {
-    static_assert(G == 4 || G == 8 || G == 16, "a group of 4, 8 or 16");
-    constexpr int kHalf = G / 2, kPer = 16 / G;  // lanes a row, words a lane
-    const int gl = threadIdx.x & (G - 1);
-    const Idx piv = IsBack ? ik[0] : ik[1];
-    const Idx k = piv - 1, l = piv - 1 + ik[2];
-    Idx kk, ll, tk[4], tl[4];
-    const bool rk = fm::occ4_kk(f, k, &kk), rl = fm::occ4_kk(f, l, &ll);
-    const bool of_l = gl >= kHalf;  // this lane's words are of l's row
-    const Idx x = of_l ? ll : kk;
-    const int wi = (gl & (kHalf - 1)) * kPer;  // its first word
-    const int nb = (int)(x & 127) + 1;
-    uint4 ck{}, cl{};
-    uint32_t bits = 0;
-    if (live && (of_l ? rl : rk)) {
-        const uint32_t* w = fm::occ_row(f, x) + 4 + wi;
-        if constexpr (kPer == 4) {
-            const uint4 v = fm::load16(w);
-            bits = word_bits(v.x, nb, wi) + word_bits(v.y, nb, wi + 1) +
-                   word_bits(v.z, nb, wi + 2) + word_bits(v.w, nb, wi + 3);
-        } else if constexpr (kPer == 2) {
-            const uint2 v = load8(w);
-            bits = word_bits(v.x, nb, wi) + word_bits(v.y, nb, wi + 1);
-        } else {
-            bits = word_bits(__ldg(w), nb, wi);
-        }
-    }
-    if (live && rk) ck = fm::load16(fm::occ_block(f, (int64_t)(kk >> 7)));
-    if (live && rl) cl = fm::load16(fm::occ_block(f, (int64_t)(ll >> 7)));
-#pragma unroll
-    for (int o = 1; o < kHalf; o <<= 1) bits += __shfl_xor_sync(kFull, bits, o);
-    const uint32_t other = __shfl_xor_sync(kFull, bits, kHalf);
-    const uint32_t sk = of_l ? other : bits, sl = of_l ? bits : other;
-    if (rk)
-        fm::bit_counts(ck, (int)(kk & 127) + 1, sk & 255u, sk >> 8 & 255u,
-                       sk >> 16, tk);
-    else
-        fm::occ4_edge(f, k, tk);
-    if (rl)
-        fm::bit_counts(cl, (int)(ll & 127) + 1, sl & 255u, sl >> 8 & 255u,
-                       sl >> 16, tl);
-    else
-        fm::occ4_edge(f, l, tl);
-    fm::extend_counts<Idx, IsBack>(f, ik, tk, tl, ok);
 }
 
 // ik extended forward by base c (0-3, known at run time) on a group of G

@@ -103,6 +103,12 @@ inline int atomicAdd(int* p, int v) {
     *p = old + v;
     return old;
 }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+    const unsigned long long old = *p;
+    *p = old + v;
+    return old;
+}
 inline int atomicOr(int* p, int v) {
     const int old = *p;
     *p = old | v;

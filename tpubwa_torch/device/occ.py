@@ -466,9 +466,9 @@ _SIGNATURES = {
     "tpubwa_bwt_extend": (_CI, [_VP, _VP, _CL, _CL, _CI, _CI, _VP, _VP,
                                 _CL, _CI, _VP]),
     # K-reach: (occ, L2, primary, seq_len, idx64, q, L, lens, read_idx,
-    #  starts, min_intv, ik, e, n, device, stream) -> cudaError_t
+    #  starts, min_intv, ik, e, n, queue, device, stream) -> cudaError_t
     "tpubwa_rightmost_reach": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CI]
-                               + [_VP] * 6 + [_CL, _CI, _VP]),
+                               + [_VP] * 6 + [_CL, _VP, _CI, _VP]),
     # the TP instantiations: (n_slabs, the slab tables, then the flat
     # entry's arguments from L2 on, sa_sample dropped) -> cudaError_t
     "tpubwa_sa_lookup_tp": (_CI, [_CI, _VP, _VP, _VP, _VP, _CL, _CL, _CI,

@@ -164,7 +164,9 @@ def rightmost_reach(didx: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
     first base's where it fails at once; e idt [n], the match's end, e
     == start where the first base fails).  CPU tensors run
     ``rightmost_reach_plain``; CUDA tensors launch csrc/occ.cu's K-reach
-    (``rightmost_reach.launches``)."""
+    (``rightmost_reach.launches``), which runs the jobs of a read that
+    follow one another (``reach_jobs``' order) right to left, each from
+    its neighbour's interval by one backward extension where it can."""
     _reach_check(didx, q, lens, read_idx, starts, min_intv)
     if not _kernel_route(q):
         return rightmost_reach_plain(didx, q, lens, read_idx, starts,
@@ -178,11 +180,12 @@ def rightmost_reach(didx: DeviceIndex, q: torch.Tensor, lens: torch.Tensor,
     qc = _reach_codes(q)
     fm = didx.upload_fm()
     parts = [x.contiguous() for x in (lens, read_idx, starts, min_intv)]
+    queue = torch.empty(1, dtype=torch.int64, device=q.device)
     rc = lib.tpubwa_rightmost_reach(
         fm["occ_blocks"].data_ptr(), fm["L2"].data_ptr(), didx.primary,
         didx.seq_len, int(didx.idt == torch.int64), qc.data_ptr(),
         qc.shape[1], *(x.data_ptr() for x in parts), ik.data_ptr(),
-        e.data_ptr(), n, q.device.index,
+        e.data_ptr(), n, queue.data_ptr(), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "rightmost_reach")
     bump(rightmost_reach)

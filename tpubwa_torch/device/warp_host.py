@@ -57,23 +57,26 @@ INTRINSICS16 = ("__vadd2", "__vmaxs2", "__vimin_s16x2_relu",
                 "__viaddmax_s16x2_relu", "__byte_perm")
 
 
-def build(name: str = "extend_host", sanitize: bool = True) -> Path:
+def build(name: str = "extend_host", sanitize: bool = True,
+          csrc: Path = CSRC) -> Path:
     """The harness executable ``name`` (a key of ``SOURCES``), built on
-    first use, with ``FLAGS`` (or ``FAST_FLAGS`` where not
+    first use from the sources in ``csrc`` (the package's, or an edited
+    copy of them), with ``FLAGS`` (or ``FAST_FLAGS`` where not
     ``sanitize``).  Raises RuntimeError without g++ or when the build
     fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host harness needs it")
+    csrc = Path(csrc)
     flags = FLAGS if sanitize else FAST_FLAGS
-    key = b"".join((CSRC / s).read_bytes() for s in SOURCES[name])
+    key = b"".join((csrc / s).read_bytes() for s in SOURCES[name])
     key += " ".join(flags).encode()
     exe = BUILD / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}"
     if not exe.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = exe.with_suffix(f".{os.getpid()}.tmp")
         entry = SOURCES[name][0]
-        res = subprocess.run([gxx, *flags, "-o", str(tmp), str(CSRC / entry)],
+        res = subprocess.run([gxx, *flags, "-o", str(tmp), str(csrc / entry)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed on {entry}:\n{res.stderr}")
@@ -81,11 +84,11 @@ def build(name: str = "extend_host", sanitize: bool = True) -> Path:
     return exe
 
 
-def _exec(name, arrays, args=(), dtype=np.int32, sanitize=True):
-    """Run harness ``name`` on the concatenated bytes of ``arrays``;
-    returns what it wrote, as ``dtype``.  Raises RuntimeError with its
-    report if it fails."""
-    exe = build(name, sanitize)
+def _exec(name, arrays, args=(), dtype=np.int32, sanitize=True, csrc=CSRC):
+    """Run harness ``name`` (built from ``csrc``) on the concatenated
+    bytes of ``arrays``; returns what it wrote, as ``dtype``.  Raises
+    RuntimeError with its report if it fails."""
+    exe = build(name, sanitize, csrc)
     with tempfile.TemporaryDirectory() as d:
         inp, out = os.path.join(d, "in"), os.path.join(d, "out")
         with open(inp, "wb") as fh:
@@ -208,9 +211,10 @@ def _slab_input(first, devices, n_arrays):
 
 
 def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call, slabs=None,
-               devices=None, peers=True, reach=None):
-    """(rank type, the occ_host input arrays); ``reach`` as in
-    ``reach_host``."""
+               devices=None, peers=True, reach=None, count=False,
+               card=(0, 0)):
+    """(rank type, the occ_host input arrays); ``reach``, ``count`` and
+    ``card`` as in ``reach_host``."""
     dt = np.asarray(arrays["sa_sample"]).dtype
     if dt not in (np.int32, np.int64):
         raise TypeError(f"rank type {dt}")
@@ -232,14 +236,16 @@ def _occ_input(arrays, ranks, ik, max_blocks, reverse, n_call, slabs=None,
                        len(arrays["sa_sample"]), arrays["primary"],
                        arrays["seq_len"], arrays["mark_D"], dt == np.int64,
                        len(ranks), len(ik), max_blocks, int(reverse),
-                       n_call, n_slabs, int(peers), *shape], np.int64)
+                       n_call, n_slabs, int(peers), *shape, int(count),
+                       *card], np.int64)
     return dt, (head, occ, marks, *(
         np.ascontiguousarray(arrays[k], dt)
         for k in ("L2", "sa_marked", "sa_sample")), ranks, ik, *cuts, *jobs)
 
 
 def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None,
-             slabs=None, devices=None, peers=True):
+             slabs=None, devices=None, peers=True, csrc=CSRC,
+             sanitize=True):
     """csrc/occ.cu's C entries on the host, on a tpubwa-layout index:
     ``arrays`` maps ``occ_blocks``, ``mark_rows`` (uint32), ``L2``,
     ``sa_marked``, ``sa_sample`` (the rank type, int32 or int64, taken
@@ -255,11 +261,14 @@ def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None,
     ``tpubwa_bwt_extend_tp``) on the arrays cut there, each slab its own
     heap block, on ``devices`` (one a slab; all 0, the launch's, where
     None); ``peers`` False makes the peer-access query refuse every
-    pair.  Raises RuntimeError with the harness's report if a sanitizer
-    or the lockstep check stops it or an entry returns an error."""
+    pair.  ``csrc`` builds the harness from another copy of the sources
+    (a form of ``scripts/exp_reach_forms.py``); ``sanitize`` as in
+    ``reach_host``.  Raises RuntimeError with the harness's report if a
+    sanitizer or the lockstep check stops it or an entry returns an
+    error."""
     dt, inputs = _occ_input(arrays, ranks, ik, max_blocks, reverse, -1,
                             slabs, devices, peers)
-    got = _exec("occ_host", inputs, dtype=dt)
+    got = _exec("occ_host", inputs, dtype=dt, sanitize=sanitize, csrc=csrc)
     n, m = len(ranks), len(inputs[7]) * 12
     if stats is not None:
         stats["lanes"] = got[n:2 * n].astype(np.int64)
@@ -267,17 +276,32 @@ def occ_host(arrays, ranks, ik, max_blocks=0, reverse=False, stats=None,
             got[2 * n + m:].reshape(-1, 4, 3))
 
 
-def reach_host(arrays, q, lens, read_idx, starts, min_intv):
+def reach_host(arrays, q, lens, read_idx, starts, min_intv, reverse=False,
+               stats=None, card=(0, 0), sanitize=True, csrc=CSRC):
     """K-reach's C entry (``tpubwa_rightmost_reach``) on the host, on an
     index as ``occ_host`` takes it: reads ``q`` (uint8 [B, L]) of lengths
     ``lens`` and the jobs ``read_idx``, ``starts`` (int32) and
     ``min_intv`` (the rank type).  Returns (ik [n, 3], e [n]) of the rank
-    type.  Raises as ``occ_host``."""
-    dt, inputs = _occ_input(arrays, np.zeros(0), np.zeros((0, 3)), 0, False,
-                            -1, reach=(q, lens, read_idx, starts, min_intv))
-    got = _exec("occ_host", inputs, dtype=dt)
+    type.  ``reverse`` runs each warp's lanes 31..0; ``card`` (SMs,
+    blocks an SM), where nonzero, makes the launch's grid that of a
+    smaller card, so that lanes take segment after segment from the
+    queue; a ``stats`` dict gets ``steps`` (the extension steps, one
+    trip to memory each), ``row_loads`` (the occ rows they loaded) and
+    ``rows`` (the distinct rows, ascending, int64).  ``sanitize`` False
+    builds without the sanitizers, for a count over many jobs; ``csrc``
+    as in ``occ_host``.  Raises as ``occ_host``."""
+    dt, inputs = _occ_input(arrays, np.zeros(0), np.zeros((0, 3)), 0,
+                            reverse, -1,
+                            reach=(q, lens, read_idx, starts, min_intv),
+                            count=stats is not None, card=card)
+    got = _exec("occ_host", inputs, dtype=dt, sanitize=sanitize, csrc=csrc)
     n = len(read_idx)
-    return got[:3 * n].reshape(n, 3), got[3 * n:]
+    if stats is not None:
+        at = 4 * n
+        stats.update(steps=int(got[at]), row_loads=int(got[at + 1]),
+                     rows=got[at + 3:at + 3 + int(got[at + 2])].astype(
+                         np.int64))
+    return got[:3 * n].reshape(n, 3), got[3 * n:4 * n]
 
 
 def sa_lookup_refusal(arrays, ranks, n_call):

@@ -10,7 +10,7 @@ the group can be timed against the others in one process on one card:
 * ``thread``: one read a thread (a group of 1): every lane loads both
   occ rows of its step and counts them alone (``fm::bwt_extend``);
 * ``g4``: a group of 4 lanes a read, 8 reads a warp, each lane four BWT
-  words of one row (one 16-byte load; ``smem.cuh:bwt_extend_group``);
+  words of one row (one 16-byte load; ``fm.cuh:bwt_extend_group``);
 * ``g8``: a group of 8, 4 reads a warp, two words a lane (8 bytes);
 * ``g16``: a group of 16, 2 reads a warp, one word a lane;
 * ``g32``: the whole warp on a read (``smem.cuh:bwt_extend_warp``, K2's
