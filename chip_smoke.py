@@ -192,6 +192,27 @@ Phases, one output line each (a failing phase raises, exit != 0):
      int32, and int64 on the first 65,536; K-reach alone warm
      (interleaved passes) and cold, beside its plain version and its
      bound, with the steps a job and the longest walk;
+ 3k. (after 3j) K-cur (csrc/smem.cu's smem_jobs_kernel, seed mode
+     cursor's bwt_smem1a a warp a job) == run_smem_jobs_plain in every
+     instantiation, on round-1 jobs and the round-2 jobs of their rows,
+     at 64 row slots a job and at one, on the 3,000-base genome and on
+     262 reads of 5c's first chunk; on that chunk mode cursor's rounds
+     1+2 merged == K2's, K-cur's round-1 and round-2 launches alone
+     beside K2 alone in interleaved passes, with steps and chain a job,
+     each launch's bound from the distinct sectors it reads
+     (csrc/smem_host.cpp), its launch shape and registers, and K2's and
+     K3's SASS digests;
+ 5k. (after 3k) phase 5's 2 x 8,192 pairs with TPUBWA_SEED_MODE=reach,
+     then =cursor, the counts at 0 just before each: reach seeds rounds
+     1 and 2 on K-reach (two launches a chunk), cursor on K-cur (two or
+     more), both round 3 on K3, no K2 and no fused SA walk.  Each SAM
+     must equal phase 5's byte for byte.  Reads/s and the seeding
+     stage's wall beside phase 5's and 5c's, the launches, and mode
+     reach's two K-reach launches on 5c's first chunk (round 1, every
+     (read, column); round 2, every start 0..x of every job), each ==
+     rightmost_reach_plain on the same inputs, alone in interleaved
+     passes, with its trips a job and its bound from the distinct occ
+     rows it reads (the round-1 launch is K-reach's row below);
  5d. phase 5's 2 x 8,192 pairs in megaq on 5b's stock-bwa index: K2 and
      K3 seed every read and K-sa walks every SA position (fused into
      seeding, once a chunk) in one run, with the counts at 0 just
@@ -268,8 +289,9 @@ with the kernel's design.  The FM-index kernels are bound by bytes
 alone: the distinct 32-byte sectors of the index that the plain
 version's reads touch, with their inputs and outputs), the smoke's
 wall and each phase's, a JSON line of the kernels (launches on each kernel's paths: K1
-in phase 5, 5f, 5g, 5h and 5j, K1-mat in 6 and 5j, K-reach in 6, K-sa in
-5b, 5c, 5d, 5e, 5f, 5g, 5h and 6, K2 and K3 in 5c, 5d, 5e, 5f, 5g and 5h,
+in phase 5, 5f, 5g, 5h, 5j and 5k, K1-mat in 6 and 5j, K-reach in 6 and
+5k, K-cur in 5k, K-sa in 5b, 5c, 5d, 5e, 5f, 5g, 5h and 6, K2 in 5c, 5d,
+5e, 5f, 5g and 5h, K3 there and in 5k,
 K2's and K-sa's TP instantiations in 5i and 4d's tp leg, K-ext's on 3g's
 extension path over slabs, the int16 kernel in the
 experiment of phase 3b, K1-real in that of 3c, K1-floor in that of 3d,
@@ -4361,6 +4383,404 @@ def phase_reach(torch, np, megaq):
     return case, max_err
 
 
+def kcur_checks(torch, np, label, fmi, arr, lens, opt):
+    """K-cur == its plain version (on CPU copies of the index) in each
+    instantiation, on ``arr``/``lens``: round-1 jobs, then the round-2
+    jobs of the plain version's round-1 rows, each at 64 row slots a job
+    and at one (most jobs take the second launch): rows, counts, and
+    steps and chain a job.  Returns {rank type: facts}, with the plain
+    versions' ms."""
+    from tpubwa_torch.device import smem, smem_cursor, smem_fused
+    from tpubwa_torch.device.occ import DeviceIndex
+    gpu = DeviceIndex.from_fmindex(fmi, DEV)
+    cpu = DeviceIndex.from_fmindex(fmi, "cpu")
+    q, ld = torch.from_numpy(arr), torch.from_numpy(lens)
+    out = {}
+    for dt in ("int32", "int64"):
+        g, c = (gpu, cpu) if dt == "int32" else (int64_twin(torch, gpu),
+                                                 int64_twin(torch, cpu))
+        facts = {"reads": len(arr)}
+        jobs = smem_cursor.round1_jobs(len(lens), c.idt, "cpu")
+        for rnd in ("round1", "round2"):
+            want_stats = {}
+            t0 = time.perf_counter()
+            want = smem_cursor.run_smem_jobs_plain(
+                c, q, ld, jobs, opt.min_seed_len, stats=want_stats)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            second = 0
+            for slots in (smem_fused.K2_SLOTS, 1):
+                stats = {}
+                got = smem_cursor.run_smem_jobs(
+                    g, q.to(DEV), ld.to(DEV), tuple(x.to(DEV) for x in jobs),
+                    opt.min_seed_len, slots=slots, stats=stats)
+                torch.cuda.synchronize()
+                for key in ("steps", "chain"):
+                    if not torch.equal(stats[key].cpu(), want_stats[key]):
+                        raise AssertionError(f"{label}/{dt} K-cur {rnd} "
+                                             f"{key} (slots {slots}) != "
+                                             "plain")
+                for a, b, what in ((got[0], want[0], "rows"),
+                                   (got[1], want[1], "counts")):
+                    if a.shape != b.shape:
+                        raise AssertionError(
+                            f"{label}/{dt} K-cur {rnd} {what} (slots "
+                            f"{slots}): {tuple(a.shape)}, plain "
+                            f"{tuple(b.shape)}")
+                    if len(a):
+                        held_fm(torch, f"{label}/{dt} K-cur {rnd} {what} "
+                                f"(slots {slots})",
+                                a.cpu().reshape(len(a), -1),
+                                b.reshape(len(b), -1))
+                second = max(second, stats["second_launch_reads"])
+            facts[rnd] = {"jobs": len(jobs[0]), "rows": len(want[0]),
+                          "second_launch_jobs_at_1_slot": second,
+                          "plain_ms": round(plain_ms, 3)}
+            jobs = smem.round2_jobs(opt, *want)
+        facts["mismatches"] = 0
+        out[dt] = facts
+    return out
+
+
+def kcur_alone(torch, opt, didx, qd, ld, jobs, lib=None):
+    """K-cur's C entry alone on preallocated buffers (every job of
+    ``jobs``, the row slots of the first launch): a launch not counted
+    on the wrapper.  The buffers live on the returned function
+    (``.buffers``: the jobs, ids, queue, rows, counts, steps, chain)."""
+    from tpubwa_torch.device import _build, smem_fused as sf
+    lib = lib or _build.load("smem", sf._SIGNATURES)
+    n, L = len(jobs[0]), qd.shape[1]
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    queue = torch.empty(1, dtype=torch.int32, device=DEV)
+    rows = torch.empty((n, sf.K2_SLOTS, 5), dtype=didx.idt, device=DEV)
+    counts, steps, chain = (torch.empty(n, dtype=torch.int32, device=DEV)
+                            for _ in range(3))
+    args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
+            *(x.data_ptr() for x in jobs), ids.data_ptr(), n,
+            opt.min_seed_len, sf.K2_SLOTS, queue.data_ptr(), rows.data_ptr(),
+            counts.data_ptr(), steps.data_ptr(), chain.data_ptr(),
+            qd.device.index, sf.stream_of(qd))
+
+    def launch():
+        if lib.tpubwa_smem_jobs(*args):
+            raise AssertionError("K-cur's launch failed")
+    launch.buffers = (jobs, ids, queue, rows, counts, steps, chain)
+    return launch
+
+
+def kcur_bytes(torch, np, didx, qd, ld, opt, jobs, out_rows):
+    """The bytes a K-cur launch over ``jobs`` must move: the reads and
+    lens, the jobs, the rows it writes (``out_rows``) and the counts,
+    and the distinct sectors of the index it reads, counted by
+    csrc/smem_host.cpp (built without the sanitizers) on the same
+    inputs.  Returns (the bytes, the distinct occ rows)."""
+    from tpubwa_torch.device import smem, smem_fused, warp_host
+    fm = didx.upload_fm()
+    arrays = {"occ_blocks": fm["occ_blocks"].cpu().numpy().view(np.uint32),
+              "L2": fm["L2"].cpu().numpy(), "primary": didx.primary,
+              "seq_len": didx.seq_len}
+    B, L = qd.shape
+    *_, rows = warp_host.smem_host(
+        arrays, qd.cpu().numpy(), ld.cpu().numpy(), 2,
+        (opt.min_seed_len, smem_fused.split_len_of(opt), opt.split_width,
+         opt.max_mem_intv, smem.max_hits(L, opt.min_seed_len)),
+        slots=smem_fused.K2_SLOTS, jobs=[x.cpu().numpy() for x in jobs],
+        count_rows=True, sanitize=False)
+    isz = 8 if didx.idt == torch.int64 else 4
+    n = len(jobs[0])
+    io = B * L + 4 * B + (4 + 4 + isz + 1) * n + out_rows * 5 * isz + 4 * n
+    return fm_bytes(io, [(rows, OCC_ROW)]), len(rows)
+
+
+def kcur_launch_facts(torch, L):
+    """K-cur's launch at reads of L bases on this card, each rank type:
+    the warps a block, the blocks and warps an SM the occupancy query
+    allows, the bytes of a warp's stacks, the longest read it takes, and
+    each instantiation's registers from ptxas."""
+    from tpubwa_torch.device import _build, smem_cursor, smem_fused as sf
+    lib = _build.load("smem", sf._SIGNATURES)
+    launch = {}
+    for dt in ("int32", "int64"):
+        rc, shape = smem_cursor.kcur_shape(lib, dt == "int64", L,
+                                           torch.cuda.current_device())
+        if rc:
+            raise AssertionError(f"K-cur refuses reads of {L} bases ({dt})")
+        idt = torch.int64 if dt == "int64" else torch.int32
+        if shape["max_len"] != smem_cursor.kcur_max_len(idt):
+            raise AssertionError(f"K-cur's limit {shape['max_len']} != "
+                                 f"kcur_max_len ({dt})")
+        launch[dt] = dict(shape, warps_per_sm=shape["warps"]
+                          * shape["blocks_per_sm"])
+    report = _build.build_info["smem"]["ptxas"]
+    return {"launch": launch,
+            "ptxas": {dt: ptxas_usage(report, rf"smem_jobs_kernelI{m}E")
+                      for dt, m in (("int32", "i"), ("int64", "l"))}}
+
+
+def phase_kcur(torch, np, main, megaq):
+    """[3k K-cur]: (after 5c, whose first chunk it uses) K-cur == its
+    plain version in each instantiation, on round-1 jobs and on the
+    round-2 jobs of their rows, at 64 row slots a job and at one, on the
+    3,000-base genome and on 256 reads of 5c's first chunk with the edge
+    reads (262 reads, as K2's plain check); then on that chunk (16,384
+    reads, the launches mode cursor gives it): its rounds 1+2 merged ==
+    K2's, and K-cur's round-1 and round-2 launches alone beside K2 alone
+    in interleaved passes, with the steps and chain a job, the jobs that
+    took a second launch, the distinct sectors of the index each launch
+    reads (csrc/smem_host.cpp) and its bound, its launch shape and
+    registers, and K2's and K3's SASS digests.  Returns the row's case
+    (the round-1 launch)."""
+    import tempfile
+    from tpubwa_torch.device import smem, smem_cursor, smem_fused
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    t0 = time.perf_counter()
+    fmi, opt = main["fmi"], main["opt"]
+    rng = np.random.default_rng(0xC0)
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        sm, _ = small_index(d)
+    text = sm.bnt.doubled()
+    small = [text[s:s + 100].copy()
+             for s in rng.integers(0, len(text) - 100, 250)]
+    for r in small[:100]:
+        r[rng.integers(0, 100, 3)] = rng.integers(0, 5, 3)
+    cases = {"3 kb": kcur_checks(torch, np, "3 kb", sm, *pack_reads(
+        np, small + edge_reads(np, text, rng)), opt)}
+    opt_, didx, qd, ld = megaq["chunk"]
+    qn, lens = qd[:256].cpu().numpy(), ld[:256].cpu().numpy()
+    big = [qn[i, :lens[i]] for i in range(256)]
+    cases[f"{GENOME_MB} Mbp"] = kcur_checks(
+        torch, np, f"{GENOME_MB} Mbp", fmi, *pack_reads(
+            np, big + edge_reads(np, fmi.bnt.doubled(), rng)), opt)
+    # the chunk: mode cursor's two launches, == K2's rows once merged
+    r1 = smem_cursor.round1_jobs(len(ld), didx.idt, qd.device)
+    s1, s2 = {}, {}
+    rows1, n1 = smem_cursor.run_smem_jobs(didx, qd, ld, r1,
+                                          opt_.min_seed_len, stats=s1)
+    r2 = smem.round2_jobs(opt_, rows1, n1)
+    rows2, n2 = smem_cursor.run_smem_jobs(didx, qd, ld, r2,
+                                          opt_.min_seed_len, stats=s2)
+    rows12, rids12 = smem_fused.rounds12_megaq(opt_, didx, qd, ld)
+    torch.cuda.synchronize()
+    cur = smem.merge_rounds(
+        torch.cat([rows1, rows2]).cpu(), torch.cat([
+            torch.repeat_interleave(torch.arange(len(ld), device=DEV),
+                                    n1.long()),
+            torch.repeat_interleave(r2[0].long(), n2.long())]).cpu())
+    k2 = smem.merge_rounds(rows12.cpu(), rids12.cpu())
+    if not (np.array_equal(cur[0], k2[0]) and np.array_equal(cur[1], k2[1])):
+        raise AssertionError("K-cur's rounds 1+2 != K2's on 5c's first "
+                             "chunk")
+    alone = {"round1": kcur_alone(torch, opt_, didx, qd, ld, r1),
+             "round2": kcur_alone(torch, opt_, didx, qd, ld, r2),
+             "k2": k2_alone(torch, opt_, didx, qd, ld)}
+    best = interleaved_min({
+        **alone,
+        "round1 wrapper": lambda: smem_cursor.run_smem_jobs(
+            didx, qd, ld, r1, opt_.min_seed_len),
+        "round2 wrapper": lambda: smem_cursor.run_smem_jobs(
+            didx, qd, ld, r2, opt_.min_seed_len)}, 10, 4, torch.device(DEV))
+    for name, stats, counts in (("round1", s1, n1), ("round2", s2, n2)):
+        *_, got_counts, steps, chain = alone[name].buffers
+        if not (torch.equal(got_counts, counts)
+                and torch.equal(steps, stats["steps"])
+                and torch.equal(chain, stats["chain"])):
+            raise AssertionError(f"K-cur {name} alone != its wrapper's "
+                                 "counts, steps and chain")
+    t1 = time.perf_counter()
+    launches = {}
+    for name, jobs, stats, n_rows in (("round1", r1, s1, len(rows1)),
+                                      ("round2", r2, s2, len(rows2))):
+        steps, chain = (stats[k].cpu().numpy() for k in ("steps", "chain"))
+        nbytes, n_occ = kcur_bytes(torch, np, didx, qd, ld, opt_, jobs,
+                                   n_rows)
+        launches[name] = {
+            "jobs": len(jobs[0]), "rows": n_rows,
+            "ms": round(best[name], 4),
+            "wrapper_ms": round(best[f"{name} wrapper"], 4),
+            "steps_mean": round(float(steps.mean()), 3),
+            "steps_max": int(steps.max()),
+            "chain_mean": round(float(chain.mean()), 3),
+            "chain_max": int(chain.max()),
+            "second_launch_jobs": stats["second_launch_reads"],
+            "occ_rows_read": n_occ, "bytes": nbytes,
+            "bound_ms": round(bytes_bound({"bytes": nbytes})[0], 6)}
+    count_s = time.perf_counter() - t1
+    plain = cases[f"{GENOME_MB} Mbp"]["int32"]
+    one = launches["round1"]
+    case = {"reads": len(ld), "jobs": len(r1[0]), "rows": len(rows1),
+            "ms": one["ms"], "plain_ms": plain["round1"]["plain_ms"],
+            "plain_reads": plain["reads"],
+            "occ_rows_read": one["occ_rows_read"], "bytes": one["bytes"],
+            "max_abs_err": 0, "bound_ms": one["bound_ms"]}
+    print("[3k K-cur] " + json.dumps({
+        "tolerance": 0, "cases": cases, "chunk": launches,
+        "k2_ms": round(best["k2"], 4),
+        "round1_over_k2": round(best["round1"] / best["k2"], 4),
+        "rounds12_equal_k2": True, "main_launch": case,
+        "count_rows_s": round(count_s, 1),
+        "card": "the first chunk of 5c (16,384 reads)",
+        **kcur_launch_facts(torch, qd.shape[1]),
+        "sass_digest": seeding_digest(),
+        "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+    return case
+
+
+def mode_counts(reset=False):
+    """{kernel: its wrapper's launches} of the kernels a seed mode may
+    launch (set to 0 first where ``reset``)."""
+    from tpubwa_torch.device import extend_kernel as ek
+    from tpubwa_torch.device import occ, smem, smem_cursor, smem_fused
+    fns = {"rightmost_reach": smem.rightmost_reach,
+           "smem_jobs": smem_cursor.run_smem_jobs,
+           "seed_strategy": smem._seed_strategy_scan,
+           "smem_rounds12": smem_fused.rounds12_megaq,
+           "sa_lookup": occ.sa_lookup, "ksw_extend": ek.extend_batch}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def reach_launch_case(torch, np, didx, qd, ld, jobs):
+    """One of mode reach's K-reach launches on these jobs (read_idx,
+    starts, min_intv): the wrapper == rightmost_reach_plain on the same
+    inputs (tolerance 0), the plain version's ms and steps a job, and on
+    the host harness (csrc/occ_host.cpp) the shipped design's results
+    (== plain), its trips a job and the distinct occ rows it reads; the
+    chained trips a segment from the plain walk (``reach_chains``), and
+    the bytes the launch must move: its inputs and outputs and the
+    distinct sectors of the occ rows, the plain walk's or the chained
+    design's where fewer.  Returns (the case, the plain (ik, e))."""
+    from tpubwa_torch.device import smem
+    from tpubwa_torch.scripts.exp_reach_forms import constant
+    n = len(jobs[0])
+    ik, e = smem.rightmost_reach(didx, qd, ld, *jobs)
+    torch.cuda.synchronize()
+    stats = {}
+    (pik, pe), plain_ms = timed_once(
+        torch, lambda: smem.rightmost_reach_plain(didx, qd, ld, *jobs,
+                                                  stats=stats))
+    err = max(held_fm(torch, f"K-reach {what} ({n:,} jobs)", got, want)[1]
+              for what, got, want in (("ik", ik, pik), ("e", e, pe)))
+    rows = torch.unique(stats["occ_rows"]).cpu().numpy()
+    hik, he, harness = reach_rows(torch, np, didx, qd, ld, *jobs)
+    if not (np.array_equal(hik, pik.cpu().numpy())
+            and np.array_equal(he, pe.cpu().numpy())):
+        raise AssertionError(f"K-reach on the host harness != plain ({n:,} "
+                             "jobs)")
+    isz = 8 if didx.idt == torch.int64 else 4
+    io = qd.numel() + 4 * len(ld) + 4 * 2 * n + isz * n + isz * 4 * n
+    plain_bytes = fm_bytes(io, [(rows, OCC_ROW)])
+    chain_bytes = fm_bytes(io, [(harness["rows"], OCC_ROW)])
+    ri, st, steps = (x.cpu().numpy().astype(np.int64)
+                     for x in (jobs[0], jobs[1], stats["steps"]))
+    case = {"n": n, "plain_ms": round(plain_ms, 3),
+            "plain_steps_a_job": round(float(steps.mean()), 4),
+            "fail_at_once": int((pe.long() == jobs[1].long()).sum()),
+            "trips_a_job": round(harness["steps"] / n, 4),
+            "row_loads": harness["row_loads"],
+            "chains": reach_chains(np, qd.cpu().numpy(), ld.cpu().numpy(), ri,
+                                   st, pe.cpu().numpy().astype(np.int64),
+                                   steps, constant("kSeg")),
+            "distinct_occ_rows": len(rows),
+            "chained_distinct_occ_rows": len(harness["rows"]),
+            "bytes": min(plain_bytes, chain_bytes),
+            "bytes_from": ("plain walk" if plain_bytes <= chain_bytes
+                           else "chained design"),
+            "max_abs_err": err}
+    return case, (pik, pe)
+
+
+def phase_seed_modes(torch, np, main, megaq):
+    """[5k seed modes]: phase 5's 2 x 8,192 pairs through the port's
+    aligner on cuda with TPUBWA_SEED_MODE=reach, then =cursor, each after
+    a 1,024-pair warm-up and with the counts at 0 just before the run:
+    reach seeds rounds 1 and 2 on K-reach (two launches a chunk), cursor
+    on K-cur (two or more a chunk), both round 3 on K3; neither launches
+    K2, and the SA stage walks every row (no fused walk).  Each SAM must
+    equal phase 5's byte for byte.  Reads/s and the seeding stage's wall
+    beside phase 5's and 5c's, and each mode's launches.  Then mode
+    reach's two K-reach launches on 5c's first chunk (the same reads and
+    packing as the modes' first chunk): round 1 (every (read, column))
+    and round 2 (every start 0..x of every job), each == its plain
+    version on the same inputs, alone in interleaved passes, with its
+    bound (``reach_launch_case``).  Returns ({mode: its launches}, the
+    round-1 launch's case for the kernels line)."""
+    from tpubwa_torch.device import smem
+    from tpubwa_torch.host.pipeline import process_batches
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    from tpubwa_torch.sim import simulate_pe
+    t0 = time.perf_counter()
+    fmi, opt, batches = main["fmi"], main["opt"], main["batches"]
+    n_reads = sum(len(b) for b in batches)
+    warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
+    facts, launches = {}, {}
+    for mode in ("reach", "cursor"):
+        aligner = seed_aligner(opt, fmi, mode)
+        for _ in process_batches(opt, fmi, iter([warm]), 0,
+                                 align_fn=aligner):
+            pass
+        mode_counts(reset=True)
+        torch.cuda.synchronize()
+        with SeedTimer(torch) as seeding:
+            t1 = time.perf_counter()
+            lines = [l for _, ls in process_batches(
+                opt, fmi, iter(batches), 0, align_fn=aligner) for l in ls]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+        got = mode_counts()
+        if lines != main["sam"]:
+            raise AssertionError(f"5k {mode} SAM != phase 5's ({len(lines)} "
+                                 f"vs {len(main['sam'])} lines, first diff "
+                                 f"{sam_diff(lines, main['sam'])})")
+        calls = seeding.calls
+        own = "rightmost_reach" if mode == "reach" else "smem_jobs"
+        other = "smem_jobs" if mode == "reach" else "rightmost_reach"
+        if (got[own] < calls + 1 or got[own] > (2 if mode == "reach" else
+                                                 1 << 30) * calls
+                or got[other] or got["smem_rounds12"] or got["sa_lookup"]
+                or got["seed_strategy"] != calls):
+            raise AssertionError(f"5k {mode} launched {got} in {calls} "
+                                 "chunks")
+        launches[mode] = got
+        facts[mode] = {"reads": n_reads, "seconds": round(dt, 3),
+                       "reads_per_s": round(n_reads / dt, 1),
+                       "seeding_s": round(seeding.s, 3),
+                       "seeding_calls": calls, "launches": got,
+                       "sam_lines": len(lines), "sam_equal_to_phase5": True}
+    # mode reach's two K-reach launches on the first chunk
+    opt_, didx, qd, ld = megaq["chunk"]
+    B, L = qd.shape
+    rows1, rids1 = smem.reach_round1(didx, qd, ld, opt_.min_seed_len)
+    rid, x, mi = smem.reseed_jobs(opt_, rows1, rids1)
+    jobs = {"round1": smem.reach_jobs(B, L, didx.idt, qd.device),
+            "round2": smem.reseed_starts(rid, x, mi)[:3]}
+    t1 = time.perf_counter()
+    cases, want = {}, {}
+    for name, j in jobs.items():
+        cases[name], want[name] = reach_launch_case(torch, np, didx, qd, ld,
+                                                    j)
+    checks_s = time.perf_counter() - t1
+    alone = {name: reach_alone(torch, didx, qd, ld, *j)
+             for name, j in jobs.items()}
+    best = interleaved_min(alone, 8, 4, torch.device(DEV))
+    for name, fn in alone.items():
+        if not all(torch.equal(a, b) for a, b in zip(fn.buffers[5:],
+                                                     want[name])):
+            raise AssertionError(f"K-reach alone on {name}'s jobs != plain")
+        cases[name]["ms"] = round(best[name], 4)
+        cases[name]["bound_ms"] = round(bytes_bound(cases[name])[0], 6)
+    cases["round2"]["re_seeded_rows"] = len(rid)
+    facts["reach_alone"] = dict(reads=B, L=L, tolerance=0,
+                                checks_s=round(checks_s, 1), **cases)
+    facts.update(phase5={"reads_per_s": round(main["reads_per_s"], 1),
+                         "seeding_s": round(main["seeding_s"], 3)},
+                 megaq_5c={"reads_per_s": megaq["reads_per_s"],
+                           "seeding_s": megaq["seeding_s"]},
+                 seconds=round(time.perf_counter() - t0, 1))
+    print("[5k seed modes] " + json.dumps(facts), flush=True)
+    return launches, cases["round1"]
+
+
 def phase_entry(torch, np):
     """[6 entry]: tpubwa_torch.entry's step on the card (K-reach, K-sa and
     K1-mat under the step's matrix), with those three counts at 0 just
@@ -4583,7 +5003,14 @@ def main() -> int:
     sa_case["max_abs_err"] = max(sa_case["max_abs_err"], sa_err)
     megaq = timed(phase_megaq, torch, np, main_path)
     seeding = timed(phase_seeding, torch, np, main_path, megaq)
-    reach_case, _ = timed(phase_reach, torch, np, megaq)
+    reach_3j, _ = timed(phase_reach, torch, np, megaq)
+    kcur_case = timed(phase_kcur, torch, np, main_path, megaq)
+    modes, reach_case = timed(phase_seed_modes, torch, np, main_path,
+                              megaq)
+    # K-reach's row: mode reach's round-1 launch (5k), held to plain
+    # there and on 3j's jobs
+    reach_case["max_abs_err"] = max(reach_case["max_abs_err"],
+                                    reach_3j["max_abs_err"])
     tp_launches = timed(phase_megaq_tp, torch, np, main_path, megaq)
     d5 = timed(phase_megaq_stock, torch, np, main_path, stock)
     dp_launches = timed(phase_megaq_dp, torch, np, main_path, stock, d5)
@@ -4601,8 +5028,9 @@ def main() -> int:
     results = {"ksw_extend": (launches + no_native["ksw_extend"]
                               + dp_launches["ksw_extend"]
                               + hybrid_dp["ksw_extend"]
-                              + waves["ksw_extend"], max_err,
-                              main_case),
+                              + waves["ksw_extend"]
+                              + sum(m["ksw_extend"] for m in modes.values()),
+                              max_err, main_case),
                "ksw_extend_mat": (entry_launches["ksw_extend_mat"]
                                   + waves["ksw_extend_mat"], err_mat,
                                   case_mat),
@@ -4642,7 +5070,8 @@ def main() -> int:
             ("bwt_extend", "tpubwa/device/occ.py:202", ext_launches,
              ext_case),
             ("rightmost_reach", "tpubwa/device/smem.py:62",
-             entry_launches["rightmost_reach"], reach_case)):
+             entry_launches["rightmost_reach"]
+             + modes["reach"]["rightmost_reach"], reach_case)):
         bound_ms, bound_by, parts = bytes_bound(case)
         sass[name] = dict(bytes=case["bytes"], n=case["n"],
                           **{k: round(v, 6) for k, v in parts.items()})
@@ -4667,10 +5096,24 @@ def main() -> int:
             "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
             "launches": sum(x[name] for x in (
                 megaq["launches"], d5["launches"], hybrid["launches"],
-                hybrid_dp, no_native, dp_launches)),
+                hybrid_dp, no_native, dp_launches, *modes.values())),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
             "bound_by": bound_by, "library_ms": None})
+    # K-cur: bound by bytes alone, the distinct sectors of the index
+    # its round-1 launch on 5c's first chunk reads (csrc/smem_host)
+    bound_ms, bound_by, parts = bytes_bound(kcur_case)
+    sass["smem_jobs"] = dict(bytes=kcur_case["bytes"],
+                             jobs=kcur_case["jobs"],
+                             **{k: round(v, 6) for k, v in parts.items()})
+    kernels.append({
+        "name": "smem_jobs", "route": "cuda",
+        "source": "tpubwa_torch/csrc/smem.cu",
+        "replaces": "tpubwa/device/smem_cursor.py:54",
+        "launches": modes["cursor"]["smem_jobs"],
+        "max_abs_err": kcur_case["max_abs_err"], "ms": kcur_case["ms"],
+        "plain_ms": kcur_case["plain_ms"], "bound_ms": round(bound_ms, 6),
+        "bound_by": bound_by, "library_ms": None})
     # the TP instantiations: bound by bytes alone, the distinct sectors
     # of the slabs' own rows their run reads
     for name, src, replaces, n, case in (

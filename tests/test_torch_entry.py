@@ -12,9 +12,12 @@ seeds with (device/smem.py:rightmost_reach, K-reach on the card).
   and every length; with a segment's edge inside a chain on a grid
   smaller than the segments; and with fewer trips than the plain walk;
 * ``entry(device="cpu")``'s step == tpubwa's jitted step
-  (``__graft_entry__.entry``): e, pos and the extension score.
+  (``__graft_entry__.entry``): e, pos and the extension score;
+* seed mode ``reach``, built on the same reach, seeds a chunk as tpubwa's
+  mode reach does (tests/test_torch_seed_modes.py holds it whole); mega,
+  fused and split raise.
 
-Tolerance 0.  Seed mode ``reach`` itself stays unported: it raises."""
+Tolerance 0."""
 import dataclasses
 
 import numpy as np
@@ -25,6 +28,8 @@ import tpubwa.device  # noqa: F401  (x64, as the JAX package runs)
 import jax
 import jax.numpy as jnp
 import tpubwa.index
+import tpubwa.opts
+from tpubwa.device import smem as jsmem
 from tpubwa.device.occ import DeviceIndex as JaxIndex
 from tpubwa.device.smem import _rightmost_reach, _rightmost_reach_all
 from tpubwa.index.build import BntSeq as JaxBnt, SeqAnn as JaxAnn
@@ -166,10 +171,22 @@ def test_entry_without_a_card_raises(monkeypatch):
 
 
 def test_reach_mode_still_raises(genome):
-    base, _, reads, lens = genome
-    for mode in ("mega", "fused", "split", "cursor", "reach"):
-        with pytest.raises(NotImplementedError, match="on purpose"):
+    """The machine modes not ported yet raise; reach and cursor seed the
+    fixture's reads (lengths 0 to 48, N bases, an A run) as tpubwa's
+    reach does, rows and read ids in order."""
+    base, jdidx, reads, lens = genome
+    for mode in ("mega", "fused", "split"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             collect_intv_device(MemOpt(), base, reads, lens, None, mode=mode)
+    jflat, jfrid = jsmem.collect_intv_device(
+        tpubwa.opts.MemOpt(), jdidx, reads, lens, mode="reach",
+        return_flat=True)
+    for mode in ("reach", "cursor"):
+        flat, frid, _ = collect_intv_device(MemOpt(), base, reads, lens,
+                                            None, mode=mode)
+        assert flat.tolist() == np.asarray(jflat).tolist()
+        assert frid.tolist() == np.asarray(jfrid).tolist()
+    assert len(jflat) > 0
 
 
 def _edge_reads(reads, lens, rng):

@@ -243,6 +243,29 @@ def test_cli_mem_cpu_equals_tpubwa_scalar(alt_index, golden_index,
                            + fqs)
 
 
+@pytest.mark.parametrize("threads", ["1", "3"])
+def test_cli_mem_cpu_runs_torch_on_t_threads(golden_index, monkeypatch,
+                                             threads):
+    """`mem --device cpu -t N` runs torch's intra-op pool (the plain
+    kernels) at N threads, and the caller's pool size comes back after;
+    the SAM is that of the default run."""
+    import tpubwa_torch.host.pipeline as hp
+    real, seen = hp.process_batches, []
+
+    def spy(*a, **k):
+        seen.append(torch.get_num_threads())
+        return real(*a, **k)
+
+    fq = os.path.join(GOLD, "se.fq")
+    want = _sam(main_mem, ["--device", "cpu", golden_index, fq])
+    before = torch.get_num_threads()
+    monkeypatch.setattr(hp, "process_batches", spy)
+    got = _sam(main_mem, ["--device", "cpu", "-t", threads, golden_index,
+                          fq])
+    assert seen == [int(threads)] and torch.get_num_threads() == before
+    assert got == want
+
+
 @pytest.mark.parametrize("index", ["alt", "golden-bwa"])
 @pytest.mark.parametrize("paired", [False, True])
 def test_cli_mem_cpu_megaq_equals_host_and_tpubwa(alt_index,
@@ -323,8 +346,8 @@ def test_missing_paths_raise_not_implemented(setup, monkeypatch):
     """A scoring matrix that is not bwa_fill_scmat-structured extends
     through K1-mat on tpubwa's non-descriptor route: the regions equal
     tpubwa's aligner's (its host scalar loops) under the same patched
-    matrix, with no descriptor wave.  What the port leaves out on purpose
-    still raises: here a seed mode."""
+    matrix, with no descriptor wave.  A seed mode not ported yet still
+    raises (split); cursor, ported, seeds as host mode does."""
     codes, fmi, jfmi = setup
     bad = MemOpt().scoring_matrix()
     bad[0, 1] = -7
@@ -347,5 +370,8 @@ def test_missing_paths_raise_not_implemented(setup, monkeypatch):
         _flat(FlatRegs.from_lists(want))
     assert port.extender.n_waves > 0
     arr, lens = port._pack(reads[:4], 4)
-    with pytest.raises(NotImplementedError, match="on purpose"):
-        collect_intv_device(opt, port.didx, arr, lens, fmi, mode="cursor")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        collect_intv_device(opt, port.didx, arr, lens, fmi, mode="split")
+    host = collect_intv_device(opt, port.didx, arr, lens, fmi)
+    got = collect_intv_device(opt, port.didx, arr, lens, fmi, mode="cursor")
+    assert all(np.array_equal(a, b) for a, b in zip(got[:2], host[:2]))

@@ -18,8 +18,16 @@ equal the plain version's in both lane orders, on reads with N at their
 edges and inside a scan, reads no longer than min_seed_len, scans that
 run to a read's end, max_mem_intv 0, chunks that leave a warp's last
 groups without a read, and a grid capped so that groups take several
-reads from the queue.  int32 and int64 ranks.  Tolerance 0.  What the
-GPU's compiler makes of the source shows only on a card."""
+reads from the queue.  K-cur (seed mode cursor, a warp a job from a job
+queue) through the same two-launch protocol == its plain version
+(device/smem_cursor.py:run_smem_jobs_plain) on round-1 and round-2
+jobs, at 64 and 1 row slots a job, in both lane orders, on the edge
+reads of tests/test_smem_cursor.py, one-shot jobs at an N and past a
+read's end, the run genome's strip edges and a capped grid; it refuses
+reads too long for a block's shared memory, and its occ rows (the
+smoke's bound) are the plain version's.  int32 and int64 ranks.
+Tolerance 0.  What the GPU's compiler makes of the source shows only on
+a card."""
 import dataclasses
 
 import numpy as np
@@ -27,7 +35,7 @@ import pytest
 import torch
 
 from tpubwa.ref.smem import collect_intv
-from tpubwa_torch.device import smem, smem_fused, warp_host
+from tpubwa_torch.device import smem, smem_cursor, smem_fused, warp_host
 from tpubwa_torch.device.occ import DeviceIndex
 from tpubwa_torch.index import FMIndex
 from tpubwa_torch.index.build import BntSeq, SeqAnn
@@ -454,3 +462,211 @@ def test_k3_forms_edit_the_sources_once():
             text = (_build.CSRC / name).read_text()
             assert name in exp_k3_forms.SOURCES, form
             assert text.count(old) == 1 and new not in text, (form, old)
+
+
+# --------------------------------------------------------------- K-cur
+def kcur_launch(didx, arr, lens, jobs, opt, reverse=False, card=(0, 0),
+                sanitize=True):
+    """collect12's launch through the harness: K-cur's C entry
+    (``tpubwa_smem_jobs``) on the host over ``jobs``."""
+    arrays = host_arrays(didx)
+    jobs = [x.numpy() for x in jobs]
+
+    def launch(ids, slots):
+        rows, counts, steps, chain = warp_host.smem_host(
+            arrays, arr, lens, 2, params(opt), rids=ids.numpy(), slots=slots,
+            jobs=jobs, reverse=reverse, card=card, sanitize=sanitize)
+        return (torch.from_numpy(rows).to(didx.idt),
+                *(torch.from_numpy(x).int() for x in (counts, steps, chain)))
+
+    return launch
+
+
+def kcur_plain(didx, arr, lens, jobs, opt):
+    """The plain version (smem_cursor.run_smem_jobs_plain) on ``jobs``:
+    (rows, counts, stats)."""
+    stats = {}
+    rows, counts = smem_cursor.run_smem_jobs_plain(
+        didx, torch.from_numpy(arr), torch.from_numpy(lens), jobs,
+        opt.min_seed_len, stats=stats)
+    return rows, counts, stats
+
+
+def kcur_held_to_plain(didx, arr, lens, jobs, opt, slots=smem_fused.K2_SLOTS,
+                       reverse=False, card=(0, 0), want=None):
+    """K-cur through the wrapper's launches on the host == the plain
+    version (``want``, ``kcur_plain``'s on these jobs where given, else
+    run here): rows, each job's count, steps and chain.  Returns (the
+    plain version's counts, the launches' stats)."""
+    stats = {}
+    want_rows, want_counts, want_stats = (
+        want or kcur_plain(didx, arr, lens, jobs, opt))
+    rows, job = smem_fused.collect12(
+        kcur_launch(didx, arr, lens, jobs, opt, reverse, card),
+        len(jobs[0]), slots, torch.device("cpu"), stats=stats)
+    assert rows.dtype == didx.idt and torch.equal(rows, want_rows)
+    assert torch.equal(torch.bincount(job, minlength=len(jobs[0])).int(),
+                       want_counts)
+    for key in ("steps", "chain"):
+        assert torch.equal(stats[key], want_stats[key]), key
+    return want_counts, stats
+
+
+def cursor_jobs(didx, arr, lens, opt):
+    """Mode cursor's two job sets on these reads, each with the plain
+    version's (rows, counts, stats) on it: [(round-1 jobs, plain), (the
+    round-2 jobs of the plain round-1 rows, plain)]."""
+    r1 = smem_cursor.round1_jobs(len(lens), didx.idt, "cpu")
+    p1 = kcur_plain(didx, arr, lens, r1, opt)
+    r2 = smem.round2_jobs(opt, *p1[:2])
+    return [(r1, p1), (r2, kcur_plain(didx, arr, lens, r2, opt))]
+
+
+@pytest.fixture(scope="module")
+def cursor_cases(genomes):
+    """``cursor_jobs`` on each genome's reads in each rank type, run once
+    for the tests that hold K-cur to them: {(name, idt): (didx, arr,
+    lens, [(jobs, plain)] a round)}."""
+    cache = {}
+
+    def get(name, idt):
+        if (name, idt) not in cache:
+            fmi, _, reads = genomes[name]
+            arr, lens = _pack(reads)
+            didx = _didx(fmi, idt)
+            cache[name, idt] = (didx, arr, lens,
+                                cursor_jobs(didx, arr, lens, MemOpt()))
+        return cache[name, idt]
+    return get
+
+
+@pytest.mark.parametrize("slots", [smem_fused.K2_SLOTS, 1])
+@pytest.mark.parametrize("name,idt", CASES)
+def test_kcur_equals_plain(cursor_cases, name, idt, slots):
+    """K-cur on round-1 and round-2 jobs == its plain version, with the
+    same steps and chain a job; at one row slot a job the first launch's
+    counts are exact and every job of more rows takes the second."""
+    didx, arr, lens, rounds = cursor_cases(name, idt)
+    for jobs, want in rounds:
+        counts, stats = kcur_held_to_plain(didx, arr, lens, jobs, MemOpt(),
+                                           slots, want=want)
+        assert stats["second_launch_reads"] == int((counts > slots).sum())
+        assert len(counts) > 0 and int(counts.sum()) > 0
+    if slots == 1:
+        assert stats["second_launch_reads"] >= 1
+
+
+@pytest.mark.parametrize("name,idt", CASES)
+def test_kcur_lanes_reversed(cursor_cases, name, idt):
+    """K-cur with each warp's lanes run 31..0 == plain: no lane reads
+    what another writes before a __syncwarp."""
+    didx, arr, lens, rounds = cursor_cases(name, idt)
+    for jobs, want in rounds:
+        kcur_held_to_plain(didx, arr, lens, jobs, MemOpt(), reverse=True,
+                           want=want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("idt", ["int32", "int64"])
+def test_kcur_edges(genomes, run_genome, idt, reverse):
+    """K-cur == plain on the edge reads of tests/test_smem_cursor.py
+    (:141-175: shorter than min_seed_len, all N, N at the cursor's start,
+    a full 128-base match), an empty read, N at a read's end, and one-shot
+    jobs at an N, at the read's end and past it (no rows), at x0 0 and
+    at min_intv 3; and on the run genome's reads, whose backward stack
+    passes a strip of 32 intervals inside a run of equal sizes."""
+    fmi = genomes["test"][0]
+    text = fmi.bnt.doubled()
+    reads = [text[100:110].copy(), np.full(60, 4, np.uint8),
+             np.concatenate([[4, 4], text[200:300]]), text[500:628].copy(),
+             text[:0].copy(), np.concatenate([text[800:897], [4, 4, 4]])]
+    arr, lens = _pack([np.asarray(r, np.uint8) for r in reads])
+    didx = _didx(fmi, idt)
+    (r1, want), _ = cursor_jobs(didx, arr, lens, MemOpt())
+    counts, _ = kcur_held_to_plain(didx, arr, lens, r1, MemOpt(),
+                                   reverse=reverse, want=want)
+    assert counts[[0, 1, 4]].tolist() == [0, 0, 0] and counts[3] > 0
+    # one-shot: at an N, at the end, past it, x0 0, a round-2 min_intv
+    one = (torch.tensor([2, 5, 3, 3, 3, 3], dtype=torch.int32),
+           torch.tensor([0, 97, 128, 0, 64, 64], dtype=torch.int32),
+           torch.tensor([1, 1, 1, 1, 1, 3], dtype=didx.idt),
+           torch.ones(6, dtype=torch.bool))
+    arr[3, :] = text[500:628]
+    counts, _ = kcur_held_to_plain(didx, arr, lens, one, MemOpt(),
+                                   reverse=reverse)
+    assert counts[:3].tolist() == [0, 0, 0] and counts[3] > 0
+    fmi, reads = run_genome
+    arr, lens = _pack(reads)
+    didx = _didx(fmi, idt)
+    for jobs, want in cursor_jobs(didx, arr, lens, MemOpt()):
+        kcur_held_to_plain(didx, arr, lens, jobs, MemOpt(), reverse=reverse,
+                           want=want)
+
+
+@pytest.mark.parametrize("idt", ["int32", "int64"])
+def test_kcur_capped_grid_takes_jobs_from_the_queue(cursor_cases, idt):
+    """On a card of one SM holding one block (at most 4 warps), K-cur's
+    warps take job after job from the queue: 40 round-1 jobs, == plain,
+    in both lane orders."""
+    didx, arr, lens, ((r1, want), _) = cursor_cases("sim1m", idt)
+    for reverse in (False, True):
+        kcur_held_to_plain(didx, arr, lens, r1, MemOpt(), reverse=reverse,
+                           card=(1, 1), want=want)
+
+
+@pytest.mark.parametrize("idt", ["int32", "int64"])
+def test_kcur_refuses_reads_too_long_for_shared_memory(run_genome, idt):
+    """K-cur keeps 3 (L + 1) intervals a warp in shared memory: at the
+    longest L an H100 block holds it == plain, one base more and the
+    entry refuses before anything runs."""
+    fmi, _ = run_genome
+    didx = _didx(fmi, idt)
+    most = smem_cursor.kcur_max_len(didx.idt)
+    assert most == {"int32": 3873, "int64": 1936}[idt]
+    read = np.tile(fmi.bnt.doubled()[:700], 6)[:most]
+    arr = read[None, :].copy()
+    lens = np.array([most], np.int32)
+    r1 = smem_cursor.round1_jobs(1, didx.idt, "cpu")
+    kcur_held_to_plain(didx, arr, lens, r1, MemOpt())
+    wide = np.full((1, most + 1), 4, np.uint8)
+    wide[0, :most] = read
+    with pytest.raises(RuntimeError, match="kernel 2 returned 1"):
+        warp_host.smem_host(host_arrays(didx), wide, lens, 2,
+                            params(MemOpt()), slots=smem_fused.K2_SLOTS,
+                            jobs=[x.numpy() for x in r1])
+    with pytest.raises(RuntimeError, match=f"at most {most} bases"):
+        smem_cursor.run_smem_jobs(didx, torch.from_numpy(wide),
+                                  torch.from_numpy(lens), r1, 19)
+
+
+def test_kcur_rows_read_are_the_plain_versions(genomes, monkeypatch):
+    """count_rows (chip_smoke.py's bytes bound for K-cur) reports the
+    distinct occ rows K-cur reads on round-1 jobs: those of the plain
+    version's extensions; and the build without the sanitizers (as the
+    smoke counts a chunk's rows) == the sanitized one."""
+    fmi, _, reads = genomes["sim1m"]
+    arr, lens = _pack(reads)
+    opt = MemOpt()
+    didx = _didx(fmi, "int32")
+    r1 = smem_cursor.round1_jobs(len(lens), didx.idt, "cpu")
+    seen = []
+    plain = smem_fused.bwt_extend_plain
+
+    def spy(didx, ik, is_back, stats=None):
+        stats = {}
+        out = plain(didx, ik, is_back, stats)
+        seen.append(stats["occ_rows"])
+        return out
+
+    monkeypatch.setattr(smem_fused, "bwt_extend_plain", spy)
+    smem_cursor.run_smem_jobs_plain(didx, torch.from_numpy(arr),
+                                    torch.from_numpy(lens), r1,
+                                    opt.min_seed_len)
+    want = np.unique(torch.cat(seen).numpy())
+    got, fast = (warp_host.smem_host(
+        host_arrays(didx), arr, lens, 2, params(opt),
+        slots=smem_fused.K2_SLOTS, jobs=[x.numpy() for x in r1],
+        count_rows=True, sanitize=s) for s in (True, False))
+    assert np.array_equal(got[-1], want) and 0 < len(want)
+    assert len(got) == 5 and all(np.array_equal(a, b)
+                                 for a, b in zip(got, fast))

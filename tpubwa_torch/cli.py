@@ -261,6 +261,24 @@ def parse_insert_spec(spec: str):
 
 
 @contextlib.contextmanager
+def _cpu_threads(device, n):
+    """bwa's -t on the CPU: torch's intra-op pool, which runs the plain
+    kernels' tensor ops, capped at ``n`` threads for the run and restored
+    after.  Beside other busy processes a larger pool's threads wait on
+    each other far longer than they work.  A card's run is untouched."""
+    if device.type != "cpu":
+        yield
+        return
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, n))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
 def _profile(trace_dir):
     """torch.profiler trace of the run (CPU, plus CUDA when a card is
     visible), written as a Chrome trace under ``trace_dir``."""
@@ -393,7 +411,8 @@ def main_mem(argv, out=None) -> int:
                 return
             yield b
 
-    with _profile(args.profile_dir):
+    with _profile(args.profile_dir), _cpu_threads(device,
+                                                  opt.n_threads):
         src = batch_source()
         # journal resume: skip whole completed batches
         while journal is not None and skipped < resume_reads:

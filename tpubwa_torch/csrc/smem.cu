@@ -1,6 +1,7 @@
 // SMEM seeding (bwamem.c:mem_collect_intv) for Hopper (sm_90a), over the
 // device functions of csrc/smem.cuh and csrc/fm.cuh: rounds 1 and 2 a
-// warp a read (K2), round 3 a group of 8 lanes a read (K3).
+// warp a read (K2), round 3 a group of 8 lanes a read (K3), and
+// bwt_smem1a a warp a job (K-cur, seed mode cursor).
 //
 // K2, collect12_kernel, replaces rounds 1 and 2 of
 // tpubwa/device/smem_fused.py:smem_chunk_machine_q (:872, driven by
@@ -78,6 +79,26 @@
 //     warp in a block's shared memory (232,448 B: L > 2,904 in int32, L >
 //     1,451 in int64) is refused: the entry returns cudaErrorInvalidValue
 //     before anything runs.
+// K-cur, smem_jobs_kernel, replaces tpubwa/device/smem_cursor.py:
+// smem_cursor_machine (:54, its while_loop :237, driven by
+// tpubwa/device/smem.py:_rounds12_cursor :275); the wrapper is
+// tpubwa_torch/device/smem_cursor.py:run_smem_jobs.  A job is (read, x0,
+// min_intv, one_shot): a one-shot job makes one bwt_smem1a(x0, min_intv)
+// call (round 2's re-seeding), any other restarts at each call's return,
+// past N bases, until the read ends (round 1, as K2's loop).  Its rows of
+// at least min_seed_len bases go to its `slots` row slots, each call's by
+// query start, the count going on past them, and the wrapper launches
+// once more for the jobs whose count passed `slots`, as for K2
+// (smem_fused.collect12).  Bound and design are K2's, over jobs instead
+// of reads: a warp a job from a job queue, its three stacks (curr, prev
+// and a call's rows, L + 1 intervals each: 7,740 B a warp for L = 128 in
+// int32, 15,480 B in int64) in the warp's slice of shared memory, the
+// warps a block chosen at launch by the occupancy query.  It keeps no
+// round-1 list (the wrapper picks round 2's jobs from round 1's rows), so
+// it takes longer reads than K2: L <= 3,873 in int32, L <= 1,936 in
+// int64; a longer L is refused before anything runs.  tpubwa's stack and
+// row caps, its overflow flag and its host fallback have no counterpart:
+// every bound comes from the read's length.
 // What K3's design does about it:
 //   * a group of kGroup = 8 lanes a read, 4 reads a warp: each forward
 //     step's two occ rows are counted across the group
@@ -138,6 +159,7 @@ constexpr int kThreads = 128;  // K3: threads a block
 constexpr int kGroup = 8;      // K3: lanes a read (1, 4, 8, 16 or 32)
 constexpr int kMaxWarps = 4;   // K2: warps a block, at most
 constexpr int kStacks = 4;     // curr, prev, a call's rows, round 1's rows
+constexpr int kJobStacks = 3;  // K-cur: curr, prev, a call's rows
 
 using seed::Intv;
 using seed::kFull;
@@ -227,6 +249,63 @@ __global__ void collect12_kernel(fm::Index<Idx, fm::Rows<uint32_t, Tp>> f,
             if (chain_out) chain_out[t] = chain;
         }
         __syncwarp();  // the stacks' readers are done before the next read
+    }
+}
+
+// K-cur: a warp a job, from the job queue (*queue, zero at launch); the
+// t-th job taken is ids[t], its rows go to rows[t] ([n, slots]
+// intervals).  warp_bytes = kJobStacks * (L + 1) intervals
+template <class Idx>
+__global__ void smem_jobs_kernel(fm::Index<Idx> f,
+                                 const uint8_t* __restrict__ q, int64_t L,
+                                 const int32_t* __restrict__ lens,
+                                 const int32_t* __restrict__ read,
+                                 const int32_t* __restrict__ x0,
+                                 const Idx* __restrict__ min_intv,
+                                 const uint8_t* __restrict__ one_shot,
+                                 const int32_t* __restrict__ ids, int64_t n,
+                                 int min_seed_len, int slots,
+                                 size_t warp_bytes,
+                                 int32_t* __restrict__ queue,
+                                 Intv<Idx>* __restrict__ rows,
+                                 int32_t* __restrict__ counts,
+                                 int32_t* __restrict__ steps_out,
+                                 int32_t* __restrict__ chain_out) {
+    const int lane = threadIdx.x & 31;
+    f = fm::with_l2(f);
+    Intv<Idx>* curr = static_cast<Intv<Idx>*>(warp_shared(warp_bytes));
+    Intv<Idx>* prev = curr + (L + 1);
+    Intv<Idx>* mem = curr + 2 * (L + 1);
+    for (;;) {
+        int t = 0;
+        if (lane == 0) t = atomicAdd(queue, 1);
+        t = __shfl_sync(kFull, t, 0);
+        if (t >= n) break;
+        const int64_t j = ids[t];
+        const uint8_t* qr = q + (int64_t)read[j] * L;
+        const int len = lens[read[j]];
+        const bool once = one_shot[j] != 0;
+        const Idx mi = min_intv[j];
+        Intv<Idx>* out = rows + (int64_t)t * slots;
+        int n_out = 0, n_mem = 0, steps = 0, chain = 0, none = 0;
+        for (int x = x0[j]; x < len;) {
+            if (qr[x] > 3) {  // smem1a would return x + 1, with no rows
+                if (once) break;
+                ++x;
+                continue;
+            }
+            x = seed::smem1a(f, qr, len, x, mi, curr, prev, mem, n_mem, steps,
+                             chain);
+            keep_rows(mem, n_mem, min_seed_len, out, slots, n_out,
+                      (Intv<Idx>*)nullptr, none);
+            if (once) break;
+        }
+        if (lane == 0) {
+            counts[t] = n_out;
+            if (steps_out) steps_out[t] = steps;
+            if (chain_out) chain_out[t] = chain;
+        }
+        __syncwarp();  // the stacks' readers are done before the next job
     }
 }
 
@@ -384,8 +463,11 @@ struct Shape12 {
     int64_t max_len = 0;
 };
 
-template <class Idx, bool Tp = false>
-cudaError_t shape12(int64_t L, int device, Shape12* s) {
+// The launch shape of a warp-a-unit kernel whose warp keeps `stacks`
+// stacks of L + 1 intervals in shared memory (K2, K-cur)
+template <class Idx, class Kernel>
+cudaError_t warp_shape(Kernel kernel, int stacks, int64_t L, int device,
+                       Shape12* s) {
     int optin = 0;
     cudaError_t err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -393,12 +475,12 @@ cudaError_t shape12(int64_t L, int device, Shape12* s) {
         err = cudaDeviceGetAttribute(&s->sms, cudaDevAttrMultiProcessorCount,
                                      device);
     if (err != cudaSuccess) return err;
-    const int64_t per = kStacks * (int64_t)sizeof(Intv<Idx>);
+    const int64_t per = stacks * (int64_t)sizeof(Intv<Idx>);
     s->warp_bytes = per * (L + 1);
     s->max_len = optin / per - 1;
     if (L < 1 || L > s->max_len) return cudaErrorInvalidValue;
     // one opt-in covers every block size below
-    err = cudaFuncSetAttribute(collect12_kernel<Idx, Tp>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) {
@@ -409,8 +491,7 @@ cudaError_t shape12(int64_t L, int device, Shape12* s) {
         if (w * s->warp_bytes > optin) continue;
         int blocks = 0;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, collect12_kernel<Idx, Tp>, 32 * w,
-            (size_t)(w * s->warp_bytes));
+            &blocks, kernel, 32 * w, (size_t)(w * s->warp_bytes));
         if (err != cudaSuccess) return err;
         if (blocks * w > s->warps * s->blocks_per_sm) {
             s->warps = w;
@@ -418,6 +499,17 @@ cudaError_t shape12(int64_t L, int device, Shape12* s) {
         }
     }
     return s->warps ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class Idx, bool Tp = false>
+cudaError_t shape12(int64_t L, int device, Shape12* s) {
+    return warp_shape<Idx>(collect12_kernel<Idx, Tp>, kStacks, L, device, s);
+}
+
+// K-cur's launch shape for reads of L bases: as K2's, with kJobStacks
+template <class Idx>
+cudaError_t shape_jobs(int64_t L, int device, Shape12* s) {
+    return warp_shape<Idx>(smem_jobs_kernel<Idx>, kJobStacks, L, device, s);
 }
 
 template <class Idx, bool Tp>
@@ -479,6 +571,39 @@ cudaError_t tp12(int n_slabs, const int64_t* occ, const void* L2,
     return launch12<Idx, true>(f, q, L, lens, rids, n, min_seed_len,
                                split_len, split_width, slots, queue, rows,
                                counts, steps, chain, device, stream);
+}
+
+template <class Idx>
+cudaError_t launch_jobs(const void* occ, const void* L2, int64_t primary,
+                        int64_t seq_len, const void* q, int64_t L,
+                        const void* lens, const void* read, const void* x0,
+                        const void* min_intv, const void* one_shot,
+                        const void* ids, int64_t n, int min_seed_len,
+                        int slots, void* queue, void* rows, void* counts,
+                        void* steps, void* chain, int device,
+                        cudaStream_t stream) {
+    Shape12 s;
+    cudaError_t err = shape_jobs<Idx>(L, device, &s);
+    if (err != cudaSuccess) return err;  // refused: no launch is made
+    if ((uintptr_t)occ & 15) return cudaErrorInvalidValue;  // load16
+    const int64_t blocks = std::min<int64_t>(
+        (int64_t)s.blocks_per_sm * s.sms, (n + s.warps - 1) / s.warps);
+    // the queue's int32 counter goes past n by a take a warp
+    if (n < 0 || n > INT32_MAX - blocks * s.warps)
+        return cudaErrorInvalidValue;
+    if (n == 0) return cudaSuccess;
+    err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
+    if (err != cudaSuccess) return err;
+    TPUBWA_LAUNCH(smem_jobs_kernel<Idx>, (int)blocks, 32 * s.warps,
+                  (size_t)(s.warps * s.warp_bytes), stream,
+                  index_of<Idx>(occ, L2, primary, seq_len), (const uint8_t*)q,
+                  L, (const int32_t*)lens, (const int32_t*)read,
+                  (const int32_t*)x0, (const Idx*)min_intv,
+                  (const uint8_t*)one_shot, (const int32_t*)ids, n,
+                  min_seed_len, slots, (size_t)s.warp_bytes, (int32_t*)queue,
+                  (Intv<Idx>*)rows, (int32_t*)counts, (int32_t*)steps,
+                  (int32_t*)chain);
+    return cudaGetLastError();
 }
 
 // K3's launch for n reads (see the header): the lanes a read, the blocks
@@ -604,6 +729,46 @@ extern "C" int tpubwa_smem_rounds12_shape(int idx64, int64_t L, int device,
     Shape12 s;
     err = idx64 ? shape12<int64_t>(L, device, &s)
                 : shape12<int32_t>(L, device, &s);
+    const int64_t got[5] = {s.warp_bytes, s.warps, s.blocks_per_sm, s.sms,
+                            s.max_len};
+    for (int i = 0; i < 5; ++i) out[i] = got[i];
+    return (int)err;
+}
+
+// K-cur: the jobs ids[0, n) (indexes into read, x0, min_intv and one_shot:
+// int32, int32, the rank type and uint8 0/1 arrays; lens[read[j]] <= L),
+// a warp a job taken from the queue queue[0] (an int32 the entry zeroes on
+// the stream first); the t-th job's first `slots` rows go to rows[t]
+// ([n, slots] intervals) and its count of rows to counts[t]; steps and
+// chain (as K2's, a job) may be null.  A read length whose stacks do not
+// fit a block's shared memory (see tpubwa_smem_jobs_shape), or an n the
+// queue's counter cannot take, is refused before anything runs.
+extern "C" int tpubwa_smem_jobs(const void* occ, const void* L2,
+                                int64_t primary, int64_t seq_len, int idx64,
+                                const void* q, int64_t L, const void* lens,
+                                const void* read, const void* x0,
+                                const void* min_intv, const void* one_shot,
+                                const void* ids, int64_t n, int min_seed_len,
+                                int slots, void* queue, void* rows,
+                                void* counts, void* steps, void* chain,
+                                int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)(idx64 ? launch_jobs<int64_t> : launch_jobs<int32_t>)(
+        occ, L2, primary, seq_len, q, L, lens, read, x0, min_intv, one_shot,
+        ids, n, min_seed_len, slots, queue, rows, counts, steps, chain,
+        device, (cudaStream_t)stream);
+}
+
+// K-cur's launch shape for reads of L bases into out[5], as
+// tpubwa_smem_rounds12_shape's
+extern "C" int tpubwa_smem_jobs_shape(int idx64, int64_t L, int device,
+                                      int64_t* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    Shape12 s;
+    err = idx64 ? shape_jobs<int64_t>(L, device, &s)
+                : shape_jobs<int32_t>(L, device, &s);
     const int64_t got[5] = {s.warp_bytes, s.warps, s.blocks_per_sm, s.sms,
                             s.max_len};
     for (int i = 0; i < 5; ++i) out[i] = got[i];

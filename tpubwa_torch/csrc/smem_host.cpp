@@ -6,14 +6,16 @@
 //   smem_host IN OUT
 //
 // IN: int64 header (kernel: 0 for K2, tpubwa_smem_rounds12, 1 for K3,
-// tpubwa_seed_strategy; n_blocks, primary, seq_len, idx64, B, L, n,
-// min_seed_len, split_len, split_width, slots, max_intv, maxh,
-// count_rows, reverse, sms, blocks_per_sm, n_slabs, peers), then occ
-// uint32 [n_blocks, 12], L2 of the rank
-// type (int64 where idx64, else int32) [5], reads uint8 [B, L], lens
-// int32 [B], for K2, rids int32 [n], and where n_slabs > 0 the slabs'
-// first rows and devices, int64 [n_slabs] each.  OUT gets int64 values: K2's
-// rows [n, slots, 5], counts [n], steps [n] and chain [n]; or K3's hits
+// tpubwa_seed_strategy, 2 for K-cur, tpubwa_smem_jobs; n_blocks,
+// primary, seq_len, idx64, B, L, n, min_seed_len, split_len,
+// split_width, slots, max_intv, maxh, count_rows, reverse, sms,
+// blocks_per_sm, n_slabs, peers, m), then occ uint32 [n_blocks, 12], L2
+// of the rank type (int64 where idx64, else int32) [5], reads uint8 [B,
+// L], lens int32 [B], for K2, rids int32 [n], and where n_slabs > 0 the
+// slabs' first rows and devices, int64 [n_slabs] each; for K-cur, the m
+// jobs' read int32, x0 int32, min_intv (the rank type) and one_shot
+// uint8, [m] each, then ids int32 [n].  OUT gets int64 values: K2's or
+// K-cur's rows [n, slots, 5], counts [n], steps [n] and chain [n]; or K3's hits
 // [B, maxh, 5], n_hits [B], steps [B], chain [B] and longest [B]; then,
 // where count_rows, the number of distinct occ rows the launch read and
 // those rows, ascending.  reverse runs each warp's lanes 31..0; sms and
@@ -70,7 +72,28 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
     if (h[16] > 0) warp_host::sms = (int)h[16];
     if (h[17] > 0) warp_host::blocks_per_sm = (int)h[17];
     int rc;
-    if (kernel == 0) {
+    if (kernel == 2) {
+        const int64_t m = h[20];
+        const auto read = read_array<int32_t>(f, m);
+        const auto x0 = read_array<int32_t>(f, m);
+        const auto min_intv = read_array<Idx>(f, m);
+        const auto one_shot = read_array<uint8_t>(f, m);
+        const auto ids = read_array<int32_t>(f, n);
+        std::vector<int32_t> queue(1, -77);
+        std::vector<Idx> rows((size_t)(n * slots * 5), (Idx)-77);
+        std::vector<int32_t> counts((size_t)n, -77), steps((size_t)n, -77),
+            chain((size_t)n, -77);
+        rc = tpubwa_smem_jobs(occ.data(), L2.data(), primary, seq_len,
+                              sizeof(Idx) == 8, q.data(), L, lens.data(),
+                              read.data(), x0.data(), min_intv.data(),
+                              one_shot.data(), ids.data(), n, min_seed_len,
+                              slots, queue.data(), rows.data(), counts.data(),
+                              steps.data(), chain.data(), 0, nullptr);
+        write_int64(o, rows);
+        write_int64(o, counts);
+        write_int64(o, steps);
+        write_int64(o, chain);
+    } else if (kernel == 0) {
         const auto rids = read_array<int32_t>(f, n);
         const int n_slabs = (int)h[18];
         warp_host::peers = h[19] != 0;
@@ -137,7 +160,7 @@ int main(int argc, char** argv) {
     if (argc != 3) warp_host::die("usage: smem_host IN OUT");
     FILE* f = std::fopen(argv[1], "rb");
     if (!f) warp_host::die("cannot open IN");
-    const std::vector<int64_t> h = read_array<int64_t>(f, 20);
+    const std::vector<int64_t> h = read_array<int64_t>(f, 21);
     FILE* o = std::fopen(argv[2], "wb");
     if (!o) warp_host::die("cannot open OUT");
     const int rc = h[4] ? run<int64_t>(f, o, h) : run<int32_t>(f, o, h);

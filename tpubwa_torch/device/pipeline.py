@@ -1,6 +1,6 @@
 """Per-batch aligner with GPU seed extension, the counterpart of
-tpubwa/device/pipeline.py in its host-seeding, megaq and hybrid
-configurations, with the native planner or the Python one.
+tpubwa/device/pipeline.py in its host-seeding, megaq, hybrid, reach
+and cursor configurations, with the native planner or the Python one.
 
 Stage plan per chunk of reads:
   A. SMEM seeding                  (device/smem.py: native C++ on the
@@ -8,7 +8,8 @@ Stage plan per chunk of reads:
                                     TPUBWA_SEED_MODE=megaq, K2 and K3 on
                                     the device; with =hybrid, a share of
                                     each chunk on K2 and K3 beside the
-                                    native seeder)
+                                    native seeder; with =reach or
+                                    =cursor, K-reach or K-cur and K3)
   B. SA positions                  (in megaq and hybrid's device share,
                                     K-sa on ranks built on the device
                                     inside stage A; else the native
@@ -105,8 +106,8 @@ def reset_native_caches() -> None:
 
 
 class DeviceAligner:
-    """Seeding (host, megaq on ``device``, or hybrid), SA and planning;
-    extension waves on ``device``.
+    """Seeding (host; megaq, reach or cursor on ``device``; or hybrid),
+    SA and planning; extension waves on ``device``.
 
     The seed mode comes from TPUBWA_SEED_MODE when the aligner is made,
     default ``host``, or ``megaq`` where the native seeder is unavailable
@@ -158,9 +159,9 @@ class DeviceAligner:
         # reads per seeding chunk (nothing is compiled per shape, so one
         # size serves every batch and both seed modes)
         self.chunk_reads = 16384
-        # 'host' (native seeding), 'megaq' (K2 + K3 on the device) or
-        # 'hybrid' (both, split by self.hybrid); device/smem.py raises
-        # on the others
+        # 'host' (native seeding), 'megaq' (K2 + K3 on the device),
+        # 'hybrid' (both, split by self.hybrid), 'reach' (K-reach + K3)
+        # or 'cursor' (K-cur + K3); device/smem.py raises on the others
         default_mode = "host" if (native_smem._lib() is not None
                                   and dp is None and tp is None) else "megaq"
         self.seed_mode = os.environ.get("TPUBWA_SEED_MODE") or default_mode

@@ -1,7 +1,7 @@
 """Batched SMEM seeding for a read chunk, the counterpart of
 tpubwa/device/smem.py:collect_intv_device.
 
-Three modes:
+Five modes:
 
 * ``host``: the native C++ seeder (tpubwa_torch/host/native_smem.py)
   runs the full 3-round mem_collect_intv protocol on the host, and the
@@ -13,7 +13,18 @@ Three modes:
   comes from them; the host only merges;
 * ``hybrid``: the chunk's first k reads in megaq on a worker thread
   while the calling thread seeds the rest in native C++, k set each
-  chunk by ``HybridSplit`` (tpubwa's equal-wall balancer).
+  chunk by ``HybridSplit`` (tpubwa's equal-wall balancer);
+* ``reach``: tpubwa's all-starts formulation (smem.py:133-194, 710-728):
+  round 1 is the rightmost reach of every (read, start) in one K-reach
+  launch (``rightmost_reach_all``), an SMEM wherever the reach grows;
+  round 2 expands each re-seeding job (read, x, min_intv) into its
+  starts 0..x, all jobs in one K-reach launch; round 3 in K3.  The posts
+  are tensor ops on the reads' device;
+* ``cursor``: tpubwa's bwt_smem1a job machine (``_rounds12_cursor``,
+  smem.py:275-327): round 1 a job a read and round 2 a one-shot job a
+  re-seeded row, each round one K-cur launch (``smem_cursor.
+  run_smem_jobs``, a second for jobs past their row slots); round 3 in
+  K3.
 
 With ``return_sa`` megaq also gives each row's SA positions, walked on
 the device before the one copy to the host (tpubwa's fused SA,
@@ -21,21 +32,21 @@ smem_fused.py:_sa_from_rows): the ranks of bwa's subsampling are built
 from K2's rows and K3's hits on the card (``sa_ranks``) and K-sa
 (``occ.sa_lookup``) walks them.  In hybrid the host share's rows get
 the native walk's positions, or -1 counts where the index has no marks.
+reach and cursor fuse no SA walk (tpubwa's ``sa_cnt12`` is None there):
+the caller walks every row.
 
-Over a ``DataParallel`` (``dp``), megaq splits the reads it seeds over
-the replicas (in hybrid, the device share's), each replica holding the
-whole chunk for the extension, and host mode uploads the reads to each.
+Over a ``DataParallel`` (``dp``), megaq, reach and cursor split the
+reads they seed over the replicas (in hybrid, the device share's), each
+replica holding the whole chunk for the extension, and host mode
+uploads the reads to each.
 
 Over an index split into row slabs (``tp``, a ``dist/index_tp.py:
 TpIndex``; tpubwa's 'tp' mesh axis), megaq runs K2 and the fused SA walk
 on the slabs and K3 on the whole index, as tpubwa seeds its rounds 1+2
-on the shards and scans round 3 on the replicated index; hybrid ignores
-``tp``, as tpubwa's does.
-tpubwa's other machine modes are not ported on purpose (ROADMAP).  Of
-mode ``reach`` the port has the function it is built on,
-``rightmost_reach`` (tpubwa's ``_rightmost_reach``, K-reach on the card),
-which the entry step (``tpubwa_torch/entry.py``) runs; the mode itself
-raises.
+on the shards and scans round 3 on the replicated index; the other
+modes ignore ``tp``, as tpubwa's do.
+tpubwa's machine modes mega, fused and split are still to be ported
+(ROADMAP Queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -56,13 +67,14 @@ from .counts import bump
 from .occ import (DeviceIndex, _kernel_route, _raise_on, bwt_extend_plain,
                   sa_lookup, set_intv)
 from .occ import _SIGNATURES as _OCC_SIGNATURES
+from .smem_cursor import round1_jobs, run_smem_jobs
 from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
                          index_args, read_lists, rounds12_megaq, run_reads,
-                         stream_of)
+                         split_len_of, stream_of)
 
 _NOT_PORTED = ("seed mode {!r} is one of tpubwa's TPU seeding machines "
-               "that the port leaves out on purpose (ROADMAP Queue 1, 'Not "
-               "ported on purpose'); use 'megaq' or 'host'")
+               "that the port has not ported yet (ROADMAP Queue 1); use "
+               "'megaq', 'reach', 'cursor' or 'host'")
 
 
 def _reach_codes(q: torch.Tensor) -> torch.Tensor:
@@ -212,6 +224,154 @@ def rightmost_reach_all(didx: DeviceIndex, q: torch.Tensor,
     of q [B, L], built on q's device."""
     return rightmost_reach(didx, q, lens,
                            *reach_jobs(*q.shape, didx.idt, q.device))
+
+
+def reach_round1(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
+                 min_seed_len: int):
+    """Round 1 of mode reach (tpubwa's smems_round1, smem.py:133) as
+    tensors on the reads' device: one K-reach launch over every (read,
+    start) of reads uint8 [B, L], lens int32 [B]; a start b below its
+    read's length is an SMEM [b, e) where e > b, b == 0 or e(b - 1) <
+    e(b), and e - b >= min_seed_len.  Returns (rows idt [n, 5] (x0, x1,
+    size, qb, qe), rids int64 [n]), read-major, by start."""
+    B, L = check_reads(didx, qd, ld)
+    ik, e = rightmost_reach_all(didx, qd, ld)
+    ik, e = ik.view(B, L, 3), e.view(B, L)
+    b = torch.arange(L, dtype=e.dtype, device=e.device)
+    is_smem = (b < ld[:, None]) & (e > b) & (e - b >= min_seed_len)
+    is_smem[:, 1:] &= e[:, :-1] < e[:, 1:]
+    r, s = is_smem.nonzero(as_tuple=True)
+    return torch.cat([ik[r, s], b[s, None], e[r, s, None]], 1), r
+
+
+def reseed_starts(rid: torch.Tensor, x: torch.Tensor,
+                  min_intv: torch.Tensor):
+    """Round 2's K-reach jobs in mode reach: each job (rid, x, min_intv)
+    expanded into its starts 0..x, job after job, on the jobs' device.
+    Returns (read_idx int32, starts int32, min_intv, job int64), [sum of
+    x + 1] each."""
+    nb = x.long() + 1
+    total = int(nb.sum())
+    job = torch.repeat_interleave(torch.arange(len(rid), device=rid.device),
+                                  nb, output_size=total)
+    starts = (torch.arange(total, device=rid.device)
+              - (torch.cumsum(nb, 0) - nb)[job])
+    return rid[job], starts.int(), min_intv[job], job
+
+
+def reach_reseed(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
+                 rid: torch.Tensor, x: torch.Tensor, min_intv: torch.Tensor,
+                 min_seed_len: int):
+    """Round 2 of mode reach (tpubwa's smems_reseed, smem.py:162) as
+    tensors on the reads' device: each job (rid int32, x int32, min_intv
+    idt, [m] each) expanded into its starts 0..x, all jobs in one
+    K-reach launch (none where there is no job).  A start b of a job is
+    an SMEM [b, e) where e covers x (e >= x + 1), e > b, b == 0 or the
+    job's start b - 1 does not cover x or reaches less (e(b - 1) <
+    e(b)), and e - b >= min_seed_len.  Returns (rows idt [n, 5], jobs
+    int64 [n], the job of each row), job-major, by start."""
+    check_reads(didx, qd, ld)
+    if not len(rid):
+        return (torch.zeros((0, 5), dtype=didx.idt, device=qd.device),
+                torch.zeros(0, dtype=torch.int64, device=qd.device))
+    read_idx, starts, job_mi, job = reseed_starts(rid, x, min_intv)
+    ik, e = rightmost_reach(didx, qd, ld, read_idx, starts, job_mi)
+    b = starts.to(e.dtype)
+    valid = e >= x[job].to(e.dtype) + 1
+    is_smem = valid & (e > b) & (e - b >= min_seed_len)
+    is_smem[1:] &= (b[1:] == 0) | ~valid[:-1] | (e[:-1] < e[1:])
+    at = is_smem.nonzero()[:, 0]
+    return torch.cat([ik[at], b[at, None], e[at, None]], 1), job[at]
+
+
+# tpubwa's two reach functions under its names and return contract, for
+# code written against them; mode reach itself keeps its rows on the
+# device (reach_round1, reach_reseed), and no path of the port calls these
+def smems_round1(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
+                 min_seed_len: int):
+    """tpubwa's ``smems_round1`` (smem.py:133): every read's round-1
+    SMEMs, one int64 [n, 5] numpy array (x0, x1, size, qb, qe) a read, by
+    start (``reach_round1``)."""
+    rows, rids = reach_round1(didx, qd, ld, min_seed_len)
+    counts = torch.bincount(rids, minlength=len(ld)).tolist()
+    return [r.numpy() for r in rows.long().cpu().split(counts)]
+
+
+def smems_reseed(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
+                 jobs, min_seed_len: int):
+    """tpubwa's ``smems_reseed`` (smem.py:162): jobs = [(read, x,
+    min_intv)] -> [(read, rows int64 [n, 5])], a pair a job, its maximal
+    matches covering x with interval size >= min_intv
+    (``reach_reseed``)."""
+    if not jobs:
+        return []
+    rid, x, mi = zip(*jobs)
+    dev = qd.device
+    rows, job = reach_reseed(
+        didx, qd, ld, torch.tensor(rid, dtype=torch.int32, device=dev),
+        torch.tensor(x, dtype=torch.int32, device=dev),
+        torch.tensor(mi, dtype=didx.idt, device=dev), min_seed_len)
+    counts = torch.bincount(job, minlength=len(jobs)).tolist()
+    return [(int(r), part.numpy()) for r, part in zip(
+        rid, rows.long().cpu().split(counts))]
+
+
+def reseed_jobs(opt, rows: torch.Tensor, rids: torch.Tensor):
+    """Round 2's jobs from round 1's rows (tpubwa/device/smem.py:713-719,
+    303-307): a row of at least split_len bases and at most split_width
+    occurrences re-seeds from its middle, (qb + qe) >> 1, at min_intv =
+    size + 1.  Returns (rid int32, x int32, min_intv of the rows' type),
+    in the rows' order, on their device."""
+    keep = ((rows[:, 4] - rows[:, 3] >= split_len_of(opt))
+            & (rows[:, 2] <= opt.split_width))
+    kept = rows[keep]
+    return (rids[keep].int(), ((kept[:, 3] + kept[:, 4]) >> 1).int(),
+            kept[:, 2] + 1)
+
+
+def _rounds12_reach(opt, didx: DeviceIndex, qd: torch.Tensor,
+                    ld: torch.Tensor):
+    """Rounds 1 and 2 of mode reach: (rows idt [n, 5], rids int64 [n]),
+    every round-1 row (read-major), then every round-2 row (job by job),
+    tpubwa's block order."""
+    rows1, rids1 = reach_round1(didx, qd, ld, opt.min_seed_len)
+    rid, x, mi = reseed_jobs(opt, rows1, rids1)
+    rows2, job = reach_reseed(didx, qd, ld, rid, x, mi, opt.min_seed_len)
+    return torch.cat([rows1, rows2]), torch.cat([rids1, rid.long()[job]])
+
+
+def round2_jobs(opt, rows: torch.Tensor, counts: torch.Tensor):
+    """Mode cursor's round-2 jobs (tpubwa/device/smem.py:301-313) from
+    round 1's rows (job-major) and counts (a job a read): a one-shot job
+    (read, x, min_intv) a re-seeded row (``reseed_jobs``)."""
+    rids = torch.repeat_interleave(
+        torch.arange(len(counts), device=rows.device), counts.long())
+    rid, x, mi = reseed_jobs(opt, rows, rids)
+    return rid, x, mi, torch.ones(len(rid), dtype=torch.bool,
+                                  device=rows.device)
+
+
+def _rounds12_cursor(opt, didx: DeviceIndex, qd: torch.Tensor,
+                     ld: torch.Tensor):
+    """Rounds 1 and 2 of mode cursor (tpubwa/device/smem.py:275): round 1
+    a job a read (``round1_jobs``), round 2 a one-shot job a re-seeded
+    round-1 row (``round2_jobs``; no launch where there is none), each
+    through ``run_smem_jobs``.  Returns (rows idt [n, 5], rids int64
+    [n]): round 1's rows (read-major), then round 2's (job by job)."""
+    jobs = round1_jobs(len(ld), didx.idt, qd.device)
+    rows1, n1 = run_smem_jobs(didx, qd, ld, jobs, opt.min_seed_len)
+    rids1 = torch.repeat_interleave(jobs[0].long(), n1.long())
+    jobs = round2_jobs(opt, rows1, n1)
+    if not len(jobs[0]):
+        return rows1, rids1
+    rows2, n2 = run_smem_jobs(didx, qd, ld, jobs, opt.min_seed_len)
+    return (torch.cat([rows1, rows2]),
+            torch.cat([rids1, torch.repeat_interleave(jobs[0].long(),
+                                                      n2.long())]))
+
+
+# the device modes other than megaq: their rounds 1 and 2
+_ROUNDS12 = {"reach": _rounds12_reach, "cursor": _rounds12_cursor}
 
 
 def max_hits(L: int, min_len: int) -> int:
@@ -442,6 +602,20 @@ def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
     return out
 
 
+def _mode_rounds(opt, didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
+                 mode: str) -> Seeded:
+    """Mode reach's or cursor's rounds on reads already on the device:
+    ``_ROUNDS12[mode]`` and K3's round 3, copied to the host after the
+    last launch.  No SA walk (``sa12`` and ``sa3`` None)."""
+    rows12, rids12 = _ROUNDS12[mode](opt, didx, qd, ld)
+    round3 = ()
+    if opt.max_mem_intv > 0:
+        round3 = _seed_strategy_scan(didx, qd, ld, opt.min_seed_len,
+                                     opt.max_mem_intv)
+    return Seeded(rows12.cpu().numpy(), rids12.cpu().numpy(),
+                  tuple(x.cpu().numpy() for x in round3))
+
+
 def merge_rounds(rows12, rids12, hits=None, n_hits=None, sa=None):
     """The chunk's rows as the seeding contract: K2's rows (idt [n, 5],
     read-major, each read's round 1 then round 2) and their read ids,
@@ -505,24 +679,21 @@ def _upload_dp(didxs, reads: np.ndarray, lens: np.ndarray, dp):
                   [None] * dp.n)
 
 
-def _collect_megaq_dp(opt, didxs, uploads, n: int, dp, sa: bool = False,
-                      tp=None):
-    """Mode megaq over ``dp``'s replicas (tpubwa/device/smem.py:634-640:
+def _collect_dp(didxs, uploads, n: int, dp, rounds, sa: bool = False):
+    """A device mode over ``dp``'s replicas (tpubwa/device/smem.py:634-640:
     the reads replicated, the lanes sharded) for reads [0, n) of a chunk
     each replica holds (``uploads``): replica i seeds its part [lo, hi)
-    through K2 and K3 (and with ``sa`` walks its rows' ranks on K-sa; a
-    replica with an empty part launches nothing), and ``_merge`` runs
-    once, on what one device would have seeded.  With a ``tp`` every
-    replica's K2 and K-sa read its one set of slabs.  Returns (flat,
-    frid, sa or None)."""
+    through ``rounds(didx, qd, ld)`` (a ``Seeded``; with ``sa`` its SA
+    segments too; a replica with an empty part launches nothing), and
+    ``_merge`` runs once, on what one device would have seeded.  Returns
+    (flat, frid, sa or None)."""
     def part(i, bounds):
         lo, hi = bounds
         if hi == lo:
             return None
         dp.note(i, "reads", hi - lo)
         qd, ld = uploads[i]
-        got = _megaq_rounds(opt, didxs[i], qd[lo:hi], ld[lo:hi], sa=sa,
-                            tp=tp)
+        got = rounds(didxs[i], qd[lo:hi], ld[lo:hi])
         if sa:
             dp.note(i, "ranks", len(got.sa12[1]) + len(got.sa3[1]))
         return lo, got
@@ -601,11 +772,20 @@ def _seed_megaq(opt, didx, uploads, n: int, dp, sa: bool, tp=None):
     ``sa``, K-sa walks their rows' ranks; K2 and K-sa on ``tp``'s slabs
     where one is given), and the host merges their rows.  Returns (flat,
     frid, sa or None)."""
+    def rounds(didx_, qd, ld):
+        return _megaq_rounds(opt, didx_, qd, ld, sa=sa, tp=tp)
+
+    return _seed_device(didx, uploads, n, dp, rounds, sa)
+
+
+def _seed_device(didx, uploads, n: int, dp, rounds, sa: bool = False):
+    """Reads [0, n) of an uploaded chunk through ``rounds(didx, qd, ld)``
+    (a ``Seeded``) on the device, or over ``dp``'s replicas
+    (``_collect_dp``).  Returns (flat, frid, sa or None)."""
     if dp is not None:
-        return _collect_megaq_dp(opt, didx, uploads, n, dp, sa=sa, tp=tp)
+        return _collect_dp(didx, uploads, n, dp, rounds, sa=sa)
     qd, ld = uploads
-    return _merge([(0, _megaq_rounds(opt, didx, qd[:n], ld[:n], sa=sa,
-                                     tp=tp))], sa)
+    return _merge([(0, rounds(didx, qd[:n], ld[:n]))], sa)
 
 
 def _collect_host(opt, didx, reads: np.ndarray, lens: np.ndarray, fmi,
@@ -684,22 +864,24 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     index's device); rows are in (read, qb, qe) order, the
     ref.smem.collect_intv contract per read.  ``mode``: 'host' (the
     native seeder on the host), 'megaq' (K2 and K3 on the index's
-    device) or 'hybrid' (a share of each, ``split`` the caller's
-    balancer; without one, a new ``HybridSplit.from_env()``).  With a
-    ``dp`` (``dist.sharding.DataParallel``), ``didx`` is the list of its
-    replicas' indexes, megaq (in hybrid, its share) splits the reads
-    over them, and ``qd`` is a list, the chunk's reads on each replica.
-    With a ``tp`` (``dist/index_tp.py:TpIndex``) mode megaq seeds rounds
-    1+2 and walks the fused SA on its slabs (round 3 on ``didx``); the
-    other modes do not read it.
+    device), 'hybrid' (a share of each, ``split`` the caller's balancer;
+    without one, a new ``HybridSplit.from_env()``), 'reach' (K-reach's
+    all-starts rounds 1 and 2, K3) or 'cursor' (K-cur's job rounds 1 and
+    2, K3); 'mega', 'fused' and 'split' raise NotImplementedError.  With
+    a ``dp`` (``dist.sharding.DataParallel``), ``didx`` is the list of
+    its replicas' indexes, megaq, reach and cursor (in hybrid, megaq's
+    share) split the reads over them, and ``qd`` is a list, the chunk's
+    reads on each replica.  With a ``tp`` (``dist/index_tp.py:TpIndex``)
+    mode megaq seeds rounds 1+2 and walks the fused SA on its slabs
+    (round 3 on ``didx``); the other modes do not read it.
 
     ``return_sa`` (tpubwa's): also return ``sa``, (cnt int64 [n], pos
     int64 [sum of cnt >= 0]) in the rows' order: megaq's rows get their
     positions from K-sa on ranks built on the device, hybrid's host
     share the native walk's, and a cnt of -1 marks a row left to the
-    caller's SA stage.  ``sa`` is None in host mode, and in every mode
-    under TPUBWA_NO_SA_FUSE (tpubwa's opt-out): the caller then walks
-    every row."""
+    caller's SA stage.  ``sa`` is None in host, reach and cursor mode,
+    and in every mode under TPUBWA_NO_SA_FUSE (tpubwa's opt-out): the
+    caller then walks every row."""
     sa = return_sa and not os.environ.get("TPUBWA_NO_SA_FUSE")
     if mode == "megaq":
         up = _uploads(didx, reads, lens, dp)
@@ -709,7 +891,13 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     elif mode == "hybrid":
         out = _collect_hybrid(opt, didx, reads, lens, fmi,
                               split or HybridSplit.from_env(), dp=dp, sa=sa)
-    elif mode in ("mega", "fused", "split", "cursor", "reach"):
+    elif mode in _ROUNDS12:
+        up = _uploads(didx, reads, lens, dp)
+        flat, frid, _ = _seed_device(
+            didx, up, len(lens), dp,
+            lambda didx_, qd, ld: _mode_rounds(opt, didx_, qd, ld, mode))
+        out = (flat, frid, _resident(up, dp), None)
+    elif mode in ("mega", "fused", "split"):
         raise NotImplementedError(_NOT_PORTED.format(mode))
     elif mode != "host":
         raise ValueError(f"unknown seed mode {mode!r}")

@@ -82,6 +82,14 @@ _SIGNATURES = {
                                    _VP, _VP, _CI, _VP]),
     # (idx64, n, device, out int64[5]) -> cudaError_t
     "tpubwa_seed_strategy_shape": (_CI, [_CI, _CL, _CI, _VP]),
+    # K-cur: (occ, L2, primary, seq_len, idx64, q, L, lens, read, x0,
+    #  min_intv, one_shot, ids, n, min_seed_len, slots, queue, rows,
+    #  counts, steps, chain, device, stream) -> cudaError_t
+    "tpubwa_smem_jobs": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP, _VP,
+                               _VP, _VP, _VP, _VP, _CL, _CI, _CI, _VP, _VP,
+                               _VP, _VP, _VP, _CI, _VP]),
+    # (idx64, L, device, out int64[5]) -> cudaError_t
+    "tpubwa_smem_jobs_shape": (_CI, [_CI, _CL, _CI, _VP]),
 }
 
 
@@ -314,7 +322,9 @@ def check_k2_len(L: int, idt, max_len: int):
 
 
 def collect12(launch, n_reads: int, slots: int, device, stats=None):
-    """K2's launches: ``launch(rids, slots)`` seeds the reads ``rids``
+    """K2's launches (and K-cur's, a job for a read:
+    ``smem_cursor.run_smem_jobs``): ``launch(rids, slots)`` seeds the
+    reads ``rids``
     (int32 [n]) with ``slots`` row slots each and returns (rows idt
     [n, slots, 5], counts int32 [n], steps int32 [n], chain int32 [n]); a
     count past ``slots`` is exact, its rows past the slots unwritten.

@@ -14,7 +14,7 @@ keyed by a hash of its sources; ``extend_host`` (K1 and K1-floor),
 ``extend16_host`` (K1-i16), ``extend_bd_host`` (K1-bd, both passes),
 ``occ_host`` (K-sa and K-ext; ``sa_lookup_refusal``, K-sa's refusal of
 an n past its rank queue), ``reach_host`` (K-reach) and ``smem_host``
-(K2 and K3) run one on a set of jobs, and
+(K2, K3 and K-cur) run one on a set of jobs, and
 ``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
@@ -317,38 +317,50 @@ def sa_lookup_refusal(arrays, ranks, n_call):
 
 def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
               count_rows=False, sanitize=True, reverse=False, card=(0, 0),
-              slabs=None, devices=None, peers=True):
+              slabs=None, devices=None, peers=True, jobs=None):
     """One launch of csrc/smem.cu's K2 (``kernel`` 0,
     ``tpubwa_smem_rounds12``, on the reads ``rids`` with ``slots`` row
-    slots each, a warp a read) or K3 (1, ``tpubwa_seed_strategy``, on
-    every read, a group of lanes a read) on the host.  ``arrays`` maps ``occ_blocks`` (uint32),
-    ``L2`` (the rank type, int32 or int64) and ``primary``, ``seq_len``;
-    ``reads`` uint8 [B, L], ``lens`` int32 [B]; ``params`` (min_seed_len,
-    split_len, split_width, max_intv, maxh).  ``reverse`` runs each
-    warp's lanes 31..0; ``card`` (SMs, blocks an SM), where nonzero, makes
-    the attribute and occupancy queries answer for a smaller card than an
-    H100, so that a persistent grid holds fewer warps than the work.
-    ``slabs`` (K2 only: the first rows of the occ slabs, from 0) launches
-    K2's TP instantiation (``tpubwa_smem_rounds12_tp``) on the occ rows
-    cut there, each slab its own heap block, on ``devices`` (one a slab;
-    all 0, the launch's, where None); ``peers`` False makes the
-    peer-access query refuse every pair.
-    Returns int64 arrays: (rows [n, slots, 5], counts [n], steps [n],
-    chain [n]) for K2, (hits [B, maxh, 5], n_hits [B], steps [B], chain
-    [B], longest [B]) for K3, and with ``count_rows`` the distinct occ
-    rows the launch read, ascending.  Raises RuntimeError with the harness's
-    report if a sanitizer or the lockstep check stops it or the entry
-    returns an error (K2 refuses reads too long for a block's shared
-    memory)."""
+    slots each, a warp a read), K3 (1, ``tpubwa_seed_strategy``, on
+    every read, a group of lanes a read) or K-cur (2,
+    ``tpubwa_smem_jobs``, on the jobs ``rids`` of ``jobs`` = (read int32,
+    x0 int32, min_intv of the rank type, one_shot bool), ``slots`` row
+    slots each, a warp a job) on the host.  ``arrays`` maps
+    ``occ_blocks`` (uint32), ``L2`` (the rank type, int32 or int64) and
+    ``primary``, ``seq_len``; ``reads`` uint8 [B, L], ``lens`` int32 [B];
+    ``params`` (min_seed_len, split_len, split_width, max_intv, maxh).
+    ``reverse`` runs each warp's lanes 31..0; ``card`` (SMs, blocks an
+    SM), where nonzero, makes the attribute and occupancy queries answer
+    for a smaller card than an H100, so that a persistent grid holds
+    fewer warps than the work.  ``slabs`` (K2 only: the first rows of the
+    occ slabs, from 0) launches K2's TP instantiation
+    (``tpubwa_smem_rounds12_tp``) on the occ rows cut there, each slab
+    its own heap block, on ``devices`` (one a slab; all 0, the launch's,
+    where None); ``peers`` False makes the peer-access query refuse every
+    pair.  Returns int64 arrays: (rows [n, slots, 5], counts [n], steps
+    [n], chain [n]) for K2 and K-cur, (hits [B, maxh, 5], n_hits [B],
+    steps [B], chain [B], longest [B]) for K3, and with ``count_rows``
+    the distinct occ rows the launch read, ascending.  Raises
+    RuntimeError with the harness's report if a sanitizer or the
+    lockstep check stops it or the entry returns an error (K2 and K-cur
+    refuse reads too long for a block's shared memory)."""
     L2 = np.asarray(arrays["L2"])
     if L2.dtype not in (np.int32, np.int64):
         raise TypeError(f"rank type {L2.dtype}")
     occ = np.ascontiguousarray(arrays["occ_blocks"], np.uint32)
     reads = np.ascontiguousarray(reads, np.uint8)
     B, L = reads.shape
+    job_arrays = ()
+    if kernel == 2:
+        read, x0, mi, once = jobs
+        job_arrays = (np.ascontiguousarray(read, np.int32),
+                      np.ascontiguousarray(x0, np.int32),
+                      np.ascontiguousarray(mi, L2.dtype),
+                      np.ascontiguousarray(once, np.uint8))
+        if rids is None:
+            rids = np.arange(len(read))
     rids = np.ascontiguousarray(np.arange(B) if rids is None else rids,
                                 np.int32)
-    n = len(rids) if kernel == 0 else B
+    n = B if kernel == 1 else len(rids)
     min_seed_len, split_len, split_width, max_intv, maxh = params
     if slabs is not None and kernel != 0:
         raise ValueError("K3 has no TP instantiation")
@@ -358,13 +370,14 @@ def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
                        arrays["seq_len"], L2.dtype == np.int64, B, L, n,
                        min_seed_len, split_len, split_width, slots,
                        max_intv, maxh, int(count_rows), int(reverse),
-                       *card, n_slabs, int(peers)], np.int64)
+                       *card, n_slabs, int(peers),
+                       len(job_arrays[0]) if job_arrays else 0], np.int64)
+    tail = {0: (rids, *cuts), 1: (), 2: (*job_arrays, rids)}[kernel]
     got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
-        lens, np.int32), *((rids, *cuts) if kernel == 0 else ())),
-        dtype=np.int64, sanitize=sanitize)
-    width = slots if kernel == 0 else maxh
+        lens, np.int32), *tail), dtype=np.int64, sanitize=sanitize)
+    width = maxh if kernel == 1 else slots
     k = n * width * 5
-    n_out = 3 if kernel == 0 else 4  # the per-read outputs after the rows
+    n_out = 4 if kernel == 1 else 3  # the per-read outputs after the rows
     out = (got[:k].reshape(n, width, 5), *(
         got[k + i * n:k + (i + 1) * n] for i in range(n_out)))
     if count_rows:
