@@ -3460,16 +3460,21 @@ def phase_hybrid_dp(torch, np, main, hybrid):
 # under TPUBWA_NO_NATIVE took 152.9 s on an H100 host, past 5f's share of
 # the run's time limit
 NO_NATIVE_PAIRS = 1024
+# the TPUBWA_NO_NATIVE run's pairs, the first of those: its seeding,
+# chaining and emit in Python take ~50 ms a read (81-108 s at 1,024
+# pairs, PERF.md)
+PYTHON_PAIRS = 256
 
 
 def phase_no_native(torch, np, main):
     """[5f no-native]: the first 1,024 pairs of phase 5's first batch, one
-    batch, through `mem`'s path on cuda three ways, each with a new
-    aligner and the native caches reset: native (the reference),
-    TPUBWA_NO_NATIVE_PLAN=1 (the Python planner's waves) and
-    TPUBWA_NO_NATIVE=1 (megaq seeding, the marked SA walk on the card,
-    chaining, planning and emit in Python).  Both no-native SAMs must
-    equal the native run's byte for byte; K1 must launch on both paths,
+    batch, through `mem`'s path on cuda, each run with a new aligner and
+    the native caches reset: native (the reference) and
+    TPUBWA_NO_NATIVE_PLAN=1 (the Python planner's waves), then the first
+    256 of them (``PYTHON_PAIRS``) native again and TPUBWA_NO_NATIVE=1
+    (megaq seeding, the marked SA walk on the card, chaining, planning
+    and emit in Python).  Each no-native SAM must equal the native run's
+    on the same pairs byte for byte; K1 must launch on both paths,
     and K2, K3 and the marked K-sa on the TPUBWA_NO_NATIVE one, with the
     counts at 0 just before each run.  Each run's launches, waves, jobs
     and scalar-loop jobs, reads/s and wall, beside the card's name and
@@ -3482,6 +3487,7 @@ def phase_no_native(torch, np, main):
     from tpubwa_torch.host.pipeline import process_batches
     fmi, opt = main["fmi"], main["opt"]
     batch = main["batches"][0][:2 * NO_NATIVE_PAIRS]
+    cut = batch[:2 * PYTHON_PAIRS]
     counters = {"ksw_extend": ek.extend_batch,
                 "smem_rounds12": smem_fused.rounds12_megaq,
                 "seed_strategy": smem._seed_strategy_scan,
@@ -3491,9 +3497,12 @@ def phase_no_native(torch, np, main):
     facts = {"reads": len(batch), "card": card}
     sams, total = {}, dict.fromkeys(counters, 0)
     total["sa_lookup_marked"] = 0
-    for name, switch in (("native", None),
-                         ("no_native_plan", "TPUBWA_NO_NATIVE_PLAN"),
-                         ("no_native", "TPUBWA_NO_NATIVE")):
+    # (run, switch, its reads, the native run it must equal)
+    for name, switch, reads, ref in (
+            ("native", None, batch, None),
+            ("no_native_plan", "TPUBWA_NO_NATIVE_PLAN", batch, "native"),
+            ("native_cut", None, cut, None),
+            ("no_native", "TPUBWA_NO_NATIVE", cut, "native_cut")):
         if switch:
             os.environ[switch] = "1"
         reset_native_caches()
@@ -3507,7 +3516,7 @@ def phase_no_native(torch, np, main):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sams[name] = [l for _, ls in process_batches(
-                opt, fmi, iter([batch]), 0, align_fn=aligner) for l in ls]
+                opt, fmi, iter([reads]), 0, align_fn=aligner) for l in ls]
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             got = {k: c.launches for k, c in counters.items()}
@@ -3518,8 +3527,9 @@ def phase_no_native(torch, np, main):
             reset_native_caches()
         ext = aligner.extender
         facts[name] = {
-            "seed_mode": aligner.seed_mode, "seconds": round(dt, 3),
-            "reads_per_s": round(len(batch) / dt, 1), "launches": got,
+            "seed_mode": aligner.seed_mode, "reads": len(reads),
+            "seconds": round(dt, 3),
+            "reads_per_s": round(len(reads) / dt, 1), "launches": got,
             "n_waves": ext.n_waves, "n_jobs": ext.n_jobs,
             "n_fallback": ext.n_fallback, "sam_lines": len(sams[name])}
         if switch is None:
@@ -3529,11 +3539,11 @@ def phase_no_native(torch, np, main):
             need += ["smem_rounds12", "seed_strategy", "sa_lookup_marked"]
         if not all(got[k] > 0 for k in need):
             raise AssertionError(f"5f {name} launched {got}")
-        if sams[name] != sams["native"]:
+        if sams[name] != sams[ref]:
             raise AssertionError(
                 f"5f {name} SAM != the native run's ({len(sams[name])} vs "
-                f"{len(sams['native'])} lines, first diff "
-                f"{sam_diff(sams[name], sams['native'])})")
+                f"{len(sams[ref])} lines, first diff "
+                f"{sam_diff(sams[name], sams[ref])})")
         facts[name]["sam_equal_to_native"] = True
         for k in total:
             total[k] += got[k]
@@ -4065,26 +4075,32 @@ def k3_launch_facts(torch, n):
                                 min_width=64)}
 
 
-# K2, K2-tp and K3, each rank type: their SASS functions' names
+# K2, K2-tp, K3, K-cur, K-fwd and K-bwd, each rank type: their SASS
+# functions' names
 SEEDING_KERNELS = {
     f"{k}/{dt}": fn.format(m)
     for dt, m in (("int32", "i"), ("int64", "l"))
     for k, fn in (("smem_rounds12", r"collect12_kernelI{}Lb0EE"),
                   ("smem_rounds12_tp", r"collect12_kernelI{}Lb1EE"),
-                  ("seed_strategy", r"seed_strategy_kernelI{}E"))}
+                  ("seed_strategy", r"seed_strategy_kernelI{}E"),
+                  ("smem_jobs", r"smem_jobs_kernelI{}E"),
+                  ("smem_fwd", r"smem_fwd_kernelI{}E"),
+                  ("smem_bwd", r"smem_bwd_kernelI{}E"))}
 
 
-def seeding_digest(so=None):
+def seeding_digest(so=None, kernels=None):
     """{kernel/rank type: its SASS instructions and a digest of their
-    text} of every instantiation of K2, K2-tp and K3, from the package's
-    build of csrc/smem.cu or the library ``so`` (another checkout's
-    build, for a side by side): two builds whose kernels compile alike
-    give equal digests."""
+    text} of every instantiation of the seeding kernels (or those whose
+    name is in ``kernels``), from the package's build of csrc/smem.cu or
+    the library ``so`` (another checkout's build, for a side by side):
+    two builds whose kernels compile alike give equal digests."""
     import hashlib
     from tpubwa_torch.device import _build
     text = _run([_cuobjdump(), "-sass", so or _build.build_info["smem"]["so"]])
     out = {}
     for key, fn in SEEDING_KERNELS.items():
+        if kernels is not None and key.split("/")[0] not in kernels:
+            continue
         _, ins, _ = sass_function(text, fn)
         out[key] = {"instructions": len(ins), "sha256": hashlib.sha256(
             "\n".join(op for _, op in ins).encode()).hexdigest()[:16]}
@@ -4390,7 +4406,7 @@ def kcur_checks(torch, np, label, fmi, arr, lens, opt):
     and at one (most jobs take the second launch): rows, counts, and
     steps and chain a job.  Returns {rank type: facts}, with the plain
     versions' ms."""
-    from tpubwa_torch.device import smem, smem_cursor, smem_fused
+    from tpubwa_torch.device import smem_cursor, smem_fused
     from tpubwa_torch.device.occ import DeviceIndex
     gpu = DeviceIndex.from_fmindex(fmi, DEV)
     cpu = DeviceIndex.from_fmindex(fmi, "cpu")
@@ -4435,7 +4451,7 @@ def kcur_checks(torch, np, label, fmi, arr, lens, opt):
             facts[rnd] = {"jobs": len(jobs[0]), "rows": len(want[0]),
                           "second_launch_jobs_at_1_slot": second,
                           "plain_ms": round(plain_ms, 3)}
-            jobs = smem.round2_jobs(opt, *want)
+            jobs = smem_cursor.round2_jobs(opt, *want)
         facts["mismatches"] = 0
         out[dt] = facts
     return out
@@ -4555,7 +4571,7 @@ def phase_kcur(torch, np, main, megaq):
     s1, s2 = {}, {}
     rows1, n1 = smem_cursor.run_smem_jobs(didx, qd, ld, r1,
                                           opt_.min_seed_len, stats=s1)
-    r2 = smem.round2_jobs(opt_, rows1, n1)
+    r2 = smem_cursor.round2_jobs(opt_, rows1, n1)
     rows2, n2 = smem_cursor.run_smem_jobs(didx, qd, ld, r2,
                                           opt_.min_seed_len, stats=s2)
     rows12, rids12 = smem_fused.rounds12_megaq(opt_, didx, qd, ld)
@@ -4624,13 +4640,327 @@ def phase_kcur(torch, np, main, megaq):
     return case
 
 
+def ksplit_checks(torch, np, label, fmi, arr, lens, opt):
+    """K-fwd and K-bwd == their plain versions (on CPU copies of the
+    index) in each instantiation, on ``arr``/``lens``: round-1 jobs, then
+    the round-2 jobs of the plain round-1 rows; K-fwd at FWD_SLOTS stack
+    intervals a job and at one (every job takes the second launch): its
+    calls (job, x, m, ret), stacks, and steps and chain a job; K-bwd on
+    the plain version's calls: rows, counts, and steps and chain a call;
+    and forward then backward == K-cur's rows on the card.  Returns {rank
+    type: facts}, with the plain versions' ms."""
+    from tpubwa_torch.device import smem_cursor, smem_split
+    from tpubwa_torch.device.occ import DeviceIndex
+    gpu = DeviceIndex.from_fmindex(fmi, DEV)
+    cpu = DeviceIndex.from_fmindex(fmi, "cpu")
+    q, ld = torch.from_numpy(arr), torch.from_numpy(lens)
+    qg, lg = q.to(DEV), ld.to(DEV)
+    out = {}
+    for dt in ("int32", "int64"):
+        g, c = (gpu, cpu) if dt == "int32" else (int64_twin(torch, gpu),
+                                                 int64_twin(torch, cpu))
+        facts = {"reads": len(arr)}
+        jobs = smem_cursor.round1_jobs(len(lens), c.idt, "cpu")
+        for rnd in ("round1", "round2"):
+            tag = f"{label}/{dt} {rnd}"
+            fst, bst = {}, {}
+            t0 = time.perf_counter()
+            calls = smem_split.run_fwd_plain(c, q, ld, jobs, stats=fst)
+            t1 = time.perf_counter()
+            bcalls = smem_split.bwd_calls(jobs, calls)
+            rows, n = smem_split.run_bwd_plain(c, q, ld, *bcalls, calls.stack,
+                                               opt.min_seed_len, stats=bst)
+            fwd_ms, bwd_ms = ((t1 - t0) * 1e3,
+                              (time.perf_counter() - t1) * 1e3)
+            gjobs = tuple(x.to(DEV) for x in jobs)
+            second = 0
+            for slots in (smem_split.FWD_SLOTS, 1):
+                stats = {}
+                got = smem_split.run_fwd(g, qg, lg, gjobs, slots=slots,
+                                         stats=stats)
+                torch.cuda.synchronize()
+                for key in ("job", "x", "m", "ret", "stack"):
+                    a, b = getattr(got, key).cpu(), getattr(calls, key)
+                    if a.shape != b.shape or not torch.equal(a, b):
+                        raise AssertionError(f"{tag} K-fwd {key} (slots "
+                                             f"{slots}) != plain")
+                for key in ("steps", "chain"):
+                    if not torch.equal(stats[key].cpu(), fst[key]):
+                        raise AssertionError(f"{tag} K-fwd {key} != plain")
+                second = max(second, stats["second_launch_jobs"])
+            stats = {}
+            grows, gn = smem_split.run_bwd(
+                g, qg, lg, *(x.to(DEV) for x in bcalls),
+                calls.stack.to(DEV), opt.min_seed_len, stats=stats)
+            torch.cuda.synchronize()
+            if not (torch.equal(gn.cpu(), n)
+                    and torch.equal(grows.cpu(), rows)):
+                raise AssertionError(f"{tag} K-bwd rows != plain")
+            for key in ("steps", "chain"):
+                if not torch.equal(stats[key].cpu(), bst[key]):
+                    raise AssertionError(f"{tag} K-bwd {key} != plain")
+            kcur = smem_cursor.run_smem_jobs(g, qg, lg, gjobs,
+                                             opt.min_seed_len)
+            split = smem_split.run_split(g, qg, lg, gjobs, opt.min_seed_len)
+            if not all(torch.equal(a, b) for a, b in zip(kcur, split)):
+                raise AssertionError(f"{tag}: K-fwd + K-bwd != K-cur")
+            counts = torch.zeros(len(jobs[0]), dtype=torch.int64).index_add_(
+                0, calls.job, n.long())
+            facts[rnd] = {"jobs": len(jobs[0]), "calls": len(calls.job),
+                          "stack_intervals": len(calls.stack),
+                          "rows": len(rows),
+                          "second_launch_jobs_at_1_slot": second,
+                          "fwd_plain_ms": round(fwd_ms, 3),
+                          "bwd_plain_ms": round(bwd_ms, 3)}
+            jobs = smem_cursor.round2_jobs(opt, rows, counts.int())
+        facts["mismatches"] = 0
+        out[dt] = facts
+    return out
+
+
+def kfwd_alone(torch, didx, qd, ld, jobs, lib=None):
+    """K-fwd's C entry alone on preallocated buffers (every job of
+    ``jobs``, FWD_SLOTS stack intervals a job): a launch not counted on
+    the wrapper.  ``.buffers``: the jobs, ids, queue, stack, calls,
+    n_calls, n_intv, steps, chain."""
+    from tpubwa_torch.device import _build, smem_fused as sf, smem_split
+    lib = lib or _build.load("smem", sf._SIGNATURES)
+    n, L, S = len(jobs[0]), qd.shape[1], smem_split.FWD_SLOTS
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    queue = torch.empty(1, dtype=torch.int32, device=DEV)
+    stack = torch.empty((n, S, 4), dtype=didx.idt, device=DEV)
+    calls = torch.empty((n, S, 3), dtype=torch.int32, device=DEV)
+    per_job = [torch.empty(n, dtype=torch.int32, device=DEV)
+               for _ in range(4)]
+    args = (*sf.index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
+            *(x.data_ptr() for x in jobs), ids.data_ptr(), n, S,
+            queue.data_ptr(), stack.data_ptr(), calls.data_ptr(),
+            *(x.data_ptr() for x in per_job), qd.device.index,
+            sf.stream_of(qd))
+
+    def launch():
+        if lib.tpubwa_smem_fwd(*args):
+            raise AssertionError("K-fwd's launch failed")
+    launch.buffers = (jobs, ids, queue, stack, calls, *per_job)
+    return launch
+
+
+def kbwd_alone(torch, didx, qd, ld, calls, stack, min_seed_len, lib=None):
+    """K-bwd's C entry alone on preallocated buffers, over ``calls`` =
+    (read, x, m, min_intv) and their ``stack``: a launch not counted on
+    the wrapper.  ``.buffers``: the calls, offsets, stack, queue, rows,
+    counts, steps, chain."""
+    from tpubwa_torch.device import _build, smem_fused as sf
+    lib = lib or _build.load("smem", sf._SIGNATURES)
+    read, x, m, mi = calls
+    n, L = len(read), qd.shape[1]
+    off = torch.cumsum(m.long(), 0) - m.long()
+    queue = torch.empty(1, dtype=torch.int32, device=DEV)
+    rows = torch.empty((len(stack), 5), dtype=didx.idt, device=DEV)
+    counts, steps, chain = (torch.empty(n, dtype=torch.int32, device=DEV)
+                            for _ in range(3))
+    args = (*sf.index_args(didx), qd.data_ptr(), L, read.data_ptr(),
+            x.data_ptr(), m.data_ptr(), off.data_ptr(), mi.data_ptr(),
+            stack.data_ptr(), n, min_seed_len, queue.data_ptr(),
+            rows.data_ptr(), counts.data_ptr(), steps.data_ptr(),
+            chain.data_ptr(), qd.device.index, sf.stream_of(qd))
+
+    def launch():
+        if lib.tpubwa_smem_bwd(*args):
+            raise AssertionError("K-bwd's launch failed")
+    launch.buffers = (calls, off, stack, queue, rows, counts, steps, chain)
+    return launch
+
+
+def ksplit_bytes(torch, np, didx, qd, ld, opt, jobs, calls, n_rows):
+    """The bytes K-fwd's launch over ``jobs`` and K-bwd's over the
+    ``calls`` it records must move: each one's inputs and outputs (the
+    reads, jobs or calls, stacks, calls, rows and counts), and the
+    distinct sectors of the index it reads, counted by csrc/smem_host.cpp
+    (built without the sanitizers) on the same inputs.  Returns {"fwd":
+    (bytes, occ rows), "bwd": (bytes, occ rows)}."""
+    from tpubwa_torch.device import smem_split, warp_host
+    fm = didx.upload_fm()
+    arrays = {"occ_blocks": fm["occ_blocks"].cpu().numpy().view(np.uint32),
+              "L2": fm["L2"].cpu().numpy(), "primary": didx.primary,
+              "seq_len": didx.seq_len}
+    qn, lens = qd.cpu().numpy(), ld.cpu().numpy()
+    B, L = qn.shape
+    isz = 8 if didx.idt == torch.int64 else 4
+    n, c, s = len(jobs[0]), len(calls.job), len(calls.stack)
+    *_, fwd_rows = warp_host.fwd_host(
+        arrays, qn, lens, [x.cpu().numpy() for x in jobs],
+        smem_split.FWD_SLOTS, count_rows=True, sanitize=False)
+    *_, bwd_rows = warp_host.bwd_host(
+        arrays, qn, lens, [x.cpu().numpy() for x in
+                           smem_split.bwd_calls(jobs, calls)],
+        calls.stack.cpu().numpy(), opt.min_seed_len, count_rows=True,
+        sanitize=False)
+    reads = B * L + 4 * B
+    fwd_io = (reads + (4 + 4 + isz + 1 + 4) * n + 4 * isz * s + 3 * 4 * c
+              + 4 * 4 * n)
+    bwd_io = (reads + (4 + 4 + 4 + 8 + isz) * c + 4 * isz * s
+              + 5 * isz * n_rows + 4 * c)
+    return {"fwd": (fm_bytes(fwd_io, [(fwd_rows, OCC_ROW)]), len(fwd_rows)),
+            "bwd": (fm_bytes(bwd_io, [(bwd_rows, OCC_ROW)]), len(bwd_rows))}
+
+
+def ksplit_launch_facts(torch, L):
+    """K-fwd's and K-bwd's launch at reads of L bases on this card, each
+    rank type (warps a block, blocks and warps an SM, a warp's stack
+    bytes, the longest read) and each instantiation's registers."""
+    from tpubwa_torch.device import _build, smem_fused as sf, smem_split
+    lib = _build.load("smem", sf._SIGNATURES)
+    launch = {}
+    for name, bwd in (("fwd", False), ("bwd", True)):
+        for dt in ("int32", "int64"):
+            rc, shape = smem_split.ksplit_shape(lib, bwd, dt == "int64", L,
+                                                torch.cuda.current_device())
+            if rc:
+                raise AssertionError(f"K-{name} refuses reads of {L} bases "
+                                     f"({dt})")
+            idt = torch.int64 if dt == "int64" else torch.int32
+            if bwd and shape["max_len"] != smem_split.ksplit_max_len(idt):
+                raise AssertionError(f"K-bwd's limit {shape['max_len']} != "
+                                     f"ksplit_max_len ({dt})")
+            launch[f"{name}/{dt}"] = dict(shape, warps_per_sm=shape["warps"]
+                                          * shape["blocks_per_sm"])
+    report = _build.build_info["smem"]["ptxas"]
+    return {"launch": launch, "ptxas": {
+        f"{k}/{dt}": ptxas_usage(report, rf"smem_{k}_kernelI{m}E")
+        for k in ("fwd", "bwd") for dt, m in (("int32", "i"), ("int64", "l"))}}
+
+
+def phase_ksplit(torch, np, main, megaq):
+    """[3l K-fwd/K-bwd]: (after 3k, on 5c's first chunk) K-fwd and K-bwd
+    == their plain versions in each instantiation (``ksplit_checks``) on
+    the 3,000-base genome and on 256 reads of 5c's first chunk with the
+    edge reads (262 reads, as 3k); then mode split's four launches on the
+    chunk (16,384 round-1 jobs, then the round-2 jobs of their rows):
+    each round's rows == K-cur's on the same jobs, and each launch alone
+    beside K-cur's two and K2's one in interleaved passes, with the calls
+    a job, m a call, a job's forward chain and a call's backward chain,
+    the jobs that took K-fwd's second launch, the distinct sectors of
+    the index each launch reads (csrc/smem_host.cpp) and its bound, and
+    the launch shapes and registers.  Returns {"fwd": K-fwd's row case, "bwd":
+    K-bwd's}, their round-1 launches."""
+    import tempfile
+    from tpubwa_torch.device import smem_cursor, smem_split
+    from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
+    t0 = time.perf_counter()
+    fmi, opt = main["fmi"], main["opt"]
+    rng = np.random.default_rng(0xC1)
+    with tempfile.TemporaryDirectory(dir=BUILD) as d:
+        sm, _ = small_index(d)
+    text = sm.bnt.doubled()
+    small = [text[s:s + 100].copy()
+             for s in rng.integers(0, len(text) - 100, 250)]
+    for r in small[:100]:
+        r[rng.integers(0, 100, 3)] = rng.integers(0, 5, 3)
+    cases = {"3 kb": ksplit_checks(torch, np, "3 kb", sm, *pack_reads(
+        np, small + edge_reads(np, text, rng)), opt)}
+    opt_, didx, qd, ld = megaq["chunk"]
+    qn, lens = qd[:256].cpu().numpy(), ld[:256].cpu().numpy()
+    big = [qn[i, :lens[i]] for i in range(256)]
+    cases[f"{GENOME_MB} Mbp"] = ksplit_checks(
+        torch, np, f"{GENOME_MB} Mbp", fmi, *pack_reads(
+            np, big + edge_reads(np, fmi.bnt.doubled(), rng)), opt)
+    # the chunk: mode split's launches, each round == K-cur's
+    msl = opt_.min_seed_len
+    jobs = smem_cursor.round1_jobs(len(ld), didx.idt, qd.device)
+    rounds = {}
+    for name in ("round1", "round2"):
+        fst, bst = {}, {}
+        calls = smem_split.run_fwd(didx, qd, ld, jobs, stats=fst)
+        bcalls = smem_split.bwd_calls(jobs, calls)
+        rows, n = smem_split.run_bwd(didx, qd, ld, *bcalls, calls.stack, msl,
+                                     stats=bst)
+        counts = torch.zeros(len(jobs[0]), dtype=torch.int64,
+                             device=qd.device).index_add_(0, calls.job,
+                                                          n.long()).int()
+        kcur = smem_cursor.run_smem_jobs(didx, qd, ld, jobs, msl)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows, kcur[0]) and torch.equal(counts, kcur[1])):
+            raise AssertionError(f"K-fwd + K-bwd != K-cur on 5c's first "
+                                 f"chunk, {name}")
+        rounds[name] = (jobs, calls, bcalls, rows, n, fst, bst)
+        jobs = smem_cursor.round2_jobs(opt_, rows, counts)
+    alone = {"k2": k2_alone(torch, opt_, didx, qd, ld)}
+    for name, (jobs, calls, bcalls, *_) in rounds.items():
+        alone[f"fwd {name}"] = kfwd_alone(torch, didx, qd, ld, jobs)
+        alone[f"bwd {name}"] = kbwd_alone(torch, didx, qd, ld, bcalls,
+                                          calls.stack, msl)
+        alone[f"kcur {name}"] = kcur_alone(torch, opt_, didx, qd, ld, jobs)
+    best = interleaved_min(alone, 10, 4, torch.device(DEV))
+    t1 = time.perf_counter()
+    launches = {}
+    for name, (jobs, calls, bcalls, rows, n, fst, bst) in rounds.items():
+        fb, bb = alone[f"fwd {name}"].buffers, alone[f"bwd {name}"].buffers
+        per_job = torch.bincount(calls.job, minlength=len(jobs[0])).int()
+        if not (torch.equal(fb[5], per_job)
+                and torch.equal(fb[7], fst["steps"])
+                and torch.equal(fb[8], fst["chain"]) and torch.equal(bb[5], n)
+                and torch.equal(bb[6], bst["steps"])
+                and torch.equal(bb[7], bst["chain"])):
+            raise AssertionError(f"K-fwd or K-bwd alone != its wrapper "
+                                 f"({name})")
+        got = ksplit_bytes(torch, np, didx, qd, ld, opt_, jobs, calls,
+                           len(rows))
+        m = calls.m.cpu().numpy()
+        cj = per_job.cpu().numpy()
+        fch, bch = (s["chain"].cpu().numpy() for s in (fst, bst))
+        launches[name] = {
+            "jobs": len(jobs[0]), "calls": len(m), "rows": len(rows),
+            "fwd_ms": round(best[f"fwd {name}"], 4),
+            "bwd_ms": round(best[f"bwd {name}"], 4),
+            "kcur_ms": round(best[f"kcur {name}"], 4),
+            "split_over_kcur": round((best[f"fwd {name}"]
+                                      + best[f"bwd {name}"])
+                                     / best[f"kcur {name}"], 4),
+            "calls_a_job_mean": round(float(cj.mean()), 4),
+            "calls_a_job_max": int(cj.max()),
+            "m_a_call_mean": round(float(m.mean()), 4),
+            "m_a_call_max": int(m.max()),
+            "fwd_chain_a_job_mean": round(float(fch.mean()), 3),
+            "fwd_chain_a_job_max": int(fch.max()),
+            "bwd_chain_a_call_mean": round(float(bch.mean()), 3),
+            "bwd_chain_a_call_max": int(bch.max()),
+            "second_launch_jobs": fst["second_launch_jobs"],
+            "fwd_occ_rows_read": got["fwd"][1], "fwd_bytes": got["fwd"][0],
+            "fwd_bound_ms": round(bytes_bound({"bytes": got["fwd"][0]})[0],
+                                  6),
+            "bwd_occ_rows_read": got["bwd"][1], "bwd_bytes": got["bwd"][0],
+            "bwd_bound_ms": round(bytes_bound({"bytes": got["bwd"][0]})[0],
+                                  6)}
+    count_s = time.perf_counter() - t1
+    plain = cases[f"{GENOME_MB} Mbp"]["int32"]["round1"]
+    one = launches["round1"]
+    rows = {k: {"reads": len(ld), "jobs": one["jobs"], "calls": one["calls"],
+                "ms": one[f"{k}_ms"], "plain_ms": plain[f"{k}_plain_ms"],
+                "plain_reads": cases[f"{GENOME_MB} Mbp"]["int32"]["reads"],
+                "occ_rows_read": one[f"{k}_occ_rows_read"],
+                "bytes": one[f"{k}_bytes"], "max_abs_err": 0,
+                "bound_ms": one[f"{k}_bound_ms"]} for k in ("fwd", "bwd")}
+    print("[3l K-fwd/K-bwd] " + json.dumps({
+        "tolerance": 0, "cases": cases, "chunk": launches,
+        "k2_ms": round(best["k2"], 4), "rounds_equal_kcur": True,
+        "main_launches": rows,
+        "count_rows_s": round(count_s, 1),
+        "card": "the first chunk of 5c (16,384 reads)",
+        **ksplit_launch_facts(torch, qd.shape[1]),
+        "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+    return rows
+
+
 def mode_counts(reset=False):
     """{kernel: its wrapper's launches} of the kernels a seed mode may
     launch (set to 0 first where ``reset``)."""
     from tpubwa_torch.device import extend_kernel as ek
-    from tpubwa_torch.device import occ, smem, smem_cursor, smem_fused
+    from tpubwa_torch.device import (occ, smem, smem_cursor, smem_fused,
+                                     smem_split)
     fns = {"rightmost_reach": smem.rightmost_reach,
            "smem_jobs": smem_cursor.run_smem_jobs,
+           "smem_fwd": smem_split.run_fwd, "smem_bwd": smem_split.run_bwd,
            "seed_strategy": smem._seed_strategy_scan,
            "smem_rounds12": smem_fused.rounds12_megaq,
            "sa_lookup": occ.sa_lookup, "ksw_extend": ek.extend_batch}
@@ -4690,14 +5020,26 @@ def reach_launch_case(torch, np, didx, qd, ld, jobs):
     return case, (pik, pe)
 
 
+# each device mode of 5k: the seeding kernels of its rounds 1 and 2, each
+# with its most launches a round (None: a second launch re-runs the units
+# past their slots)
+MODE_KERNELS = {"reach": {"rightmost_reach": 1},
+                "cursor": {"smem_jobs": None}, "fused": {"smem_jobs": None},
+                "mega": {"smem_rounds12": None},
+                "split": {"smem_fwd": None, "smem_bwd": 1}}
+
+
 def phase_seed_modes(torch, np, main, megaq):
     """[5k seed modes]: phase 5's 2 x 8,192 pairs through the port's
-    aligner on cuda with TPUBWA_SEED_MODE=reach, then =cursor, each after
-    a 1,024-pair warm-up and with the counts at 0 just before the run:
-    reach seeds rounds 1 and 2 on K-reach (two launches a chunk), cursor
-    on K-cur (two or more a chunk), both round 3 on K3; neither launches
-    K2, and the SA stage walks every row (no fused walk).  Each SAM must
-    equal phase 5's byte for byte.  Reads/s and the seeding stage's wall
+    aligner on cuda with TPUBWA_SEED_MODE=reach, =cursor, =mega, =fused
+    and =split in turn, each after a 1,024-pair warm-up and with the
+    counts at 0 just before the run: reach seeds rounds 1 and 2 on
+    K-reach (two launches a chunk), cursor and fused on K-cur (two or
+    more a chunk), mega on K2 (one or more a chunk), split on K-fwd (two
+    or more a chunk) and K-bwd (two a chunk), all round 3 on K3 (one a
+    chunk); none launches another seeding kernel (``MODE_KERNELS``), and
+    the SA stage walks every row (no fused walk).  Each SAM must equal
+    phase 5's byte for byte.  Reads/s and the seeding stage's wall
     beside phase 5's and 5c's, and each mode's launches.  Then mode
     reach's two K-reach launches on 5c's first chunk (the same reads and
     packing as the modes' first chunk): round 1 (every (read, column))
@@ -4714,7 +5056,8 @@ def phase_seed_modes(torch, np, main, megaq):
     n_reads = sum(len(b) for b in batches)
     warm = simulate_pe(fmi.bnt, 1024, 100, np.random.default_rng(2))
     facts, launches = {}, {}
-    for mode in ("reach", "cursor"):
+    seeding_kernels = {k for ks in MODE_KERNELS.values() for k in ks}
+    for mode, own in MODE_KERNELS.items():
         aligner = seed_aligner(opt, fmi, mode)
         for _ in process_batches(opt, fmi, iter([warm]), 0,
                                  align_fn=aligner):
@@ -4733,12 +5076,14 @@ def phase_seed_modes(torch, np, main, megaq):
                                  f"vs {len(main['sam'])} lines, first diff "
                                  f"{sam_diff(lines, main['sam'])})")
         calls = seeding.calls
-        own = "rightmost_reach" if mode == "reach" else "smem_jobs"
-        other = "smem_jobs" if mode == "reach" else "rightmost_reach"
-        if (got[own] < calls + 1 or got[own] > (2 if mode == "reach" else
-                                                 1 << 30) * calls
-                or got[other] or got["smem_rounds12"] or got["sa_lookup"]
-                or got["seed_strategy"] != calls):
+        # a launch a chunk for mega's one dispatch, else a launch a round
+        # (round 2 in at least one chunk)
+        rounds = 1 if mode == "mega" else 2
+        least = calls if rounds == 1 else calls + 1
+        if (any(got[k] < least or (cap and got[k] > cap * rounds * calls)
+                for k, cap in own.items())
+                or any(got[k] for k in seeding_kernels - set(own))
+                or got["sa_lookup"] or got["seed_strategy"] != calls):
             raise AssertionError(f"5k {mode} launched {got} in {calls} "
                                  "chunks")
         launches[mode] = got
@@ -5005,6 +5350,7 @@ def main() -> int:
     seeding = timed(phase_seeding, torch, np, main_path, megaq)
     reach_3j, _ = timed(phase_reach, torch, np, megaq)
     kcur_case = timed(phase_kcur, torch, np, main_path, megaq)
+    split_cases = timed(phase_ksplit, torch, np, main_path, megaq)
     modes, reach_case = timed(phase_seed_modes, torch, np, main_path,
                               megaq)
     # K-reach's row: mode reach's round-1 launch (5k), held to plain
@@ -5110,10 +5456,26 @@ def main() -> int:
         "name": "smem_jobs", "route": "cuda",
         "source": "tpubwa_torch/csrc/smem.cu",
         "replaces": "tpubwa/device/smem_cursor.py:54",
-        "launches": modes["cursor"]["smem_jobs"],
+        "launches": sum(modes[m]["smem_jobs"] for m in ("cursor", "fused")),
         "max_abs_err": kcur_case["max_abs_err"], "ms": kcur_case["ms"],
         "plain_ms": kcur_case["plain_ms"], "bound_ms": round(bound_ms, 6),
         "bound_by": bound_by, "library_ms": None})
+    # K-fwd and K-bwd: likewise, their round-1 launches on that chunk
+    for name, key, replaces in (
+            ("smem_fwd", "fwd", "tpubwa/device/smem_split.py:61"),
+            ("smem_bwd", "bwd", "tpubwa/device/smem_split.py:198")):
+        case = split_cases[key]
+        bound_ms, bound_by, parts = bytes_bound(case)
+        sass[name] = dict(bytes=case["bytes"], jobs=case["jobs"],
+                          calls=case["calls"],
+                          **{k: round(v, 6) for k, v in parts.items()})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpubwa_torch/csrc/smem.cu", "replaces": replaces,
+            "launches": modes["split"][name],
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": round(bound_ms, 6),
+            "bound_by": bound_by, "library_ms": None})
     # the TP instantiations: bound by bytes alone, the distinct sectors
     # of the slabs' own rows their run reads
     for name, src, replaces, n, case in (

@@ -170,18 +170,15 @@ def test_entry_without_a_card_raises(monkeypatch):
         te.entry()
 
 
-def test_reach_mode_still_raises(genome):
-    """The machine modes not ported yet raise; reach and cursor seed the
-    fixture's reads (lengths 0 to 48, N bases, an A run) as tpubwa's
-    reach does, rows and read ids in order."""
+def test_device_modes_seed_as_tpubwa_reach(genome):
+    """reach, cursor, mega, fused and split seed the fixture's reads
+    (lengths 0 to 48, N bases, an A run) as tpubwa's reach does, rows and
+    read ids in order."""
     base, jdidx, reads, lens = genome
-    for mode in ("mega", "fused", "split"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            collect_intv_device(MemOpt(), base, reads, lens, None, mode=mode)
     jflat, jfrid = jsmem.collect_intv_device(
         tpubwa.opts.MemOpt(), jdidx, reads, lens, mode="reach",
         return_flat=True)
-    for mode in ("reach", "cursor"):
+    for mode in ("reach", "cursor", "mega", "fused", "split"):
         flat, frid, _ = collect_intv_device(MemOpt(), base, reads, lens,
                                             None, mode=mode)
         assert flat.tolist() == np.asarray(jflat).tolist()

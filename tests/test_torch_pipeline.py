@@ -24,6 +24,7 @@ from tpubwa_torch.cli import main_index, main_mem
 from tpubwa_torch.device import pipeline as tp
 from tpubwa_torch.device.smem import collect_intv_device
 from tpubwa_torch.host.native_emit import FlatRegs
+from tpubwa_torch.host.pipeline import process_seqs
 from tpubwa_torch.index import FMIndex
 from tpubwa_torch.io.fastq import Read
 from tpubwa_torch.opts import MEM_F_PE, MemOpt
@@ -342,12 +343,41 @@ def test_cuda_without_a_card_raises(setup, monkeypatch):
     assert tp.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_missing_paths_raise_not_implemented(setup, monkeypatch):
+def test_chunk_reads_from_env(setup, monkeypatch):
+    """TPUBWA_CHUNK_READS, read when the aligner is made (tpubwa's
+    variable, default 16,384 here), sets the reads a seeding chunk: `mem`'s
+    PE SAM at the default (one chunk of this batch) and at 16 reads a
+    chunk (three chunks, each seeded in one call) is the same; a size
+    below 1 raises."""
+    codes, fmi, _ = setup
+    rng = np.random.default_rng(16)
+    reads, _ = _reads([x for n, s1, s2, *_ in simulate_pairs(
+        codes, 24, 100, rng, snp_rate=0.02) for x in ((n, s1), (n, s2))])
+    opt = MemOpt(flag=MEM_F_PE)
+    seeded = []
+    real = tp.collect_intv_device
+    monkeypatch.setattr(tp, "collect_intv_device",
+                        lambda *a, **k: seeded.append(1) or real(*a, **k))
+    sams = {}
+    for chunk in ("", "16"):
+        monkeypatch.setenv("TPUBWA_CHUNK_READS", chunk or "16384")
+        aligner = tp.make_device_aligner(opt, fmi, device="cpu")
+        assert aligner.chunk_reads == int(chunk or 16384)
+        seeded.clear()
+        sams[chunk] = process_seqs(opt, fmi, reads, 0, align_fn=aligner)
+        assert len(seeded) == (3 if chunk else 1)
+    assert sams["16"] == sams[""] and len(sams[""]) >= len(reads)
+    monkeypatch.setenv("TPUBWA_CHUNK_READS", "0")
+    with pytest.raises(ValueError, match="TPUBWA_CHUNK_READS"):
+        tp.make_device_aligner(opt, fmi, device="cpu")
+
+
+def test_non_scmat_matrix_and_device_modes_equal_host(setup, monkeypatch):
     """A scoring matrix that is not bwa_fill_scmat-structured extends
     through K1-mat on tpubwa's non-descriptor route: the regions equal
     tpubwa's aligner's (its host scalar loops) under the same patched
-    matrix, with no descriptor wave.  A seed mode not ported yet still
-    raises (split); cursor, ported, seeds as host mode does."""
+    matrix, with no descriptor wave.  Seed modes cursor and split seed
+    as host mode does."""
     codes, fmi, jfmi = setup
     bad = MemOpt().scoring_matrix()
     bad[0, 1] = -7
@@ -370,8 +400,7 @@ def test_missing_paths_raise_not_implemented(setup, monkeypatch):
         _flat(FlatRegs.from_lists(want))
     assert port.extender.n_waves > 0
     arr, lens = port._pack(reads[:4], 4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        collect_intv_device(opt, port.didx, arr, lens, fmi, mode="split")
     host = collect_intv_device(opt, port.didx, arr, lens, fmi)
-    got = collect_intv_device(opt, port.didx, arr, lens, fmi, mode="cursor")
-    assert all(np.array_equal(a, b) for a, b in zip(got[:2], host[:2]))
+    for mode in ("cursor", "split"):
+        got = collect_intv_device(opt, port.didx, arr, lens, fmi, mode=mode)
+        assert all(np.array_equal(a, b) for a, b in zip(got[:2], host[:2]))

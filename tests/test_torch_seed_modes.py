@@ -1,7 +1,9 @@
-"""The port's seed modes reach and cursor on the CPU (device/smem.py:
-collect_intv_device(mode="reach" | "cursor"), the reach rounds over
-K-reach's plain version and the job rounds over K-cur's,
-device/smem_cursor.py) against tpubwa on JAX-CPU in the same mode, the
+"""The port's seed modes reach, cursor, mega, fused and split on the CPU
+(device/smem.py:collect_intv_device(mode=...): the reach rounds over
+K-reach's plain version, the job rounds of cursor and fused over
+K-cur's (device/smem_cursor.py), mega's over K2's
+(device/smem_fused.py) and split's over K-fwd's and K-bwd's
+(device/smem_split.py)) against tpubwa on JAX-CPU in the same mode, the
 scalar oracle ref.smem.collect_intv, the port's host mode, and one
 device against two replicas.
 
@@ -16,9 +18,10 @@ device against two replicas.
 * ``collect_intv_device(mode=...)``'s (flat, frid) == tpubwa's
   ``return_flat=True``, in order, == ref.smem.collect_intv read by read
   and == host mode;
-* `mem`'s path (process_seqs over the aligner) in each mode, SE and PE:
-  SAM == tpubwa's aligner in the same mode == the port's host mode, and
-  over a DataParallel of two CPU replicas == one device.
+* `mem`'s path (process_seqs over the aligner) in each mode, SE and PE,
+  at max_mem_intv 20 and 0: SAM == tpubwa's aligner in the same mode ==
+  the port's host mode, and over a DataParallel of two CPU replicas ==
+  one device.
 
 On tpubwa's seeding test genome (3,070 bases with a tandem repeat,
 tests/test_device_smem.py) and its cursor genome (60 kb with planted
@@ -43,7 +46,8 @@ from tpubwa.device.smem_cursor import run_smem_jobs as jax_run_smem_jobs
 from tpubwa.index.build import BntSeq as JaxBnt, SeqAnn as JaxAnn
 from tpubwa.ref.smem import collect_intv, smem1a
 from tpubwa_torch.device import pipeline as tp
-from tpubwa_torch.device import smem, smem_cursor, smem_fused, warp_host
+from tpubwa_torch.device import (smem, smem_cursor, smem_fused, smem_split,
+                                 warp_host)
 from tpubwa_torch.device.occ import DeviceIndex
 from tpubwa_torch.dist.sharding import DataParallel
 from tpubwa_torch.host.pipeline import process_seqs
@@ -56,7 +60,7 @@ from test_smem_cursor import _reads as cursor_reads
 from test_torch_occ_host import host_arrays
 from test_torch_smem import _pack, _test_genome
 
-MODES = ["reach", "cursor"]
+MODES = ["reach", "cursor", "mega", "fused", "split"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -324,15 +328,25 @@ def test_modes_equal_tpubwa_and_the_oracle(genomes, references, mode, name,
     assert np.array_equal(flat, host[0]) and np.array_equal(frid, host[1])
 
 
+# each mode's rounds 1 and 2: {function: calls} on the "test" genome
+OWN_ROUNDS = {"reach": {"rightmost_reach": 2},
+              "cursor": {"run_smem_jobs": 2}, "fused": {"run_smem_jobs": 2},
+              "mega": {"rounds12_megaq": 1},
+              "split": {"run_fwd": 2, "run_bwd": 2}}
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_modes_run_their_own_rounds(genomes, mode, monkeypatch):
     """reach seeds through rightmost_reach (round 1 every (read, start)
-    of the chunk, round 2 all its jobs: two calls), cursor through
-    run_smem_jobs (two calls); neither calls K2, the native seeder or
-    the other mode's function, and both run K3 once."""
+    of the chunk, round 2 all its jobs: two calls), cursor and fused
+    through run_smem_jobs (two calls), mega through K2's rounds12_megaq
+    (one call for both rounds), split through run_fwd and run_bwd (each
+    once a round); none calls the native seeder or another mode's
+    function, and each runs K3 once."""
     fmi, _, reads = genomes["test"]
     arr, lens = _pack(reads)
     calls = {}
+    own = OWN_ROUNDS[mode]
 
     def spy(mod, name):
         real = getattr(mod, name)
@@ -345,14 +359,18 @@ def test_modes_run_their_own_rounds(genomes, mode, monkeypatch):
     def banned(*a, **k):
         raise AssertionError("a mode seeded through another's function")
 
-    for name in ("rightmost_reach", "run_smem_jobs", "_seed_strategy_scan"):
-        spy(smem, name)
-    for name in ("rounds12_megaq", "smem_collect_batch_native"):
-        monkeypatch.setattr(smem, name, banned)
+    for mod, name in ((smem, "rightmost_reach"), (smem, "run_smem_jobs"),
+                      (smem, "rounds12_megaq"), (smem_split, "run_fwd"),
+                      (smem_split, "run_bwd")):
+        if name in own:
+            spy(mod, name)
+        else:
+            monkeypatch.setattr(mod, name, banned)
+    spy(smem, "_seed_strategy_scan")
+    monkeypatch.setattr(smem, "smem_collect_batch_native", banned)
     smem.collect_intv_device(MemOpt(), _didx(fmi, "int32"), arr, lens, fmi,
                              mode=mode)
-    want = {"reach": "rightmost_reach", "cursor": "run_smem_jobs"}[mode]
-    assert calls == {want: 2, "_seed_strategy_scan": 1}
+    assert calls == {**own, "_seed_strategy_scan": 1}
 
 
 @pytest.fixture(scope="module")
@@ -379,18 +397,25 @@ def _sam(opt, fmi, reads, mode, dp=None):
     return process_seqs(opt, fmi, reads, 0, align_fn=aligner)
 
 
+def _mem_opts(paired, max_mem_intv=20):
+    """The port's and tpubwa's MemOpt for `mem` SE or PE."""
+    kw = {"max_mem_intv": max_mem_intv}
+    return _opts(flag=MEM_F_PE, **kw) if paired else _opts(**kw)
+
+
 @pytest.fixture(scope="module")
 def one_device_sam(corpus):
-    """The port's SAM on one CPU device by (mode, paired), each computed
-    once for the tests that compare with it."""
+    """The port's SAM on one CPU device by (mode, paired, max_mem_intv),
+    each computed once for the tests that compare with it."""
     cache = {}
 
-    def get(mode, paired):
-        if (mode, paired) not in cache:
+    def get(mode, paired, max_mem_intv=20):
+        key = (mode, paired, max_mem_intv)
+        if key not in cache:
             fmi, _, recs = corpus
-            opt = MemOpt(flag=MEM_F_PE) if paired else MemOpt()
-            cache[mode, paired] = _sam(opt, fmi, recs[paired][0], mode)
-        return cache[mode, paired]
+            opt, _ = _mem_opts(paired, max_mem_intv)
+            cache[key] = _sam(opt, fmi, recs[paired][0], mode)
+        return cache[key]
     return get
 
 
@@ -400,16 +425,24 @@ def test_mem_sam_equals_tpubwa_and_host(corpus, one_device_sam, mode,
                                         paired, monkeypatch):
     """`mem`'s path with TPUBWA_SEED_MODE=mode, SE and PE: SAM == tpubwa's
     aligner in the same mode (on JAX-CPU) == the port's host mode."""
+    _held_to_tpubwa_and_host(corpus, one_device_sam, mode, paired, 20,
+                             monkeypatch)
+
+
+def _held_to_tpubwa_and_host(corpus, one_device_sam, mode, paired,
+                             max_mem_intv, monkeypatch):
+    """`mem`'s SAM in ``mode`` == tpubwa's aligner in the mode (JAX-CPU)
+    == the port's host mode."""
     _, jfmi, recs = corpus
     reads, jreads = recs[paired]
-    _, jopt = _opts(flag=MEM_F_PE) if paired else _opts()
-    got = one_device_sam(mode, paired)
+    _, jopt = _mem_opts(paired, max_mem_intv)
+    got = one_device_sam(mode, paired, max_mem_intv)
     monkeypatch.setenv("TPUBWA_SEED_MODE", mode)
     jax = jax_aligner(jopt, jfmi, platform="cpu")
     assert jax.seed_mode == mode
     assert got == tpubwa.host.pipeline.process_seqs(jopt, jfmi, jreads, 0,
                                                     align_fn=jax)
-    assert got == one_device_sam("host", paired)
+    assert got == one_device_sam("host", paired, max_mem_intv)
     assert len(got) >= len(reads)
 
 
@@ -419,12 +452,33 @@ def test_mem_over_two_replicas_equals_one_device(corpus, one_device_sam,
     """The aligner over DataParallel([cpu, cpu]) in each mode (the chunk's
     reads split between the replicas, each seeding its part): PE SAM ==
     one device's, and both replicas seeded reads."""
+    _replicas_held_to_one_device(corpus, one_device_sam, mode, 20)
+
+
+def _replicas_held_to_one_device(corpus, one_device_sam, mode,
+                                 max_mem_intv):
+    """PE SAM over DataParallel([cpu, cpu]) == one device's; both
+    replicas seeded reads."""
     fmi, _, recs = corpus
     reads, _ = recs[True]
     dp = DataParallel(["cpu", "cpu"])
     try:
-        multi = _sam(MemOpt(flag=MEM_F_PE), fmi, reads, mode, dp=dp)
+        opt, _ = _mem_opts(True, max_mem_intv)
+        multi = _sam(opt, fmi, reads, mode, dp=dp)
         assert all(t.get("reads", 0) > 0 for t in dp.tally)
     finally:
         dp.close()
-    assert multi == one_device_sam(mode, True)
+    assert multi == one_device_sam(mode, True, max_mem_intv)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_mem_sam_without_round3(corpus, one_device_sam, mode, paired,
+                                monkeypatch):
+    """As above at max_mem_intv 0 (no round 3, K3 not run): SAM ==
+    tpubwa's aligner in the same mode == the port's host mode; PE over
+    two CPU replicas == one device."""
+    _held_to_tpubwa_and_host(corpus, one_device_sam, mode, paired, 0,
+                             monkeypatch)
+    if paired:
+        _replicas_held_to_one_device(corpus, one_device_sam, mode, 0)

@@ -289,19 +289,15 @@ def test_k2_refuses_reads_too_long(genomes, monkeypatch, idt):
         smem_fused.rounds12_megaq(MemOpt(), didx, arr, lens)
 
 
-def test_other_seed_modes_raise(genomes):
-    """mega, fused and split are not ported yet and raise; reach and
-    cursor seed the reads as megaq does (and as host mode)."""
+def test_other_seed_modes_seed_as_megaq(genomes):
+    """reach, cursor, mega, fused and split seed the reads as megaq does
+    (and as host mode); an unknown mode raises ValueError."""
     fmi, _, reads = genomes["test"]
     didx = _didx(fmi, "int32")
     arr, lens = _pack(reads[:2])
-    for mode in ("mega", "fused", "split"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            smem.collect_intv_device(MemOpt(), didx, arr, lens, fmi,
-                                     mode=mode)
     megaq = smem.collect_intv_device(MemOpt(), didx, arr, lens, fmi,
                                      mode="megaq")
-    for mode in ("cursor", "reach"):
+    for mode in ("cursor", "reach", "mega", "fused", "split"):
         got = smem.collect_intv_device(MemOpt(), didx, arr, lens, fmi,
                                        mode=mode)
         assert all(np.array_equal(a, b) for a, b in zip(got[:2], megaq[:2]))

@@ -518,7 +518,7 @@ def cursor_jobs(didx, arr, lens, opt):
     round-2 jobs of the plain round-1 rows, plain)]."""
     r1 = smem_cursor.round1_jobs(len(lens), didx.idt, "cpu")
     p1 = kcur_plain(didx, arr, lens, r1, opt)
-    r2 = smem.round2_jobs(opt, *p1[:2])
+    r2 = smem_cursor.round2_jobs(opt, *p1[:2])
     return [(r1, p1), (r2, kcur_plain(didx, arr, lens, r2, opt))]
 
 

@@ -1,12 +1,15 @@
 // SMEM seeding (bwamem.c:mem_collect_intv) for Hopper (sm_90a), over the
 // device functions of csrc/smem.cuh and csrc/fm.cuh: rounds 1 and 2 a
-// warp a read (K2), round 3 a group of 8 lanes a read (K3), and
-// bwt_smem1a a warp a job (K-cur, seed mode cursor).
+// warp a read (K2), round 3 a group of 8 lanes a read (K3),
+// bwt_smem1a a warp a job (K-cur, seed modes cursor and fused), and its
+// forward and backward halves apart (K-fwd a warp a job, K-bwd a warp a
+// recorded call: seed mode split).
 //
 // K2, collect12_kernel, replaces rounds 1 and 2 of
 // tpubwa/device/smem_fused.py:smem_chunk_machine_q (:872, driven by
-// rounds12_megaq :1336); the wrapper is
-// tpubwa_torch/device/smem_fused.py:rounds12_megaq.  Round 1 walks x
+// rounds12_megaq :1336), and in seed mode mega those of
+// smem_chunk_machine (:730, driven by rounds12_mega :1505); the wrapper
+// is tpubwa_torch/device/smem_fused.py:rounds12_megaq.  Round 1 walks x
 // across the read (bwt_smem1a at min_intv 1) and keeps the rows of at
 // least min_seed_len bases; round 2 re-seeds each round-1 row of at least
 // split_len bases and at most split_width occurrences from its middle,
@@ -81,7 +84,9 @@
 //     before anything runs.
 // K-cur, smem_jobs_kernel, replaces tpubwa/device/smem_cursor.py:
 // smem_cursor_machine (:54, its while_loop :237, driven by
-// tpubwa/device/smem.py:_rounds12_cursor :275); the wrapper is
+// tpubwa/device/smem.py:_rounds12_cursor :275), and in seed mode fused
+// tpubwa/device/smem_fused.py:smem_call_machine (:690, driven by
+// rounds12_fused :1616); the wrapper is
 // tpubwa_torch/device/smem_cursor.py:run_smem_jobs.  A job is (read, x0,
 // min_intv, one_shot): a one-shot job makes one bwt_smem1a(x0, min_intv)
 // call (round 2's re-seeding), any other restarts at each call's return,
@@ -99,6 +104,28 @@
 // int64; a longer L is refused before anything runs.  tpubwa's stack and
 // row caps, its overflow flag and its host fallback have no counterpart:
 // every bound comes from the read's length.
+// K-fwd, smem_fwd_kernel, and K-bwd, smem_bwd_kernel (seed mode split),
+// replace tpubwa/device/smem_split.py:smem_fwd_machine (:61, its
+// while_loop :184) and smem_bwd_machine (:198, :318), driven by
+// rounds12_split (:453); the wrappers are tpubwa_torch/device/
+// smem_split.py:run_fwd and run_bwd.  They are K-cur's bwt_smem1a cut
+// where the forward phase hands its stack to the backward phase
+// (smem.cuh:smem1a_fwd, smem1a_bwd).  K-fwd runs a job as K-cur does, a
+// warp a job from a job queue, and writes each call's stack (x0, x1,
+// size, qe a pushed interval, longest match first) and the call (x, m,
+// ret) to global memory in `slots` slots a job, counting on past them;
+// the wrapper re-runs the jobs past their slots with exact room, as
+// collect12 does for K2.  K-bwd takes a warp a recorded call from a call
+// queue: it loads the call's stack into shared memory, runs the backward
+// half, and writes the call's rows where its stack lay (a call emits at
+// most m rows, so the wrapper's prefix sum of m is exact: no second
+// launch).  The bound and the design question are K-cur's: a job's chain
+// is its forward steps plus its calls' backward strips, and spreading a
+// job's calls over warps takes the strips off the job's chain, at the
+// price of a trip through global memory for each stack.  K-fwd keeps two
+// stacks a warp in shared memory (curr, prev), K-bwd three (curr, prev
+// and the call's rows, K-cur's limit: L <= 3,873 in int32, 1,936 in
+// int64); both are refused past it before anything runs.
 // What K3's design does about it:
 //   * a group of kGroup = 8 lanes a read, 4 reads a warp: each forward
 //     step's two occ rows are counted across the group
@@ -160,6 +187,8 @@ constexpr int kGroup = 8;      // K3: lanes a read (1, 4, 8, 16 or 32)
 constexpr int kMaxWarps = 4;   // K2: warps a block, at most
 constexpr int kStacks = 4;     // curr, prev, a call's rows, round 1's rows
 constexpr int kJobStacks = 3;  // K-cur: curr, prev, a call's rows
+constexpr int kFwdStacks = 2;  // K-fwd: curr, prev
+constexpr int kBwdStacks = 3;  // K-bwd: curr, prev, the call's rows
 
 using seed::Intv;
 using seed::kFull;
@@ -306,6 +335,140 @@ __global__ void smem_jobs_kernel(fm::Index<Idx> f,
             if (chain_out) chain_out[t] = chain;
         }
         __syncwarp();  // the stacks' readers are done before the next job
+    }
+}
+
+// K-fwd: a warp a job, from the job queue (*queue, zero at launch); the
+// t-th job taken is ids[t].  Each of its calls' stacks goes to stack[t]
+// ([n, slots] intervals of four ranks: x0, x1, size, qe), call after
+// call, each longest match first, and the call itself, (x, m, ret), to
+// calls[t] ([n, slots] int32 triples); n_calls[t] and n_intv[t] count on
+// past the slots (a call pushes at least one interval, so n_calls <=
+// n_intv).  warp_bytes = kFwdStacks * (L + 1) intervals
+template <class Idx>
+__global__ void smem_fwd_kernel(fm::Index<Idx> f,
+                                const uint8_t* __restrict__ q, int64_t L,
+                                const int32_t* __restrict__ lens,
+                                const int32_t* __restrict__ read,
+                                const int32_t* __restrict__ x0,
+                                const Idx* __restrict__ min_intv,
+                                const uint8_t* __restrict__ one_shot,
+                                const int32_t* __restrict__ ids, int64_t n,
+                                int slots, size_t warp_bytes,
+                                int32_t* __restrict__ queue,
+                                Idx* __restrict__ stack,
+                                int32_t* __restrict__ calls,
+                                int32_t* __restrict__ n_calls,
+                                int32_t* __restrict__ n_intv,
+                                int32_t* __restrict__ steps_out,
+                                int32_t* __restrict__ chain_out) {
+    const int lane = threadIdx.x & 31;
+    f = fm::with_l2(f);
+    Intv<Idx>* curr = static_cast<Intv<Idx>*>(warp_shared(warp_bytes));
+    Intv<Idx>* prev = curr + (L + 1);
+    for (;;) {
+        int t = 0;
+        if (lane == 0) t = atomicAdd(queue, 1);
+        t = __shfl_sync(kFull, t, 0);
+        if (t >= n) break;
+        const int64_t j = ids[t];
+        const uint8_t* qr = q + (int64_t)read[j] * L;
+        const int len = lens[read[j]];
+        const bool once = one_shot[j] != 0;
+        const Idx mi = min_intv[j] < 1 ? (Idx)1 : min_intv[j];
+        Idx* out = stack + (int64_t)t * slots * 4;
+        int32_t* call = calls + (int64_t)t * slots * 3;
+        int nc = 0, ni = 0, steps = 0, chain = 0;
+        for (int x = x0[j]; x < len;) {
+            if (qr[x] > 3) {  // smem1a would return x + 1, with no call
+                if (once) break;
+                ++x;
+                continue;
+            }
+            __syncwarp();  // the stacks' last readers are done
+            int m = 0;
+            const int ret = seed::smem1a_fwd(f, qr, len, x, mi, curr, prev, m,
+                                             steps, chain);
+            for (int k = lane; k < m && ni + k < slots; k += 32) {
+                const Intv<Idx> p = prev[k];
+                Idx* o = out + (int64_t)(ni + k) * 4;
+                o[0] = p.x0;
+                o[1] = p.x1;
+                o[2] = p.size;
+                o[3] = p.qe;
+            }
+            if (lane == 0 && nc < slots) {
+                call[3 * nc] = x;
+                call[3 * nc + 1] = m;
+                call[3 * nc + 2] = ret;
+            }
+            ni += m;
+            ++nc;
+            if (once) break;
+            x = ret;
+        }
+        if (lane == 0) {
+            n_calls[t] = nc;
+            n_intv[t] = ni;
+            if (steps_out) steps_out[t] = steps;
+            if (chain_out) chain_out[t] = chain;
+        }
+        __syncwarp();  // the stacks' readers are done before the next job
+    }
+}
+
+// K-bwd: a warp a recorded call, from the call queue (*queue, zero at
+// launch).  Call t's stack, stack[off[t], off[t] + m[t]) (four ranks an
+// interval, longest match first, as K-fwd writes them), goes into the
+// warp's prev stack; smem1a_bwd runs from x[t] on read read[t], and the
+// rows of at least min_seed_len bases go to rows[off[t], off[t] +
+// counts[t]) by query start.  A call emits at most m[t] rows
+// (smem1a_bwd), so a call's rows fit where its stack's slots are.
+// warp_bytes = kBwdStacks * (L + 1) intervals
+template <class Idx>
+__global__ void smem_bwd_kernel(fm::Index<Idx> f,
+                                const uint8_t* __restrict__ q, int64_t L,
+                                const int32_t* __restrict__ read,
+                                const int32_t* __restrict__ x,
+                                const int32_t* __restrict__ m,
+                                const int64_t* __restrict__ off,
+                                const Idx* __restrict__ min_intv,
+                                const Idx* __restrict__ stack, int64_t n,
+                                int min_seed_len, size_t warp_bytes,
+                                int32_t* __restrict__ queue,
+                                Intv<Idx>* __restrict__ rows,
+                                int32_t* __restrict__ counts,
+                                int32_t* __restrict__ steps_out,
+                                int32_t* __restrict__ chain_out) {
+    const int lane = threadIdx.x & 31;
+    f = fm::with_l2(f);
+    Intv<Idx>* curr = static_cast<Intv<Idx>*>(warp_shared(warp_bytes));
+    Intv<Idx>* prev = curr + (L + 1);
+    Intv<Idx>* mem = curr + 2 * (L + 1);
+    for (;;) {
+        int t = 0;
+        if (lane == 0) t = atomicAdd(queue, 1);
+        t = __shfl_sync(kFull, t, 0);
+        if (t >= n) break;
+        const int nm = m[t];
+        const int64_t o = off[t];
+        for (int k = lane; k < nm; k += 32) {
+            const Idx* s = stack + (o + k) * 4;
+            prev[k] = Intv<Idx>{s[0], s[1], s[2], 0, s[3]};
+        }
+        __syncwarp();  // the stack is visible to every lane
+        const Idx mi = min_intv[t] < 1 ? (Idx)1 : min_intv[t];
+        int n_mem = 0, n_out = 0, steps = 0, chain = 0, none = 0;
+        seed::smem1a_bwd(f, q + (int64_t)read[t] * L, x[t], mi, curr, prev,
+                         nm, mem, n_mem, steps, chain);
+        keep_rows(mem, n_mem, min_seed_len, rows + o, nm, n_out,
+                  (Intv<Idx>*)nullptr, none);
+        if (lane == 0) {
+            counts[t] = n_out;
+            if (steps_out) steps_out[t] = steps;
+            if (chain_out) chain_out[t] = chain;
+        }
+        __syncwarp();  // the stacks' readers are done before the next call
     }
 }
 
@@ -512,6 +675,18 @@ cudaError_t shape_jobs(int64_t L, int device, Shape12* s) {
     return warp_shape<Idx>(smem_jobs_kernel<Idx>, kJobStacks, L, device, s);
 }
 
+// K-fwd's and K-bwd's launch shapes for reads of L bases: as K2's, with
+// kFwdStacks and kBwdStacks
+template <class Idx>
+cudaError_t shape_fwd(int64_t L, int device, Shape12* s) {
+    return warp_shape<Idx>(smem_fwd_kernel<Idx>, kFwdStacks, L, device, s);
+}
+
+template <class Idx>
+cudaError_t shape_bwd(int64_t L, int device, Shape12* s) {
+    return warp_shape<Idx>(smem_bwd_kernel<Idx>, kBwdStacks, L, device, s);
+}
+
 template <class Idx, bool Tp>
 cudaError_t launch12(const fm::Index<Idx, fm::Rows<uint32_t, Tp>>& f,
                      const void* q, int64_t L, const void* lens,
@@ -573,6 +748,16 @@ cudaError_t tp12(int n_slabs, const int64_t* occ, const void* L2,
                                counts, steps, chain, device, stream);
 }
 
+// A persistent grid of warp-a-unit blocks for n units (K-cur, K-fwd,
+// K-bwd): what the card holds at once, or a warp a unit.  0 where the
+// queue's int32 counter, which goes past n by a take a warp, cannot take
+// n.
+inline int64_t unit_blocks(const Shape12& s, int64_t n) {
+    const int64_t blocks = std::min<int64_t>(
+        (int64_t)s.blocks_per_sm * s.sms, (n + s.warps - 1) / s.warps);
+    return n < 0 || n > INT32_MAX - blocks * s.warps ? 0 : blocks;
+}
+
 template <class Idx>
 cudaError_t launch_jobs(const void* occ, const void* L2, int64_t primary,
                         int64_t seq_len, const void* q, int64_t L,
@@ -586,12 +771,9 @@ cudaError_t launch_jobs(const void* occ, const void* L2, int64_t primary,
     cudaError_t err = shape_jobs<Idx>(L, device, &s);
     if (err != cudaSuccess) return err;  // refused: no launch is made
     if ((uintptr_t)occ & 15) return cudaErrorInvalidValue;  // load16
-    const int64_t blocks = std::min<int64_t>(
-        (int64_t)s.blocks_per_sm * s.sms, (n + s.warps - 1) / s.warps);
-    // the queue's int32 counter goes past n by a take a warp
-    if (n < 0 || n > INT32_MAX - blocks * s.warps)
-        return cudaErrorInvalidValue;
+    const int64_t blocks = unit_blocks(s, n);
     if (n == 0) return cudaSuccess;
+    if (blocks == 0) return cudaErrorInvalidValue;
     err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
     if (err != cudaSuccess) return err;
     TPUBWA_LAUNCH(smem_jobs_kernel<Idx>, (int)blocks, 32 * s.warps,
@@ -603,6 +785,64 @@ cudaError_t launch_jobs(const void* occ, const void* L2, int64_t primary,
                   min_seed_len, slots, (size_t)s.warp_bytes, (int32_t*)queue,
                   (Intv<Idx>*)rows, (int32_t*)counts, (int32_t*)steps,
                   (int32_t*)chain);
+    return cudaGetLastError();
+}
+
+template <class Idx>
+cudaError_t launch_fwd(const void* occ, const void* L2, int64_t primary,
+                       int64_t seq_len, const void* q, int64_t L,
+                       const void* lens, const void* read, const void* x0,
+                       const void* min_intv, const void* one_shot,
+                       const void* ids, int64_t n, int slots, void* queue,
+                       void* stack, void* calls, void* n_calls, void* n_intv,
+                       void* steps, void* chain, int device,
+                       cudaStream_t stream) {
+    Shape12 s;
+    cudaError_t err = shape_fwd<Idx>(L, device, &s);
+    if (err != cudaSuccess) return err;  // refused: no launch is made
+    if ((uintptr_t)occ & 15) return cudaErrorInvalidValue;  // load16
+    const int64_t blocks = unit_blocks(s, n);
+    if (n == 0) return cudaSuccess;
+    if (blocks == 0 || slots < 1) return cudaErrorInvalidValue;
+    err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
+    if (err != cudaSuccess) return err;
+    TPUBWA_LAUNCH(smem_fwd_kernel<Idx>, (int)blocks, 32 * s.warps,
+                  (size_t)(s.warps * s.warp_bytes), stream,
+                  index_of<Idx>(occ, L2, primary, seq_len), (const uint8_t*)q,
+                  L, (const int32_t*)lens, (const int32_t*)read,
+                  (const int32_t*)x0, (const Idx*)min_intv,
+                  (const uint8_t*)one_shot, (const int32_t*)ids, n, slots,
+                  (size_t)s.warp_bytes, (int32_t*)queue, (Idx*)stack,
+                  (int32_t*)calls, (int32_t*)n_calls, (int32_t*)n_intv,
+                  (int32_t*)steps, (int32_t*)chain);
+    return cudaGetLastError();
+}
+
+template <class Idx>
+cudaError_t launch_bwd(const void* occ, const void* L2, int64_t primary,
+                       int64_t seq_len, const void* q, int64_t L,
+                       const void* read, const void* x, const void* m,
+                       const void* off, const void* min_intv,
+                       const void* stack, int64_t n, int min_seed_len,
+                       void* queue, void* rows, void* counts, void* steps,
+                       void* chain, int device, cudaStream_t stream) {
+    Shape12 s;
+    cudaError_t err = shape_bwd<Idx>(L, device, &s);
+    if (err != cudaSuccess) return err;  // refused: no launch is made
+    if ((uintptr_t)occ & 15) return cudaErrorInvalidValue;  // load16
+    const int64_t blocks = unit_blocks(s, n);
+    if (n == 0) return cudaSuccess;
+    if (blocks == 0) return cudaErrorInvalidValue;
+    err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
+    if (err != cudaSuccess) return err;
+    TPUBWA_LAUNCH(smem_bwd_kernel<Idx>, (int)blocks, 32 * s.warps,
+                  (size_t)(s.warps * s.warp_bytes), stream,
+                  index_of<Idx>(occ, L2, primary, seq_len), (const uint8_t*)q,
+                  L, (const int32_t*)read, (const int32_t*)x,
+                  (const int32_t*)m, (const int64_t*)off, (const Idx*)min_intv,
+                  (const Idx*)stack, n, min_seed_len, (size_t)s.warp_bytes,
+                  (int32_t*)queue, (Intv<Idx>*)rows, (int32_t*)counts,
+                  (int32_t*)steps, (int32_t*)chain);
     return cudaGetLastError();
 }
 
@@ -769,6 +1009,76 @@ extern "C" int tpubwa_smem_jobs_shape(int idx64, int64_t L, int device,
     Shape12 s;
     err = idx64 ? shape_jobs<int64_t>(L, device, &s)
                 : shape_jobs<int32_t>(L, device, &s);
+    const int64_t got[5] = {s.warp_bytes, s.warps, s.blocks_per_sm, s.sms,
+                            s.max_len};
+    for (int i = 0; i < 5; ++i) out[i] = got[i];
+    return (int)err;
+}
+
+// K-fwd: the jobs ids[0, n) (as tpubwa_smem_jobs's), a warp a job taken
+// from the queue queue[0] (an int32 the entry zeroes on the stream
+// first); the t-th job's first `slots` stack intervals (x0, x1, size, qe)
+// go to stack[t] ([n, slots, 4] of the rank type) and its first `slots`
+// calls (x, m, ret) to calls[t] ([n, slots, 3] int32), its counts of
+// calls and intervals to n_calls[t] and n_intv[t]; steps and chain (the
+// forward steps, a job) may be null.  A read length whose stacks do not
+// fit a block's shared memory (see tpubwa_smem_fwd_shape), or an n the
+// queue's counter cannot take, is refused before anything runs.
+extern "C" int tpubwa_smem_fwd(const void* occ, const void* L2,
+                               int64_t primary, int64_t seq_len, int idx64,
+                               const void* q, int64_t L, const void* lens,
+                               const void* read, const void* x0,
+                               const void* min_intv, const void* one_shot,
+                               const void* ids, int64_t n, int slots,
+                               void* queue, void* stack, void* calls,
+                               void* n_calls, void* n_intv, void* steps,
+                               void* chain, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)(idx64 ? launch_fwd<int64_t> : launch_fwd<int32_t>)(
+        occ, L2, primary, seq_len, q, L, lens, read, x0, min_intv, one_shot,
+        ids, n, slots, queue, stack, calls, n_calls, n_intv, steps, chain,
+        device, (cudaStream_t)stream);
+}
+
+// K-bwd: the recorded calls [0, n): call t on read read[t] from x[t], its
+// stack stack[off[t], off[t] + m[t]) (intervals of four ranks of the rank
+// type, longest match first), at min_intv[t] (the rank type); off int64,
+// the rest int32.  A warp a call taken from the queue queue[0] (an int32
+// the entry zeroes on the stream first); the call's rows of at least
+// min_seed_len bases go to rows[off[t], ...) (intervals of five ranks)
+// and their count to counts[t] (at most m[t]); steps and chain (the
+// backward extensions and strips, a call) may be null.  Refused as
+// tpubwa_smem_fwd.
+extern "C" int tpubwa_smem_bwd(const void* occ, const void* L2,
+                               int64_t primary, int64_t seq_len, int idx64,
+                               const void* q, int64_t L, const void* read,
+                               const void* x, const void* m, const void* off,
+                               const void* min_intv, const void* stack,
+                               int64_t n, int min_seed_len, void* queue,
+                               void* rows, void* counts, void* steps,
+                               void* chain, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)(idx64 ? launch_bwd<int64_t> : launch_bwd<int32_t>)(
+        occ, L2, primary, seq_len, q, L, read, x, m, off, min_intv, stack, n,
+        min_seed_len, queue, rows, counts, steps, chain, device,
+        (cudaStream_t)stream);
+}
+
+// K-fwd's (bwd 0) or K-bwd's (bwd 1) launch shape for reads of L bases
+// into out[5], as tpubwa_smem_rounds12_shape's
+extern "C" int tpubwa_smem_split_shape(int bwd, int idx64, int64_t L,
+                                       int device, int64_t* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    Shape12 s;
+    if (bwd)
+        err = idx64 ? shape_bwd<int64_t>(L, device, &s)
+                    : shape_bwd<int32_t>(L, device, &s);
+    else
+        err = idx64 ? shape_fwd<int64_t>(L, device, &s)
+                    : shape_fwd<int32_t>(L, device, &s);
     const int64_t got[5] = {s.warp_bytes, s.warps, s.blocks_per_sm, s.sms,
                             s.max_len};
     for (int i = 0; i < 5; ++i) out[i] = got[i];

@@ -155,6 +155,132 @@ __device__ __forceinline__ int top_lane(unsigned mask) {
     return 31 - __clz(mask);
 }
 
+// smem1a's forward phase alone (the split's K-fwd): from x (q[x] <= 3,
+// min_intv >= 1, the stacks' last readers done) the warp extends the
+// match forward one base a step, pushing the interval each time the next
+// base shrinks it, and leaves the n_prev pushed intervals flipped into
+// prev, longest match (smallest interval) first, qb 0 and qe their end.
+// Returns the next x (prev[0].qe, the call's return: the backward half
+// never changes it).
+template <class Idx, class Occ>
+__device__ __forceinline__ int smem1a_fwd(const fm::Index<Idx, Occ>& f,
+                                          const uint8_t* q, int len, int x,
+                                          Idx min_intv, Intv<Idx>* curr,
+                                          Intv<Idx>* prev, int& n_prev,
+                                          int& steps, int& chain) {
+    const int lane = threadIdx.x & 31;
+    Intv<Idx> ik = set_intv(f, q[x]);
+    ik.qe = x + 1;
+    // forward: push the interval each time the next base shrinks it
+    int n_curr = 0, i = x + 1;
+    for (; i < len; ++i) {
+        const int c = q[i];
+        if (c > 3) break;
+        // forward extension reads the complement's slot
+        const Intv<Idx> ok = extend_warp<Idx, false>(f, ik, 3 - c);
+        ++steps;
+        ++chain;
+        if (ok.size != ik.size) {
+            if (lane == 0) curr[n_curr] = ik;
+            ++n_curr;
+            if (ok.size < min_intv) break;
+        }
+        ik = ok;
+        ik.qe = i + 1;
+    }
+    // an N, or the read's end, ends the match with ik on the stack
+    if (i == len || q[i] > 3) {
+        if (lane == 0) curr[n_curr] = ik;
+        ++n_curr;
+    }
+    __syncwarp();
+    // longest matches (smallest intervals) first
+    for (int j = lane; j < n_curr; j += 32) prev[j] = curr[n_curr - 1 - j];
+    __syncwarp();
+    n_prev = n_curr;
+    return (int)prev[0].qe;
+}
+
+// smem1a's backward phase alone (the split's K-bwd): from the stack
+// prev[0, n_prev) that smem1a_fwd left for a call at x (every lane
+// holding the same n_prev, prev visible to all of them), the SMEMs into
+// mem[0, n_mem) by DEcreasing query start.  curr and prev are swapped as
+// the rounds go (the caller's pointers are not).  A round that emits
+// drops the interval it emits from the stack, so a call emits at most
+// n_prev rows.
+template <class Idx, class Occ>
+__device__ __forceinline__ void smem1a_bwd(const fm::Index<Idx, Occ>& f,
+                                           const uint8_t* q, int x,
+                                           Idx min_intv, Intv<Idx>* curr,
+                                           Intv<Idx>* prev, int n_prev,
+                                           Intv<Idx>* mem, int& n_mem,
+                                           int& steps, int& chain) {
+    const int lane = threadIdx.x & 31;
+    n_mem = 0;
+    // backward: extend every interval of the stack by q[i]; one that can
+    // go no further is an SMEM unless a longer one already ended here
+    Idx last_qb = 0;  // mem[n_mem - 1].qb where n_mem > 0
+    for (int i = x - 1; i >= -1; --i) {
+        const int c = (i < 0 || q[i] > 3) ? -1 : q[i];
+        int n_next = 0;
+        bool settled = false;   // the round's first failure was seen
+        bool survived = false;  // a survivor was seen
+        Idx carry = 0;          // the last survivor's size
+        for (int s = 0; s < n_prev; s += 32) {
+            const int j = s + lane;
+            const bool live = j < n_prev;
+            Intv<Idx> p{}, ok{};
+            if (live) p = prev[j];
+            if (live && c >= 0) ok = extend<Idx, true>(f, p, c);
+            if (c >= 0) {
+                steps += n_prev - s < 32 ? n_prev - s : 32;
+                ++chain;
+            }
+            const bool fail = live && (c < 0 || ok.size < min_intv);
+            const bool good = live && !fail;
+            const unsigned fails = __ballot_sync(kFull, fail);
+            const unsigned goods = __ballot_sync(kFull, good);
+            if (!settled && fails) {
+                settled = true;
+                const int first = __ffs(fails) - 1;
+                if (!survived && !(goods & lanes_below(first)) &&
+                    (n_mem == 0 || i + 1 < last_qb)) {
+                    if (lane == first) {
+                        Intv<Idx> m = p;
+                        m.qb = i + 1;
+                        mem[n_mem] = m;
+                    }
+                    ++n_mem;
+                    last_qb = i + 1;
+                }
+            }
+            const unsigned below = goods & lanes_below(lane);
+            const Idx before = __shfl_sync(
+                kFull, ok.size, below ? top_lane(below) : lane);
+            const bool keep =
+                good && (below ? ok.size != before
+                               : !survived || ok.size != carry);
+            const unsigned keeps = __ballot_sync(kFull, keep);
+            if (keep)  // qb and qe kept from p
+                curr[n_next + __popc(keeps & lanes_below(lane))] =
+                    Intv<Idx>{ok.x0, ok.x1, ok.size, p.qb, p.qe};
+            n_next += __popc(keeps);
+            if (goods) {
+                carry = __shfl_sync(kFull, ok.size, top_lane(goods));
+                survived = true;
+            }
+            if (c < 0) break;  // settled, and nothing survives
+        }
+        if (n_next == 0) break;
+        Intv<Idx>* t = prev;
+        prev = curr;
+        curr = t;
+        n_prev = n_next;
+        __syncwarp();
+    }
+    __syncwarp();  // mem's rows are visible to every lane
+}
+
 // bwt_smem1a with max_intv = 0, as mem_collect_intv calls it in rounds 1
 // and 2 (bwa's max_intv branches never run there), on one warp: the
 // SMEMs of q[0, len) that cover x, of at least min_intv occurrences, into
@@ -188,6 +314,13 @@ __device__ __forceinline__ int top_lane(unsigned mask) {
 // On an index the sizes grow along the stack (a shorter match's
 // interval holds a longer one's), so failures come before survivors; the
 // rule above does not lean on that.
+//
+// Seed mode split's two kernels (K-fwd, K-bwd) run its two phases apart:
+// smem1a_fwd and smem1a_bwd (above) repeat its forward and backward
+// phases line for line.  smem1a keeps its own body, so that K2's, K2-tp's
+// and K-cur's code is the same as before the split (one body calling the
+// halves changed their SASS); tests/test_torch_split_host.py holds the
+// halves, run one after the other, to smem1a (K-cur) on every job.
 template <class Idx, class Occ>
 __device__ int smem1a(const fm::Index<Idx, Occ>& f, const uint8_t* q, int len,
                       int x, Idx min_intv, Intv<Idx>* curr, Intv<Idx>* prev,

@@ -6,7 +6,8 @@
 //   smem_host IN OUT
 //
 // IN: int64 header (kernel: 0 for K2, tpubwa_smem_rounds12, 1 for K3,
-// tpubwa_seed_strategy, 2 for K-cur, tpubwa_smem_jobs; n_blocks,
+// tpubwa_seed_strategy, 2 for K-cur, tpubwa_smem_jobs, 3 for K-fwd,
+// tpubwa_smem_fwd, 4 for K-bwd, tpubwa_smem_bwd; n_blocks,
 // primary, seq_len, idx64, B, L, n, min_seed_len, split_len,
 // split_width, slots, max_intv, maxh, count_rows, reverse, sms,
 // blocks_per_sm, n_slabs, peers, m), then occ uint32 [n_blocks, 12], L2
@@ -14,9 +15,14 @@
 // L], lens int32 [B], for K2, rids int32 [n], and where n_slabs > 0 the
 // slabs' first rows and devices, int64 [n_slabs] each; for K-cur, the m
 // jobs' read int32, x0 int32, min_intv (the rank type) and one_shot
-// uint8, [m] each, then ids int32 [n].  OUT gets int64 values: K2's or
-// K-cur's rows [n, slots, 5], counts [n], steps [n] and chain [n]; or K3's hits
-// [B, maxh, 5], n_hits [B], steps [B], chain [B] and longest [B]; then,
+// uint8, [m] each, then ids int32 [n] (K-fwd likewise); for K-bwd, the n
+// calls' read, x and m int32, off int64 and min_intv (the rank type),
+// [n] each, then their stacks (the rank type) [m, 4].  OUT gets int64
+// values: K2's or K-cur's rows [n, slots, 5], counts [n], steps [n] and
+// chain [n]; K-fwd's stack [n, slots, 4], calls [n, slots, 3], n_calls
+// [n], n_intv [n], steps [n] and chain [n]; K-bwd's rows [m, 5], counts
+// [n], steps [n] and chain [n]; or K3's hits [B, maxh, 5], n_hits [B],
+// steps [B], chain [B] and longest [B]; then,
 // where count_rows, the number of distinct occ rows the launch read and
 // those rows, ascending.  reverse runs each warp's lanes 31..0; sms and
 // blocks_per_sm, where > 0, make the attribute and occupancy queries
@@ -89,6 +95,53 @@ static int run(FILE* f, FILE* o, const std::vector<int64_t>& h) {
                               one_shot.data(), ids.data(), n, min_seed_len,
                               slots, queue.data(), rows.data(), counts.data(),
                               steps.data(), chain.data(), 0, nullptr);
+        write_int64(o, rows);
+        write_int64(o, counts);
+        write_int64(o, steps);
+        write_int64(o, chain);
+    } else if (kernel == 3) {
+        const int64_t m = h[20];
+        const auto read = read_array<int32_t>(f, m);
+        const auto x0 = read_array<int32_t>(f, m);
+        const auto min_intv = read_array<Idx>(f, m);
+        const auto one_shot = read_array<uint8_t>(f, m);
+        const auto ids = read_array<int32_t>(f, n);
+        std::vector<int32_t> queue(1, -77);
+        std::vector<Idx> stack((size_t)(n * slots * 4), (Idx)-77);
+        std::vector<int32_t> calls((size_t)(n * slots * 3), -77),
+            n_calls((size_t)n, -77), n_intv((size_t)n, -77),
+            steps((size_t)n, -77), chain((size_t)n, -77);
+        rc = tpubwa_smem_fwd(occ.data(), L2.data(), primary, seq_len,
+                             sizeof(Idx) == 8, q.data(), L, lens.data(),
+                             read.data(), x0.data(), min_intv.data(),
+                             one_shot.data(), ids.data(), n, slots,
+                             queue.data(), stack.data(), calls.data(),
+                             n_calls.data(), n_intv.data(), steps.data(),
+                             chain.data(), 0, nullptr);
+        write_int64(o, stack);
+        write_int64(o, calls);
+        write_int64(o, n_calls);
+        write_int64(o, n_intv);
+        write_int64(o, steps);
+        write_int64(o, chain);
+    } else if (kernel == 4) {
+        const int64_t m = h[20];
+        const auto read = read_array<int32_t>(f, n);
+        const auto x = read_array<int32_t>(f, n);
+        const auto call_m = read_array<int32_t>(f, n);
+        const auto off = read_array<int64_t>(f, n);
+        const auto min_intv = read_array<Idx>(f, n);
+        const auto stack = read_array<Idx>(f, m * 4);
+        std::vector<int32_t> queue(1, -77);
+        std::vector<Idx> rows((size_t)(m * 5), (Idx)-77);
+        std::vector<int32_t> counts((size_t)n, -77), steps((size_t)n, -77),
+            chain((size_t)n, -77);
+        rc = tpubwa_smem_bwd(occ.data(), L2.data(), primary, seq_len,
+                             sizeof(Idx) == 8, q.data(), L, read.data(),
+                             x.data(), call_m.data(), off.data(),
+                             min_intv.data(), stack.data(), n, min_seed_len,
+                             queue.data(), rows.data(), counts.data(),
+                             steps.data(), chain.data(), 0, nullptr);
         write_int64(o, rows);
         write_int64(o, counts);
         write_int64(o, steps);

@@ -156,12 +156,17 @@ class DeviceAligner:
         self.extender = WaveExtender(opt, self.mat, self.device, dp=dp)
         # longer reads go to the scalar path (the kernel's lane bound)
         self.read_len_cap = 510
-        # reads per seeding chunk (nothing is compiled per shape, so one
-        # size serves every batch and both seed modes)
-        self.chunk_reads = 16384
+        # reads per seeding chunk, TPUBWA_CHUNK_READS as tpubwa reads it
+        # (tpubwa/device/pipeline.py:159-162); nothing is compiled per
+        # shape, so one default serves every batch and seed mode
+        self.chunk_reads = int(os.environ.get("TPUBWA_CHUNK_READS", 16384))
+        if self.chunk_reads < 1:
+            raise ValueError("TPUBWA_CHUNK_READS must be positive, got "
+                             f"{self.chunk_reads}")
         # 'host' (native seeding), 'megaq' (K2 + K3 on the device),
-        # 'hybrid' (both, split by self.hybrid), 'reach' (K-reach + K3)
-        # or 'cursor' (K-cur + K3); device/smem.py raises on the others
+        # 'hybrid' (both, split by self.hybrid), 'reach' (K-reach + K3),
+        # 'cursor' or 'fused' (K-cur + K3), 'mega' (K2 + K3) or 'split'
+        # (K-fwd, K-bwd + K3); device/smem.py raises on any other
         default_mode = "host" if (native_smem._lib() is not None
                                   and dp is None and tp is None) else "megaq"
         self.seed_mode = os.environ.get("TPUBWA_SEED_MODE") or default_mode

@@ -1,7 +1,7 @@
 """Batched SMEM seeding for a read chunk, the counterpart of
 tpubwa/device/smem.py:collect_intv_device.
 
-Five modes:
+Eight modes:
 
 * ``host``: the native C++ seeder (tpubwa_torch/host/native_smem.py)
   runs the full 3-round mem_collect_intv protocol on the host, and the
@@ -24,7 +24,17 @@ Five modes:
   smem.py:275-327): round 1 a job a read and round 2 a one-shot job a
   re-seeded row, each round one K-cur launch (``smem_cursor.
   run_smem_jobs``, a second for jobs past their row slots); round 3 in
-  K3.
+  K3;
+* ``mega``, ``fused`` and ``split``: tpubwa's machine modes, each the
+  function of a kernel above scheduled another way on the TPU (the
+  seeding output has one order, the merge's): mega's smem_chunk_machine
+  runs rounds 1+2 a read in one dispatch, K2's function (``smem_fused.
+  rounds12_megaq``); fused's smem_call_machine runs bwt_smem1a a job,
+  one dispatch a round, mode cursor's protocol over K-cur; split's two
+  machines run bwt_smem1a's forward passes, then the backward pass of
+  each call they record: K-fwd and K-bwd (``smem_split.
+  rounds12_split``), mode cursor's protocol over K-cur cut at its stack.
+  Round 3 in K3.
 
 With ``return_sa`` megaq also gives each row's SA positions, walked on
 the device before the one copy to the host (tpubwa's fused SA,
@@ -32,21 +42,19 @@ smem_fused.py:_sa_from_rows): the ranks of bwa's subsampling are built
 from K2's rows and K3's hits on the card (``sa_ranks``) and K-sa
 (``occ.sa_lookup``) walks them.  In hybrid the host share's rows get
 the native walk's positions, or -1 counts where the index has no marks.
-reach and cursor fuse no SA walk (tpubwa's ``sa_cnt12`` is None there):
-the caller walks every row.
+The other device modes fuse no SA walk (tpubwa's ``sa_cnt12`` is None
+there): the caller walks every row.
 
-Over a ``DataParallel`` (``dp``), megaq, reach and cursor split the
-reads they seed over the replicas (in hybrid, the device share's), each
-replica holding the whole chunk for the extension, and host mode
-uploads the reads to each.
+Over a ``DataParallel`` (``dp``), the device modes split the reads they
+seed over the replicas (in hybrid, the device share's), each replica
+holding the whole chunk for the extension, and host mode uploads the
+reads to each.
 
 Over an index split into row slabs (``tp``, a ``dist/index_tp.py:
 TpIndex``; tpubwa's 'tp' mesh axis), megaq runs K2 and the fused SA walk
 on the slabs and K3 on the whole index, as tpubwa seeds its rounds 1+2
 on the shards and scans round 3 on the replicated index; the other
 modes ignore ``tp``, as tpubwa's do.
-tpubwa's machine modes mega, fused and split are still to be ported
-(ROADMAP Queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -62,19 +70,15 @@ import torch
 
 from ..host.native_smem import (sa_positions_native,
                                 smem_collect_batch_native)
-from . import _build
+from . import _build, smem_split
 from .counts import bump
 from .occ import (DeviceIndex, _kernel_route, _raise_on, bwt_extend_plain,
                   sa_lookup, set_intv)
 from .occ import _SIGNATURES as _OCC_SIGNATURES
-from .smem_cursor import round1_jobs, run_smem_jobs
+from .smem_cursor import rounds12_jobs, run_smem_jobs
 from .smem_fused import (_SIGNATURES, base_intervals, check_reads,
-                         index_args, read_lists, rounds12_megaq, run_reads,
-                         split_len_of, stream_of)
-
-_NOT_PORTED = ("seed mode {!r} is one of tpubwa's TPU seeding machines "
-               "that the port has not ported yet (ROADMAP Queue 1); use "
-               "'megaq', 'reach', 'cursor' or 'host'")
+                         index_args, read_lists, reseed_jobs, rounds12_megaq,
+                         run_reads, stream_of)
 
 
 def _reach_codes(q: torch.Tensor) -> torch.Tensor:
@@ -316,19 +320,6 @@ def smems_reseed(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
         rid, rows.long().cpu().split(counts))]
 
 
-def reseed_jobs(opt, rows: torch.Tensor, rids: torch.Tensor):
-    """Round 2's jobs from round 1's rows (tpubwa/device/smem.py:713-719,
-    303-307): a row of at least split_len bases and at most split_width
-    occurrences re-seeds from its middle, (qb + qe) >> 1, at min_intv =
-    size + 1.  Returns (rid int32, x int32, min_intv of the rows' type),
-    in the rows' order, on their device."""
-    keep = ((rows[:, 4] - rows[:, 3] >= split_len_of(opt))
-            & (rows[:, 2] <= opt.split_width))
-    kept = rows[keep]
-    return (rids[keep].int(), ((kept[:, 3] + kept[:, 4]) >> 1).int(),
-            kept[:, 2] + 1)
-
-
 def _rounds12_reach(opt, didx: DeviceIndex, qd: torch.Tensor,
                     ld: torch.Tensor):
     """Rounds 1 and 2 of mode reach: (rows idt [n, 5], rids int64 [n]),
@@ -340,38 +331,38 @@ def _rounds12_reach(opt, didx: DeviceIndex, qd: torch.Tensor,
     return torch.cat([rows1, rows2]), torch.cat([rids1, rid.long()[job]])
 
 
-def round2_jobs(opt, rows: torch.Tensor, counts: torch.Tensor):
-    """Mode cursor's round-2 jobs (tpubwa/device/smem.py:301-313) from
-    round 1's rows (job-major) and counts (a job a read): a one-shot job
-    (read, x, min_intv) a re-seeded row (``reseed_jobs``)."""
-    rids = torch.repeat_interleave(
-        torch.arange(len(counts), device=rows.device), counts.long())
-    rid, x, mi = reseed_jobs(opt, rows, rids)
-    return rid, x, mi, torch.ones(len(rid), dtype=torch.bool,
-                                  device=rows.device)
-
-
 def _rounds12_cursor(opt, didx: DeviceIndex, qd: torch.Tensor,
                      ld: torch.Tensor):
-    """Rounds 1 and 2 of mode cursor (tpubwa/device/smem.py:275): round 1
-    a job a read (``round1_jobs``), round 2 a one-shot job a re-seeded
-    round-1 row (``round2_jobs``; no launch where there is none), each
-    through ``run_smem_jobs``.  Returns (rows idt [n, 5], rids int64
+    """Rounds 1 and 2 of modes cursor and fused (tpubwa/device/smem.py:275,
+    smem_fused.py:1616): the job protocol (``smem_cursor.rounds12_jobs``)
+    over K-cur (``run_smem_jobs``).  Returns (rows idt [n, 5], rids int64
     [n]): round 1's rows (read-major), then round 2's (job by job)."""
-    jobs = round1_jobs(len(ld), didx.idt, qd.device)
-    rows1, n1 = run_smem_jobs(didx, qd, ld, jobs, opt.min_seed_len)
-    rids1 = torch.repeat_interleave(jobs[0].long(), n1.long())
-    jobs = round2_jobs(opt, rows1, n1)
-    if not len(jobs[0]):
-        return rows1, rids1
-    rows2, n2 = run_smem_jobs(didx, qd, ld, jobs, opt.min_seed_len)
-    return (torch.cat([rows1, rows2]),
-            torch.cat([rids1, torch.repeat_interleave(jobs[0].long(),
-                                                      n2.long())]))
+    return rounds12_jobs(opt, didx, qd, ld, run_smem_jobs)
 
 
-# the device modes other than megaq: their rounds 1 and 2
-_ROUNDS12 = {"reach": _rounds12_reach, "cursor": _rounds12_cursor}
+def _rounds12_mega(opt, didx: DeviceIndex, qd: torch.Tensor,
+                   ld: torch.Tensor):
+    """Rounds 1 and 2 of mode mega (tpubwa/device/smem_fused.py:1505, one
+    dispatch for both rounds, round 2's jobs built on the device): K2
+    (``rounds12_megaq`` on the flat index).  Returns (rows idt [n, 5],
+    rids int64 [n]), read-major, each read's round 1 then its round 2."""
+    return rounds12_megaq(opt, didx, qd, ld)
+
+
+def _rounds12_split(opt, didx: DeviceIndex, qd: torch.Tensor,
+                    ld: torch.Tensor):
+    """Rounds 1 and 2 of mode split (tpubwa/device/smem_split.py:453):
+    the job protocol over K-fwd, then K-bwd over every call it recorded
+    (``smem_split.rounds12_split``)."""
+    return smem_split.rounds12_split(opt, didx, qd, ld)
+
+
+# the device modes other than megaq: their rounds 1 and 2 (tpubwa's
+# mega, fused and split schedule the same function as K2, K-cur and K-cur
+# cut at its stack)
+_ROUNDS12 = {"reach": _rounds12_reach, "cursor": _rounds12_cursor,
+             "mega": _rounds12_mega, "fused": _rounds12_cursor,
+             "split": _rounds12_split}
 
 
 def max_hits(L: int, min_len: int) -> int:
@@ -604,7 +595,7 @@ def _megaq_rounds(opt, didx: DeviceIndex, qd: torch.Tensor,
 
 def _mode_rounds(opt, didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
                  mode: str) -> Seeded:
-    """Mode reach's or cursor's rounds on reads already on the device:
+    """A mode of ``_ROUNDS12``'s rounds on reads already on the device:
     ``_ROUNDS12[mode]`` and K3's round 3, copied to the host after the
     last launch.  No SA walk (``sa12`` and ``sa3`` None)."""
     rows12, rids12 = _ROUNDS12[mode](opt, didx, qd, ld)
@@ -866,22 +857,25 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
     native seeder on the host), 'megaq' (K2 and K3 on the index's
     device), 'hybrid' (a share of each, ``split`` the caller's balancer;
     without one, a new ``HybridSplit.from_env()``), 'reach' (K-reach's
-    all-starts rounds 1 and 2, K3) or 'cursor' (K-cur's job rounds 1 and
-    2, K3); 'mega', 'fused' and 'split' raise NotImplementedError.  With
-    a ``dp`` (``dist.sharding.DataParallel``), ``didx`` is the list of
-    its replicas' indexes, megaq, reach and cursor (in hybrid, megaq's
-    share) split the reads over them, and ``qd`` is a list, the chunk's
-    reads on each replica.  With a ``tp`` (``dist/index_tp.py:TpIndex``)
-    mode megaq seeds rounds 1+2 and walks the fused SA on its slabs
-    (round 3 on ``didx``); the other modes do not read it.
+    all-starts rounds 1 and 2, K3), 'cursor' or 'fused' (K-cur's job
+    rounds 1 and 2, K3), 'mega' (K2's rounds 1 and 2, K3) or 'split'
+    (K-fwd's and K-bwd's job rounds 1 and 2, K3); any other raises
+    ValueError.  With a ``dp`` (``dist.sharding.DataParallel``),
+    ``didx`` is the list of its replicas' indexes, every device mode (in
+    hybrid, megaq's share) splits the reads over them, and ``qd`` is a
+    list, the chunk's reads on each replica.  With a ``tp``
+    (``dist/index_tp.py:TpIndex``) mode megaq seeds rounds 1+2 and walks
+    the fused SA on its slabs (round 3 on ``didx``); the other modes do
+    not read it.
 
     ``return_sa`` (tpubwa's): also return ``sa``, (cnt int64 [n], pos
     int64 [sum of cnt >= 0]) in the rows' order: megaq's rows get their
     positions from K-sa on ranks built on the device, hybrid's host
     share the native walk's, and a cnt of -1 marks a row left to the
-    caller's SA stage.  ``sa`` is None in host, reach and cursor mode,
-    and in every mode under TPUBWA_NO_SA_FUSE (tpubwa's opt-out): the
-    caller then walks every row."""
+    caller's SA stage.  ``sa`` is None in host mode and in the modes of
+    ``_ROUNDS12`` (reach, cursor, mega, fused, split), and in every mode
+    under TPUBWA_NO_SA_FUSE (tpubwa's opt-out): the caller then walks
+    every row."""
     sa = return_sa and not os.environ.get("TPUBWA_NO_SA_FUSE")
     if mode == "megaq":
         up = _uploads(didx, reads, lens, dp)
@@ -897,8 +891,6 @@ def collect_intv_device(opt, didx, reads: np.ndarray, lens: np.ndarray,
             didx, up, len(lens), dp,
             lambda didx_, qd, ld: _mode_rounds(opt, didx_, qd, ld, mode))
         out = (flat, frid, _resident(up, dp), None)
-    elif mode in ("mega", "fused", "split"):
-        raise NotImplementedError(_NOT_PORTED.format(mode))
     elif mode != "host":
         raise ValueError(f"unknown seed mode {mode!r}")
     else:

@@ -39,8 +39,8 @@ from .counts import bump
 from .occ import DeviceIndex, I64, _kernel_route, _raise_on
 from .smem_fused import (_SIGNATURES, H100_BLOCK_SMEM, K2_SLOTS,
                          base_intervals, check_reads, collect12, index_args,
-                         new_tally, read_lists, run_reads, smem1a_plain,
-                         stream_of)
+                         new_tally, read_lists, reseed_jobs, run_reads,
+                         smem1a_plain, stream_of)
 
 # K-cur's stacks a job, in its warp's shared memory: curr, prev and a
 # call's rows, L + 1 intervals each
@@ -93,6 +93,38 @@ def round1_jobs(n_reads: int, idt, device):
             torch.zeros(n_reads, dtype=torch.int32, device=device),
             torch.ones(n_reads, dtype=idt, device=device),
             torch.zeros(n_reads, dtype=torch.bool, device=device))
+
+
+def round2_jobs(opt, rows: torch.Tensor, counts: torch.Tensor):
+    """Round 2's jobs (tpubwa/device/smem.py:301-313) from round 1's rows
+    (job-major) and counts (a job a read): a one-shot job (read, x,
+    min_intv) a re-seeded row (``smem_fused.reseed_jobs``)."""
+    rids = torch.repeat_interleave(
+        torch.arange(len(counts), device=rows.device), counts.long())
+    rid, x, mi = reseed_jobs(opt, rows, rids)
+    return rid, x, mi, torch.ones(len(rid), dtype=torch.bool,
+                                  device=rows.device)
+
+
+def rounds12_jobs(opt, didx: DeviceIndex, qd: torch.Tensor,
+                  ld: torch.Tensor, run):
+    """Rounds 1 and 2 as jobs (tpubwa/device/smem.py:275, the protocol of
+    seed modes cursor, fused and split): round 1 a job a read
+    (``round1_jobs``), round 2 a one-shot job a re-seeded round-1 row
+    (``round2_jobs``; nothing runs where there is none), each through
+    ``run(didx, qd, ld, jobs, min_seed_len)`` -> (rows, counts a job),
+    ``run_smem_jobs``'s contract.  Returns (rows idt [n, 5], rids int64
+    [n]): round 1's rows (read-major), then round 2's (job by job)."""
+    jobs = round1_jobs(len(ld), didx.idt, qd.device)
+    rows1, n1 = run(didx, qd, ld, jobs, opt.min_seed_len)
+    rids1 = torch.repeat_interleave(jobs[0].long(), n1.long())
+    jobs = round2_jobs(opt, rows1, n1)
+    if not len(jobs[0]):
+        return rows1, rids1
+    rows2, n2 = run(didx, qd, ld, jobs, opt.min_seed_len)
+    return (torch.cat([rows1, rows2]),
+            torch.cat([rids1, torch.repeat_interleave(jobs[0].long(),
+                                                      n2.long())]))
 
 
 def job_plain(base, q, x0: int, min_intv: int, one_shot: bool,

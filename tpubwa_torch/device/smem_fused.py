@@ -90,12 +90,39 @@ _SIGNATURES = {
                                _VP, _VP, _VP, _CI, _VP]),
     # (idx64, L, device, out int64[5]) -> cudaError_t
     "tpubwa_smem_jobs_shape": (_CI, [_CI, _CL, _CI, _VP]),
+    # K-fwd: (occ, L2, primary, seq_len, idx64, q, L, lens, read, x0,
+    #  min_intv, one_shot, ids, n, slots, queue, stack, calls, n_calls,
+    #  n_intv, steps, chain, device, stream) -> cudaError_t
+    "tpubwa_smem_fwd": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP, _VP,
+                              _VP, _VP, _VP, _VP, _CL, _CI, _VP, _VP, _VP,
+                              _VP, _VP, _VP, _VP, _CI, _VP]),
+    # K-bwd: (occ, L2, primary, seq_len, idx64, q, L, read, x, m, off,
+    #  min_intv, stack, n, min_seed_len, queue, rows, counts, steps,
+    #  chain, device, stream) -> cudaError_t
+    "tpubwa_smem_bwd": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP, _VP,
+                              _VP, _VP, _VP, _VP, _CL, _CI, _VP, _VP, _VP,
+                              _VP, _VP, _CI, _VP]),
+    # (bwd, idx64, L, device, out int64[5]) -> cudaError_t
+    "tpubwa_smem_split_shape": (_CI, [_CI, _CI, _CL, _CI, _VP]),
 }
 
 
 def split_len_of(opt) -> int:
     """bwa's split_len: reads at least this long are re-seeded."""
     return int(opt.min_seed_len * opt.split_factor + 0.499)
+
+
+def reseed_jobs(opt, rows: torch.Tensor, rids: torch.Tensor):
+    """Round 2's jobs from round 1's rows (tpubwa/device/smem.py:713-719,
+    303-307): a row of at least split_len bases and at most split_width
+    occurrences re-seeds from its middle, (qb + qe) >> 1, at min_intv =
+    size + 1.  Returns (rid int32, x int32, min_intv of the rows' type),
+    in the rows' order, on their device."""
+    keep = ((rows[:, 4] - rows[:, 3] >= split_len_of(opt))
+            & (rows[:, 2] <= opt.split_width))
+    kept = rows[keep]
+    return (rids[keep].int(), ((kept[:, 3] + kept[:, 4]) >> 1).int(),
+            kept[:, 2] + 1)
 
 
 def check_reads(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor):
@@ -188,14 +215,12 @@ def new_tally():
     return {"chain": 0, "widest": 0, "late": 0}
 
 
-def smem1a_plain(base, q, x: int, min_intv: int, tally):
-    """bwt_smem1a with max_intv = 0 (ref/smem.py:smem1a), a generator
-    over ``run_reads``: the SMEMs of q (a list of codes) covering x, as
-    [x0, x1, size, qb, qe] by query start, and the next x.  ``base``:
-    ``base_intervals``; ``tally`` (``new_tally``) is added to."""
+def smem1a_fwd_plain(base, q, x: int, min_intv: int, tally):
+    """smem1a's forward half (csrc/smem.cuh:smem1a_fwd), a generator over
+    ``run_reads``: from x (q[x] <= 3) the stack of pushed intervals
+    [x0, x1, size, 0, qe], longest match (smallest interval) first, and
+    the call's return, the first interval's qe."""
     n = len(q)
-    if q[x] > 3:
-        return [], x + 1
     min_intv = max(min_intv, 1)
     ik = [*base[q[x]], 0, x + 1]
     curr = []
@@ -217,8 +242,15 @@ def smem1a_plain(base, q, x: int, min_intv: int, tally):
     if i == n:
         curr.append(ik)
     curr.reverse()
-    ret = curr[0][4]
-    prev, mem = curr, []
+    return curr, curr[0][4]
+
+
+def smem1a_bwd_plain(q, x: int, min_intv: int, prev, tally):
+    """smem1a's backward half (csrc/smem.cuh:smem1a_bwd), a generator over
+    ``run_reads``: from the stack ``prev`` that ``smem1a_fwd_plain`` left
+    for a call at x, the SMEMs [x0, x1, size, qb, qe] by query start."""
+    min_intv = max(min_intv, 1)
+    mem = []
     i = x - 1
     while i >= -1:
         c = -1 if i < 0 or q[i] > 3 else q[i]
@@ -241,6 +273,20 @@ def smem1a_plain(base, q, x: int, min_intv: int, tally):
         prev = curr
         i -= 1
     mem.reverse()
+    return mem
+
+
+def smem1a_plain(base, q, x: int, min_intv: int, tally):
+    """bwt_smem1a with max_intv = 0 (ref/smem.py:smem1a), a generator
+    over ``run_reads``: the SMEMs of q (a list of codes) covering x, as
+    [x0, x1, size, qb, qe] by query start, and the next x.  ``base``:
+    ``base_intervals``; ``tally`` (``new_tally``) is added to.  It is
+    ``smem1a_fwd_plain``, then ``smem1a_bwd_plain`` on the stack it
+    leaves (seed mode split runs the halves apart)."""
+    if q[x] > 3:
+        return [], x + 1
+    prev, ret = yield from smem1a_fwd_plain(base, q, x, min_intv, tally)
+    mem = yield from smem1a_bwd_plain(q, x, min_intv, prev, tally)
     return mem, ret
 
 

@@ -13,8 +13,9 @@ keyed by a hash of its sources; ``extend_host`` (K1 and K1-floor),
 ``extend_mat_host`` (K1-mat), ``extend_real_host`` (K1-real),
 ``extend16_host`` (K1-i16), ``extend_bd_host`` (K1-bd, both passes),
 ``occ_host`` (K-sa and K-ext; ``sa_lookup_refusal``, K-sa's refusal of
-an n past its rank queue), ``reach_host`` (K-reach) and ``smem_host``
-(K2, K3 and K-cur) run one on a set of jobs, and
+an n past its rank queue), ``reach_host`` (K-reach), ``smem_host``
+(K2, K3 and K-cur), ``fwd_host`` (K-fwd) and ``bwd_host`` (K-bwd) run
+one on a set of jobs, and
 ``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
@@ -385,3 +386,86 @@ def smem_host(arrays, reads, lens, kernel, params, rids=None, slots=0,
         m = int(got[at])
         out += (got[at + 1:at + 1 + m],)
     return out
+
+
+def _smem_head(arrays, reads, kernel, n, slots=0, min_seed_len=0,
+               count_rows=False, reverse=False, card=(0, 0), m=0):
+    """(rank type, occ, L2, reads, smem_host's header) for ``kernel``."""
+    L2 = np.asarray(arrays["L2"])
+    if L2.dtype not in (np.int32, np.int64):
+        raise TypeError(f"rank type {L2.dtype}")
+    occ = np.ascontiguousarray(arrays["occ_blocks"], np.uint32)
+    reads = np.ascontiguousarray(reads, np.uint8)
+    B, L = reads.shape
+    head = np.asarray([kernel, len(occ), arrays["primary"],
+                       arrays["seq_len"], L2.dtype == np.int64, B, L, n,
+                       min_seed_len, 0, 0, slots, 0, 0, int(count_rows),
+                       int(reverse), *card, 0, 1, m], np.int64)
+    return L2.dtype, occ, L2, reads, head
+
+
+def _rows_tail(got, at, count_rows):
+    """The distinct occ rows after ``at`` where ``count_rows``, as a
+    1-tuple, else ()."""
+    if not count_rows:
+        return ()
+    k = int(got[at])
+    return (got[at + 1:at + 1 + k],)
+
+
+def fwd_host(arrays, reads, lens, jobs, slots, ids=None, count_rows=False,
+             sanitize=True, reverse=False, card=(0, 0)):
+    """One launch of csrc/smem.cu's K-fwd (``tpubwa_smem_fwd``) on the
+    host, on the jobs ``ids`` (all where None) of ``jobs`` = (read int32,
+    x0 int32, min_intv of the rank type, one_shot bool), ``slots`` stack
+    intervals each; ``arrays``, ``reads``, ``lens``, ``reverse``, ``card``
+    and ``sanitize`` as in ``smem_host``.  Returns int64 arrays (stack
+    [n, slots, 4], calls [n, slots, 3], n_calls [n], n_intv [n], steps
+    [n], chain [n]) and with ``count_rows`` the distinct occ rows the
+    launch read.  Raises RuntimeError as ``smem_host`` does (K-fwd
+    refuses reads too long for a block's shared memory)."""
+    read, x0, mi, once = jobs
+    ids = np.arange(len(read)) if ids is None else ids
+    n = len(ids)
+    dt, occ, L2, reads, head = _smem_head(arrays, reads, 3, n, slots,
+                                          count_rows=count_rows,
+                                          reverse=reverse, card=card,
+                                          m=len(read))
+    got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
+        lens, np.int32), np.ascontiguousarray(read, np.int32),
+        np.ascontiguousarray(x0, np.int32), np.ascontiguousarray(mi, dt),
+        np.ascontiguousarray(once, np.uint8),
+        np.ascontiguousarray(ids, np.int32)), dtype=np.int64,
+        sanitize=sanitize)
+    ks, kc = n * slots * 4, n * slots * 3
+    out = (got[:ks].reshape(n, slots, 4), got[ks:ks + kc].reshape(n, slots, 3),
+           *(got[ks + kc + i * n:ks + kc + (i + 1) * n] for i in range(4)))
+    return out + _rows_tail(got, ks + kc + 4 * n, count_rows)
+
+
+def bwd_host(arrays, reads, lens, calls, stack, min_seed_len,
+             count_rows=False, sanitize=True, reverse=False, card=(0, 0)):
+    """One launch of csrc/smem.cu's K-bwd (``tpubwa_smem_bwd``) on the
+    host over ``calls`` = (read int32, x int32, m int32, min_intv of the
+    rank type), their stacks ``stack`` ([sum of m, 4] of the rank type)
+    one after another; the rest as in ``fwd_host``.  Returns int64 arrays
+    (rows [sum of m, 5], each call's at its stack's offset, the slots it
+    does not fill left at -77; counts [c], steps [c], chain [c]) and with
+    ``count_rows`` the distinct occ rows the launch read."""
+    read, x, m, mi = calls
+    n, total = len(read), len(stack)
+    m = np.ascontiguousarray(m, np.int32)
+    off = np.cumsum(m, dtype=np.int64) - m
+    dt, occ, L2, reads, head = _smem_head(arrays, reads, 4, n,
+                                          min_seed_len=min_seed_len,
+                                          count_rows=count_rows,
+                                          reverse=reverse, card=card, m=total)
+    got = _exec("smem_host", (head, occ, L2, reads, np.ascontiguousarray(
+        lens, np.int32), np.ascontiguousarray(read, np.int32),
+        np.ascontiguousarray(x, np.int32), m, off,
+        np.ascontiguousarray(mi, dt), np.ascontiguousarray(stack, dt)),
+        dtype=np.int64, sanitize=sanitize)
+    k = total * 5
+    out = (got[:k].reshape(total, 5),
+           *(got[k + i * n:k + (i + 1) * n] for i in range(3)))
+    return out + _rows_tail(got, k + 3 * n, count_rows)

@@ -42,12 +42,24 @@ L2_BY_LDG = [
      "cnt[c] = k < 0 ? (Idx)0 : __ldg(f.L2 + c + 1) - __ldg(f.L2 + c);"),
     ("fm.cuh", "const Idx npiv = f.l2[c] + 1 + tk[c];",
      "const Idx npiv = __ldg(f.L2 + c) + 1 + tk[c];")]
+# smem1a's forward step (K2's), from where its lines differ from
+# smem1a_fwd's (mode split's K-fwd, which repeats the step)
+SMEM1A_FORWARD = """    if (min_intv < 1) min_intv = 1;
+    Intv<Idx> ik = set_intv(f, q[x]);
+    ik.qe = x + 1;
+    // forward: push the interval each time the next base shrinks it
+    int n_curr = 0, i = x + 1;
+    for (; i < len; ++i) {
+        const int c = q[i];
+        if (c > 3) break;
+        // forward extension reads the complement's slot
+        const Intv<Idx> ok = """
 FORMS = {
     "current": [],
     "l2-by-ldg": L2_BY_LDG,
     "forward-per-lane": L2_BY_LDG + [
-        ("smem.cuh", "const Intv<Idx> ok = extend_warp<Idx, false>(f, ik, "
-         "3 - c);", "const Intv<Idx> ok = extend<Idx, false>(f, ik, 3 - c);")],
+        ("smem.cuh", SMEM1A_FORWARD + "extend_warp<Idx, false>(f, ik, 3 - c);",
+         SMEM1A_FORWARD + "extend<Idx, false>(f, ik, 3 - c);")],
 }
 
 
