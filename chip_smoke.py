@@ -613,11 +613,15 @@ def phase_build():
                "extend_bd": xb._SIGNATURES, "occ": occ._SIGNATURES,
                "smem": smem_fused._SIGNATURES}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as ex:
+    with ThreadPoolExecutor(len(kernels) + 1) as ex:
         futures = [ex.submit(_build.load, name, sigs)
                    for name, sigs in kernels.items()]
+        # K-fwd's g32 form (a warp a job, the first design's layout),
+        # which 3l times beside the shipped one
+        g32 = ex.submit(split_form, "g32")
         for f in futures:
             f.result()
+        g32.result()
     built = []
     for name in kernels:
         info = _build.build_info[name]
@@ -631,6 +635,22 @@ def phase_build():
     print("[2 build] " + json.dumps({
         "kernels": built, "load_s": round(time.perf_counter() - t0, 3)}),
         flush=True)
+
+
+SPLIT_BUILT = {}        # K-fwd's forms built this run
+
+
+def split_form(form):
+    """(the ctypes handle, its sources' directory) of csrc/smem.cu built
+    in K-fwd's form ``form`` (``warp_host.SPLIT_FORMS``) under
+    build/split_forms, once a run."""
+    from tpubwa_torch.device import _build, smem_fused, warp_host
+    if form not in SPLIT_BUILT:
+        out = _build.BUILD.parent / "split_forms" / form
+        lib, _ = _build.build_edited("smem", warp_host.SPLIT_FORMS[form], out,
+                                     smem_fused._SIGNATURES)
+        SPLIT_BUILT[form] = (lib, out)
+    return SPLIT_BUILT[form]
 
 
 def strip_edge_sets(np):
@@ -4075,6 +4095,16 @@ def k3_launch_facts(torch, n):
                                 min_width=64)}
 
 
+def split_kernels(csrc=None):
+    """{K-fwd, K-bwd: the regex of its SASS or ptxas function's name, {}
+    for the rank type's letter}, at K-fwd's group size in the sources
+    ``csrc`` (the package's where None)."""
+    from tpubwa_torch.device import warp_host
+    k = warp_host.split_constants(csrc or warp_host.CSRC)
+    return {"smem_fwd": rf"smem_fwd_kernelI{{}}Li{k['kFwdGroup']}EE",
+            "smem_bwd": r"smem_bwd_kernelI{}E"}
+
+
 # K2, K2-tp, K3, K-cur, K-fwd and K-bwd, each rank type: their SASS
 # functions' names
 SEEDING_KERNELS = {
@@ -4084,8 +4114,22 @@ SEEDING_KERNELS = {
                   ("smem_rounds12_tp", r"collect12_kernelI{}Lb1EE"),
                   ("seed_strategy", r"seed_strategy_kernelI{}E"),
                   ("smem_jobs", r"smem_jobs_kernelI{}E"),
-                  ("smem_fwd", r"smem_fwd_kernelI{}E"),
-                  ("smem_bwd", r"smem_bwd_kernelI{}E"))}
+                  *split_kernels().items())}
+# K2's, K2-tp's, K3's and K-cur's SASS (seeding_digest) as built from the
+# sources before the split kernels' group designs, on the card's
+# toolchain (nvcc 12.9, NVCC_FLAGS): the redesign adds beside them and
+# must leave them as they were
+KEPT_DIGEST = {
+    f"{k}/{dt}": {"instructions": n, "sha256": h}
+    for k, dt, n, h in (
+        ("smem_rounds12", "int32", 2976, "f345e89852821d63"),
+        ("smem_rounds12_tp", "int32", 3536, "d0d95cc371431dfd"),
+        ("seed_strategy", "int32", 880, "096dad6fb9474d1e"),
+        ("smem_jobs", "int32", 1608, "0bab337f338430eb"),
+        ("smem_rounds12", "int64", 3296, "e5a5d62f23bbaf21"),
+        ("smem_rounds12_tp", "int64", 3880, "a0c1b4d6fb6cbe5d"),
+        ("seed_strategy", "int64", 1016, "d5d972ea4c983efe"),
+        ("smem_jobs", "int64", 2104, "f97c777930a8e655"))}
 
 
 def seeding_digest(so=None, kernels=None):
@@ -4805,30 +4849,38 @@ def ksplit_bytes(torch, np, didx, qd, ld, opt, jobs, calls, n_rows):
             "bwd": (fm_bytes(bwd_io, [(bwd_rows, OCC_ROW)]), len(bwd_rows))}
 
 
-def ksplit_launch_facts(torch, L):
-    """K-fwd's and K-bwd's launch at reads of L bases on this card, each
-    rank type (warps a block, blocks and warps an SM, a warp's stack
-    bytes, the longest read) and each instantiation's registers."""
-    from tpubwa_torch.device import _build, smem_fused as sf, smem_split
-    lib = _build.load("smem", sf._SIGNATURES)
-    launch = {}
-    for name, bwd in (("fwd", False), ("bwd", True)):
-        for dt in ("int32", "int64"):
-            rc, shape = smem_split.ksplit_shape(lib, bwd, dt == "int64", L,
-                                                torch.cuda.current_device())
-            if rc:
-                raise AssertionError(f"K-{name} refuses reads of {L} bases "
-                                     f"({dt})")
-            idt = torch.int64 if dt == "int64" else torch.int32
-            if bwd and shape["max_len"] != smem_split.ksplit_max_len(idt):
-                raise AssertionError(f"K-bwd's limit {shape['max_len']} != "
-                                     f"ksplit_max_len ({dt})")
-            launch[f"{name}/{dt}"] = dict(shape, warps_per_sm=shape["warps"]
-                                          * shape["blocks_per_sm"])
-    report = _build.build_info["smem"]["ptxas"]
-    return {"launch": launch, "ptxas": {
-        f"{k}/{dt}": ptxas_usage(report, rf"smem_{k}_kernelI{m}E")
-        for k in ("fwd", "bwd") for dt, m in (("int32", "i"), ("int64", "l"))}}
+def ksplit_launch_facts(torch, L, units, forms):
+    """K-fwd's and K-bwd's launches at reads of L bases on this card, over
+    ``units`` ({"fwd": jobs, "bwd": calls}), in each form of ``forms``
+    ({form: (its library, its ptxas report, its sources)}) and rank type:
+    the lanes a job or call (G) and an interval, a call's stack slots, a
+    block's threads and shared bytes, the blocks, warps and units in
+    flight an SM, the grid, the longest read; and each instantiation's
+    registers and spills."""
+    from tpubwa_torch.device import smem_split
+    launch, regs = {}, {}
+    for form, (lib, report, csrc) in forms.items():
+        names = split_kernels(csrc)
+        for kind, name in enumerate(("fwd", "bwd")):
+            for dt, m in (("int32", "i"), ("int64", "l")):
+                idt = torch.int64 if dt == "int64" else torch.int32
+                rc, shape = smem_split.ksplit_shape(
+                    lib, kind, dt == "int64", L, units[name],
+                    torch.cuda.current_device())
+                if rc:
+                    raise AssertionError(f"K-{name} ({form}) refuses reads "
+                                         f"of {L} bases ({dt})")
+                if kind and shape["max_len"] != smem_split.ksplit_max_len(
+                        idt):
+                    raise AssertionError(f"K-bwd's limit {shape['max_len']}"
+                                         f" != ksplit_max_len ({dt})")
+                per_sm = shape["blocks_per_sm"] * shape["threads"]
+                launch[f"{form} {name}/{dt}"] = dict(
+                    shape, warps_per_sm=per_sm // 32,
+                    units_per_sm=per_sm // shape["group"])
+                regs[f"{form} {name}/{dt}"] = ptxas_usage(
+                    report, names[f"smem_{name}"].format(m))
+    return {"launch": launch, "ptxas": regs}
 
 
 def phase_ksplit(torch, np, main, megaq):
@@ -4838,14 +4890,20 @@ def phase_ksplit(torch, np, main, megaq):
     edge reads (262 reads, as 3k); then mode split's four launches on the
     chunk (16,384 round-1 jobs, then the round-2 jobs of their rows):
     each round's rows == K-cur's on the same jobs, and each launch alone
-    beside K-cur's two and K2's one in interleaved passes, with the calls
-    a job, m a call, a job's forward chain and a call's backward chain,
-    the jobs that took K-fwd's second launch, the distinct sectors of
-    the index each launch reads (csrc/smem_host.cpp) and its bound, and
-    the launch shapes and registers.  Returns {"fwd": K-fwd's row case, "bwd":
-    K-bwd's}, their round-1 launches."""
+    (K-fwd beside its g32 form, a warp a job, the first design's layout:
+    ``split_form``, held to the same results) beside K-cur's two and K2's
+    one, in interleaved passes;
+    with the calls a job, m a call, a job's forward chain and a call's
+    backward chain, the jobs that took K-fwd's second launch, the
+    distinct sectors of the index each launch reads (csrc/smem_host.cpp)
+    and its bound, the launch shapes (lanes a unit, units and warps an
+    SM) and registers of both of K-fwd's forms, and the SASS of K2, K2-tp,
+    K3 and
+    K-cur held to ``KEPT_DIGEST``.  Returns {"fwd": K-fwd's row case,
+    "bwd": K-bwd's}, their round-1 launches."""
     import tempfile
-    from tpubwa_torch.device import smem_cursor, smem_split
+    from tpubwa_torch.device import _build, smem_cursor, smem_split
+    from tpubwa_torch.device import smem_fused as sf
     from tpubwa_torch.scripts.exp_kernel_floor import interleaved_min
     t0 = time.perf_counter()
     fmi, opt = main["fmi"], main["opt"]
@@ -4885,35 +4943,52 @@ def phase_ksplit(torch, np, main, megaq):
                                  f"chunk, {name}")
         rounds[name] = (jobs, calls, bcalls, rows, n, fst, bst)
         jobs = smem_cursor.round2_jobs(opt_, rows, counts)
+    g32, g32_src = split_form("g32")
     alone = {"k2": k2_alone(torch, opt_, didx, qd, ld)}
     for name, (jobs, calls, bcalls, *_) in rounds.items():
-        alone[f"fwd {name}"] = kfwd_alone(torch, didx, qd, ld, jobs)
+        for form, lib in (("", None), (" g32", g32)):
+            alone[f"fwd{form} {name}"] = kfwd_alone(torch, didx, qd, ld,
+                                                    jobs, lib=lib)
         alone[f"bwd {name}"] = kbwd_alone(torch, didx, qd, ld, bcalls,
                                           calls.stack, msl)
         alone[f"kcur {name}"] = kcur_alone(torch, opt_, didx, qd, ld, jobs)
+    for fn in alone.values():
+        fn()
+    torch.cuda.synchronize()
     best = interleaved_min(alone, 10, 4, torch.device(DEV))
     t1 = time.perf_counter()
     launches = {}
     for name, (jobs, calls, bcalls, rows, n, fst, bst) in rounds.items():
-        fb, bb = alone[f"fwd {name}"].buffers, alone[f"bwd {name}"].buffers
         per_job = torch.bincount(calls.job, minlength=len(jobs[0])).int()
-        if not (torch.equal(fb[5], per_job)
-                and torch.equal(fb[7], fst["steps"])
-                and torch.equal(fb[8], fst["chain"]) and torch.equal(bb[5], n)
+        bb = alone[f"bwd {name}"].buffers
+        if not (torch.equal(bb[5], n)
+                and torch.equal(smem_split.call_rows(bb[4], bb[5], calls.m),
+                                rows)
                 and torch.equal(bb[6], bst["steps"])
                 and torch.equal(bb[7], bst["chain"])):
-            raise AssertionError(f"K-fwd or K-bwd alone != its wrapper "
-                                 f"({name})")
+            raise AssertionError(f"K-bwd alone != the wrapper's ({name})")
+        for form in ("", " g32"):
+            fb = alone[f"fwd{form} {name}"].buffers
+            if not (torch.equal(fb[5], per_job)
+                    and torch.equal(fb[6], torch.bincount(
+                        calls.job, weights=calls.m.double(),
+                        minlength=len(jobs[0])).int())
+                    and torch.equal(fb[7], fst["steps"])
+                    and torch.equal(fb[8], fst["chain"])):
+                raise AssertionError(f"K-fwd{form} alone != the wrapper's "
+                                     f"({name})")
         got = ksplit_bytes(torch, np, didx, qd, ld, opt_, jobs, calls,
                            len(rows))
         m = calls.m.cpu().numpy()
         cj = per_job.cpu().numpy()
         fch, bch = (s["chain"].cpu().numpy() for s in (fst, bst))
+        fb = {k: round(best[f"fwd{f} {name}"], 4)
+              for k, f in (("fwd_ms", ""), ("fwd_g32_ms", " g32"))}
         launches[name] = {
             "jobs": len(jobs[0]), "calls": len(m), "rows": len(rows),
-            "fwd_ms": round(best[f"fwd {name}"], 4),
-            "bwd_ms": round(best[f"bwd {name}"], 4),
+            **fb, "bwd_ms": round(best[f"bwd {name}"], 4),
             "kcur_ms": round(best[f"kcur {name}"], 4),
+            "fwd_over_g32": round(fb["fwd_ms"] / fb["fwd_g32_ms"], 4),
             "split_over_kcur": round((best[f"fwd {name}"]
                                       + best[f"bwd {name}"])
                                      / best[f"kcur {name}"], 4),
@@ -4941,13 +5016,25 @@ def phase_ksplit(torch, np, main, megaq):
                 "occ_rows_read": one[f"{k}_occ_rows_read"],
                 "bytes": one[f"{k}_bytes"], "max_abs_err": 0,
                 "bound_ms": one[f"{k}_bound_ms"]} for k in ("fwd", "bwd")}
+    digest = seeding_digest(kernels=("smem_rounds12", "smem_rounds12_tp",
+                                     "seed_strategy", "smem_jobs"))
+    if digest != KEPT_DIGEST:
+        raise AssertionError(f"K2's, K2-tp's, K3's or K-cur's SASS moved: "
+                             f"{digest} != {KEPT_DIGEST}")
+    forms = {"shipped": (_build.load("smem", sf._SIGNATURES),
+                         _build.build_info["smem"]["ptxas"], None),
+             "g32": (g32, _build.build_info[str(g32_src)]["ptxas"], g32_src)}
     print("[3l K-fwd/K-bwd] " + json.dumps({
         "tolerance": 0, "cases": cases, "chunk": launches,
         "k2_ms": round(best["k2"], 4), "rounds_equal_kcur": True,
-        "main_launches": rows,
+        "g32_equal_shipped": True, "main_launches": rows,
         "count_rows_s": round(count_s, 1),
         "card": "the first chunk of 5c (16,384 reads)",
-        **ksplit_launch_facts(torch, qd.shape[1]),
+        **ksplit_launch_facts(torch, qd.shape[1],
+                              {"fwd": one["jobs"], "bwd": one["calls"]},
+                              forms),
+        "kept_digest_equal": True,
+        "sass_digest": seeding_digest(kernels=("smem_fwd", "smem_bwd")),
         "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     return rows
 

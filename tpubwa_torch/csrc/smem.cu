@@ -2,8 +2,8 @@
 // device functions of csrc/smem.cuh and csrc/fm.cuh: rounds 1 and 2 a
 // warp a read (K2), round 3 a group of 8 lanes a read (K3),
 // bwt_smem1a a warp a job (K-cur, seed modes cursor and fused), and its
-// forward and backward halves apart (K-fwd a warp a job, K-bwd a warp a
-// recorded call: seed mode split).
+// forward and backward halves apart (K-fwd a group of 8 lanes a job, K-bwd
+// a warp a recorded call: seed mode split).
 //
 // K2, collect12_kernel, replaces rounds 1 and 2 of
 // tpubwa/device/smem_fused.py:smem_chunk_machine_q (:872, driven by
@@ -109,23 +109,40 @@
 // while_loop :184) and smem_bwd_machine (:198, :318), driven by
 // rounds12_split (:453); the wrappers are tpubwa_torch/device/
 // smem_split.py:run_fwd and run_bwd.  They are K-cur's bwt_smem1a cut
-// where the forward phase hands its stack to the backward phase
-// (smem.cuh:smem1a_fwd, smem1a_bwd).  K-fwd runs a job as K-cur does, a
-// warp a job from a job queue, and writes each call's stack (x0, x1,
-// size, qe a pushed interval, longest match first) and the call (x, m,
-// ret) to global memory in `slots` slots a job, counting on past them;
-// the wrapper re-runs the jobs past their slots with exact room, as
-// collect12 does for K2.  K-bwd takes a warp a recorded call from a call
-// queue: it loads the call's stack into shared memory, runs the backward
-// half, and writes the call's rows where its stack lay (a call emits at
-// most m rows, so the wrapper's prefix sum of m is exact: no second
-// launch).  The bound and the design question are K-cur's: a job's chain
-// is its forward steps plus its calls' backward strips, and spreading a
-// job's calls over warps takes the strips off the job's chain, at the
-// price of a trip through global memory for each stack.  K-fwd keeps two
-// stacks a warp in shared memory (curr, prev), K-bwd three (curr, prev
-// and the call's rows, K-cur's limit: L <= 3,873 in int32, 1,936 in
-// int64); both are refused past it before anything runs.
+// where the forward phase hands its stack to the backward phase.  K-fwd
+// writes each call's stack (x0, x1, size, qe a pushed interval, longest
+// match first) and the call (x, m, ret) to global memory in `slots` slots
+// a job, counting on past them; the wrapper re-runs the jobs past their
+// slots with exact room, as collect12 does for K2.  K-bwd runs a
+// recorded call from its stack and writes its rows where its stack's
+// slots are (a call emits at most m rows, so the wrapper's prefix sum of
+// m is exact: no second launch).  The bound is K-cur's: a job's chain is
+// its forward steps plus its calls' backward strips, and the split takes
+// the strips off the job's chain at the price of a trip through global
+// memory for each stack.  Their designs:
+//   * K-fwd, a group of kFwdGroup = 8 lanes a job, 4 jobs a warp in
+//     lockstep, K3's pattern: each forward step counted across the group
+//     (smem.cuh:extend_fwd), a job queue taken from as jobs end, a
+//     restart past an N at no step.  The group's first lane pushes each
+//     interval straight to the job's stack slots; when the call ends the
+//     group reverses its range there (after a __syncwarp, in the next
+//     turn).  No shared memory: the registers alone set the jobs an SM
+//     holds, pinned by __launch_bounds__ to kFwdMinBlocks blocks of 4
+//     warps (32 warps, 128 jobs an SM, 16,896 on an H100: every job of
+//     a 16,384-read chunk's round 1 at once; at 40 warps the registers
+//     spill, and it ran slower).  The first design, a warp a job with
+//     its stacks in shared memory, is the form G = 32 without them
+//     (scripts/exp_split_forms.py times the forms);
+//   * K-bwd, a warp a recorded call from a call queue, its stack loaded
+//     into the warp's shared memory, smem.cuh:smem1a_bwd (strips of 32
+//     intervals, a lane an interval), its rows kept in shared memory and
+//     written where its stack's slots are, by query start.  Its three
+//     stacks of L + 1 intervals (K-cur's) limit the reads: L <= 3,873 in
+//     int32, 1,936 in int64; both wrappers refuse past it before anything
+//     runs.  Groups of 4 to 16 lanes a call (several calls a warp in
+//     lockstep), an interval on 4 lanes, a queue-free feed and one stack
+//     in place sized by m all ran slower on the card than this warp a
+//     call (PERF.md).
 // What K3's design does about it:
 //   * a group of kGroup = 8 lanes a read, 4 reads a warp: each forward
 //     step's two occ rows are counted across the group
@@ -187,7 +204,8 @@ constexpr int kGroup = 8;      // K3: lanes a read (1, 4, 8, 16 or 32)
 constexpr int kMaxWarps = 4;   // K2: warps a block, at most
 constexpr int kStacks = 4;     // curr, prev, a call's rows, round 1's rows
 constexpr int kJobStacks = 3;  // K-cur: curr, prev, a call's rows
-constexpr int kFwdStacks = 2;  // K-fwd: curr, prev
+constexpr int kFwdGroup = 8;   // K-fwd: lanes a job (4, 8, 16 or 32)
+constexpr int kFwdMinBlocks = 8;   // K-fwd: blocks an SM, at least
 constexpr int kBwdStacks = 3;  // K-bwd: curr, prev, the call's rows
 
 using seed::Intv;
@@ -338,83 +356,246 @@ __global__ void smem_jobs_kernel(fm::Index<Idx> f,
     }
 }
 
-// K-fwd: a warp a job, from the job queue (*queue, zero at launch); the
-// t-th job taken is ids[t].  Each of its calls' stacks goes to stack[t]
-// ([n, slots] intervals of four ranks: x0, x1, size, qe), call after
-// call, each longest match first, and the call itself, (x, m, ret), to
-// calls[t] ([n, slots] int32 triples); n_calls[t] and n_intv[t] count on
-// past the slots (a call pushes at least one interval, so n_calls <=
-// n_intv).  warp_bytes = kFwdStacks * (L + 1) intervals
+// The first lanes of the groups of G lanes in a warp
+template <int G>
+__device__ __forceinline__ constexpr unsigned group_leads() {
+    return G == 32 ? 1u : 0xffffffffu / ((1u << G) - 1u);
+}
+
+// K3's queue protocol (seed_strategy_kernel keeps its own copy, so that
+// its SASS stays as it was) for K-fwd, whose groups of G lanes each work
+// a unit (a job) at a time: group g has unit g from the launch, and the
+// groups whose unit ended take the next ones from the queue (*queue,
+// zeroed by the entry where groups < n; its k-th unit is groups + k),
+// one atomicAdd a warp for all of its groups that want one, the units in
+// lane order.  want: the calling group wants a unit (every lane of the
+// group alike); begin(u) starts unit u on the group and returns whether
+// it wants another (its unit ended at once).  A group still wanting when
+// the units run out is drained; empty (warp-uniform): the queue has none
+// left.
+template <int G, class Begin>
+__device__ __forceinline__ void take_units(int n, int groups,
+                                           int32_t* queue, bool& empty,
+                                           bool& want, bool& drained,
+                                           Begin begin) {
+    const int lane = threadIdx.x & 31, lead = lane & ~(G - 1);
+    for (unsigned needs = __ballot_sync(kFull, want); needs;
+         needs = __ballot_sync(kFull, want)) {
+        const unsigned leads = needs & group_leads<G>();
+        int first = n;
+        if (!empty) {  // one atomic a warp, its units in lane order
+            int got = 0;
+            if (lane == 0) got = atomicAdd(queue, __popc(leads));
+            first = groups + __shfl_sync(kFull, got, 0);
+            empty = first + __popc(leads) >= n;
+        }
+        if (want) {
+            const int u = first + __popc(leads & seed::lanes_below(lead));
+            if (u < n) {
+                want = begin(u);
+            } else {
+                want = false;
+                drained = true;
+            }
+        }
+    }
+}
+
+// A K-fwd call's pushes still to reverse (at, m intervals of four ranks)
 template <class Idx>
-__global__ void smem_fwd_kernel(fm::Index<Idx> f,
-                                const uint8_t* __restrict__ q, int64_t L,
-                                const int32_t* __restrict__ lens,
-                                const int32_t* __restrict__ read,
-                                const int32_t* __restrict__ x0,
-                                const Idx* __restrict__ min_intv,
-                                const uint8_t* __restrict__ one_shot,
-                                const int32_t* __restrict__ ids, int64_t n,
-                                int slots, size_t warp_bytes,
-                                int32_t* __restrict__ queue,
-                                Idx* __restrict__ stack,
-                                int32_t* __restrict__ calls,
-                                int32_t* __restrict__ n_calls,
-                                int32_t* __restrict__ n_intv,
-                                int32_t* __restrict__ steps_out,
-                                int32_t* __restrict__ chain_out) {
-    const int lane = threadIdx.x & 31;
+struct Reverse {
+    Idx* at = nullptr;
+    int m = 0;
+
+    // reversed by the group's G lanes (gl its lane), a pair a lane a turn
+    __device__ __forceinline__ void run(int gl, int G) {
+        for (int r = gl; r < m / 2; r += G) {
+            Idx* a = at + (int64_t)r * 4;
+            Idx* b = at + (int64_t)(m - 1 - r) * 4;
+            for (int k = 0; k < 4; ++k) {
+                const Idx v = a[k];
+                a[k] = b[k];
+                b[k] = v;
+            }
+        }
+        m = 0;
+    }
+};
+
+// K-fwd's state on a group's job (every lane of the group holds the
+// same): the forward phases of its bwt_smem1a calls (smem.cuh:smem1a's
+// first half), call after call.  A call's pushes go to the job's stack
+// slots as they are pushed, written by the group's first lane; when the
+// call ends they are left to reverse (longest match first), which the
+// group does after a __syncwarp has made them visible to it.
+template <class Idx>
+struct FwdJob {
+    const uint8_t* q = nullptr;
+    int len = 0, x = 0, i = 0, c = 0;  // c: the base of the next step
+    bool once = false, in_call = false;
+    Idx mi = 1;
+    Intv<Idx> ik{};
+    int m = 0, ret = 0;             // the call's pushes, the last one's qe
+    int ni = 0, nc = 0, steps = 0;  // the job's intervals, calls and steps
+    int slots = 0;
+    Idx* out = nullptr;             // the job's stack slots
+    int32_t* call = nullptr;        // and call slots
+
+    // ik pushed: its four ranks (x0, x1, size, qe) to the next slot, where
+    // there is one
+    __device__ __forceinline__ void push(bool first) {
+        if (first && ni + m < slots) {
+            Idx* o = out + (int64_t)(ni + m) * 4;
+            o[0] = ik.x0;
+            o[1] = ik.x1;
+            o[2] = ik.size;
+            o[3] = ik.qe;
+        }
+        ret = (int)ik.qe;
+        ++m;
+    }
+
+    // the call ends: (x, m, ret) to its slot, and its pushes to reverse
+    // where they all fit the slots (a job past them is run again)
+    __device__ __forceinline__ void close(bool first, Reverse<Idx>& rev) {
+        if (first && nc < slots) {
+            call[3 * nc] = x;
+            call[3 * nc + 1] = m;
+            call[3 * nc + 2] = ret;
+        }
+        if (m > 1 && ni + m <= slots)
+            rev = Reverse<Idx>{out + (int64_t)ni * 4, m};
+        ni += m;
+        ++nc;
+        in_call = false;
+        x = ret;
+    }
+
+    // on to the job's next step, past N bases and calls that end before
+    // one (no bwt_extend, no warp operation): true with the step ik by c
+    // to make, false where the job has ended.  Only a call that made a
+    // step leaves more than one push to reverse, and a call begun here has
+    // made none, so a call closed here after one of the step before is
+    // the only one to reverse.
+    __device__ __forceinline__ bool next(const fm::Index<Idx>& f,
+                                         bool first, Reverse<Idx>& rev) {
+        for (;;) {
+            if (!in_call) {
+                if (once && nc) return false;
+                while (x < len && q[x] > 3) {  // smem1a: x + 1, no call
+                    if (once) return false;
+                    ++x;
+                }
+                if (x >= len) return false;
+                ik = seed::set_intv_l2(f, q[x]);
+                ik.qe = x + 1;
+                i = x + 1;
+                m = 0;
+                in_call = true;
+            }
+            if (i < len && q[i] <= 3) {
+                c = 3 - q[i];  // forward extension reads the complement's slot
+                return true;
+            }
+            push(first);  // an N, or the read's end, ends the match
+            close(first, rev);
+        }
+    }
+};
+
+// K-fwd: a group of G lanes a job, 32 / G jobs a warp in lockstep, each
+// step counted across the group (smem.cuh:extend_fwd: G 32 is
+// bwt_extend_warp, K2's step).  The t-th job taken is ids[t]: group g
+// takes the g-th first, then the next from the job queue (take_units).
+// Each of its calls' stacks goes to stack[t] ([n, slots] intervals of
+// four ranks: x0, x1, size, qe), call after call, each longest match
+// first, and the call itself, (x, m, ret), to calls[t] ([n, slots] int32
+// triples); n_calls[t] and n_intv[t] count on past the slots (a call
+// pushes at least one interval, so n_calls <= n_intv).  No shared
+// memory: the registers alone set how many jobs an SM holds, and
+// __launch_bounds__ pins them to kFwdMinBlocks blocks.
+template <class Idx, int G>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+smem_fwd_kernel(fm::Index<Idx> f, const uint8_t* __restrict__ q, int64_t L,
+                const int32_t* __restrict__ lens,
+                const int32_t* __restrict__ read,
+                const int32_t* __restrict__ x0,
+                const Idx* __restrict__ min_intv,
+                const uint8_t* __restrict__ one_shot,
+                const int32_t* __restrict__ ids, int n, int groups,
+                int slots, int32_t* __restrict__ queue,
+                Idx* __restrict__ stack, int32_t* __restrict__ calls,
+                int32_t* __restrict__ n_calls,
+                int32_t* __restrict__ n_intv,
+                int32_t* __restrict__ steps_out,
+                int32_t* __restrict__ chain_out) {
+    const int lane = threadIdx.x & 31, gl = lane & (G - 1);
+    const bool first = gl == 0;
+    const int at = blockIdx.x * blockDim.x + threadIdx.x;
+    if ((at - lane) / G >= n) return;  // the warp's first group has no job
     f = fm::with_l2(f);
-    Intv<Idx>* curr = static_cast<Intv<Idx>*>(warp_shared(warp_bytes));
-    Intv<Idx>* prev = curr + (L + 1);
+    bool empty = groups >= n;  // the queue has no job left
+    int t = -1;                // the group's job's place, -1 while none
+    bool drained = false, step = false;
+    FwdJob<Idx> s;
+    Reverse<Idx> rev;
+    // the group's next step, its job's counts written where it ends
+    auto next = [&]() {
+        if (t < 0) return false;
+        if (s.next(f, first, rev)) return true;
+        if (first) {
+            n_calls[t] = s.nc;
+            n_intv[t] = s.ni;
+            if (steps_out) steps_out[t] = s.steps;
+            if (chain_out) chain_out[t] = s.steps;  // one step a round
+        }
+        t = -1;
+        return false;
+    };
+    auto start = [&](int u) {
+        const int64_t j = ids[u];
+        s = FwdJob<Idx>{};
+        s.q = q + (int64_t)read[j] * L;
+        s.len = lens[read[j]];
+        s.x = x0[j];
+        s.once = one_shot[j] != 0;
+        s.mi = min_intv[j] < 1 ? (Idx)1 : min_intv[j];
+        s.slots = slots;
+        s.out = stack + (int64_t)u * slots * 4;
+        s.call = calls + (int64_t)u * slots * 3;
+        t = u;
+    };
+    auto begin = [&](int u) {
+        start(u);
+        step = next();
+        return t < 0;
+    };
+    if (at / G < n) start(at / G);
+    else drained = true;
     for (;;) {
-        int t = 0;
-        if (lane == 0) t = atomicAdd(queue, 1);
-        t = __shfl_sync(kFull, t, 0);
-        if (t >= n) break;
-        const int64_t j = ids[t];
-        const uint8_t* qr = q + (int64_t)read[j] * L;
-        const int len = lens[read[j]];
-        const bool once = one_shot[j] != 0;
-        const Idx mi = min_intv[j] < 1 ? (Idx)1 : min_intv[j];
-        Idx* out = stack + (int64_t)t * slots * 4;
-        int32_t* call = calls + (int64_t)t * slots * 3;
-        int nc = 0, ni = 0, steps = 0, chain = 0;
-        for (int x = x0[j]; x < len;) {
-            if (qr[x] > 3) {  // smem1a would return x + 1, with no call
-                if (once) break;
-                ++x;
+        __syncwarp();  // the pushes so far are visible to the group
+        rev.run(gl, G);
+        step = next();
+        bool want = !drained && t < 0;
+        take_units<G>(n, groups, queue, empty, want, drained, begin);
+        if (!__ballot_sync(kFull, t >= 0)) break;
+        // every group with a job has a step; the others join the group's
+        // sums (G 4 to 16) with step false
+        const Intv<Idx> ok = seed::extend_fwd<G>(f, s.ik, s.c, step);
+        if (!step) continue;
+        ++s.steps;
+        if (ok.size != s.ik.size) {
+            s.push(first);
+            if (ok.size < s.mi) {
+                s.close(first, rev);
                 continue;
             }
-            __syncwarp();  // the stacks' last readers are done
-            int m = 0;
-            const int ret = seed::smem1a_fwd(f, qr, len, x, mi, curr, prev, m,
-                                             steps, chain);
-            for (int k = lane; k < m && ni + k < slots; k += 32) {
-                const Intv<Idx> p = prev[k];
-                Idx* o = out + (int64_t)(ni + k) * 4;
-                o[0] = p.x0;
-                o[1] = p.x1;
-                o[2] = p.size;
-                o[3] = p.qe;
-            }
-            if (lane == 0 && nc < slots) {
-                call[3 * nc] = x;
-                call[3 * nc + 1] = m;
-                call[3 * nc + 2] = ret;
-            }
-            ni += m;
-            ++nc;
-            if (once) break;
-            x = ret;
         }
-        if (lane == 0) {
-            n_calls[t] = nc;
-            n_intv[t] = ni;
-            if (steps_out) steps_out[t] = steps;
-            if (chain_out) chain_out[t] = chain;
-        }
-        __syncwarp();  // the stacks' readers are done before the next job
+        s.ik = Intv<Idx>{ok.x0, ok.x1, ok.size, 0, (Idx)(s.i + 1)};
+        ++s.i;
     }
+    __syncwarp();  // the last calls' pushes are visible to the group
+    rev.run(gl, G);
 }
 
 // K-bwd: a warp a recorded call, from the call queue (*queue, zero at
@@ -675,16 +856,73 @@ cudaError_t shape_jobs(int64_t L, int device, Shape12* s) {
     return warp_shape<Idx>(smem_jobs_kernel<Idx>, kJobStacks, L, device, s);
 }
 
-// K-fwd's and K-bwd's launch shapes for reads of L bases: as K2's, with
-// kFwdStacks and kBwdStacks
+// K-fwd's and K-bwd's launch (see the header): the lanes a unit (a
+// K-fwd job or a K-bwd call) and an interval, a K-bwd call's stack slots
+// (cap), the block's threads and shared bytes, the blocks an SM the
+// occupancy query allows, the card's SMs, the grid's blocks and groups
+// for n units, and the longest read length.
+struct ShapeSplit {
+    int group = 0, lanes = 0, cap = 0, threads = 0, blocks_per_sm = 0,
+        sms = 0;
+    int64_t shared = 0, blocks = 0, groups = 0, max_len = 0;
+};
+
+// K-fwd's launch for n jobs: blocks of kThreads and no shared memory, as
+// K3's (shape3); an n the job queue's int32 counter cannot take is
+// refused with cudaErrorInvalidValue.  It keeps no stack, so it takes
+// reads of any int32 length.
 template <class Idx>
-cudaError_t shape_fwd(int64_t L, int device, Shape12* s) {
-    return warp_shape<Idx>(smem_fwd_kernel<Idx>, kFwdStacks, L, device, s);
+cudaError_t shape_fwd(int64_t n, int device, ShapeSplit* s) {
+    s->group = s->lanes = kFwdGroup;
+    s->threads = kThreads;
+    s->max_len = INT32_MAX;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &s->sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &s->blocks_per_sm, smem_fwd_kernel<Idx, kFwdGroup>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    constexpr int64_t per = kThreads / kFwdGroup;  // groups a block
+    s->blocks = std::min<int64_t>((int64_t)s->blocks_per_sm * s->sms,
+                                  (n + per - 1) / per);
+    s->groups = s->blocks * per;
+    // the counter and a job's index stay below n + groups + 32
+    if (n < 0 || n > INT32_MAX - s->groups - 32) return cudaErrorInvalidValue;
+    return s->blocks_per_sm ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <class Idx>
 cudaError_t shape_bwd(int64_t L, int device, Shape12* s) {
     return warp_shape<Idx>(smem_bwd_kernel<Idx>, kBwdStacks, L, device, s);
+}
+
+// K-fwd's (kind 0, shape_fwd) or K-bwd's (1) launch for reads of L bases
+// and n units.  K-bwd, a warp a call (32 lanes, a lane an interval, L + 1
+// slots a stack; its shape K-cur's, warp_shape) refuses a longer L than
+// its three stacks fit a block's shared memory.
+template <class Idx>
+cudaError_t shape_split(int kind, int64_t L, int64_t n, int device,
+                        ShapeSplit* s) {
+    if (kind == 0)
+        return L < 1 ? cudaErrorInvalidValue : shape_fwd<Idx>(n, device, s);
+    if (kind != 1) return cudaErrorInvalidValue;
+    Shape12 w;
+    const cudaError_t err = shape_bwd<Idx>(L, device, &w);
+    s->group = 32;
+    s->lanes = 1;
+    s->cap = (int)std::min<int64_t>(L + 1, INT32_MAX);
+    s->threads = 32 * w.warps;
+    s->blocks_per_sm = w.blocks_per_sm;
+    s->sms = w.sms;
+    s->shared = w.warps * w.warp_bytes;
+    s->max_len = w.max_len;
+    if (err != cudaSuccess) return err;
+    // the grid launch_bwd makes (unit_blocks)
+    s->blocks = std::min<int64_t>((int64_t)w.blocks_per_sm * w.sms,
+                                  (n + w.warps - 1) / w.warps);
+    s->groups = s->blocks * w.warps;
+    return n < 0 || n > INT32_MAX - s->groups ? cudaErrorInvalidValue
+                                              : cudaSuccess;
 }
 
 template <class Idx, bool Tp>
@@ -797,22 +1035,24 @@ cudaError_t launch_fwd(const void* occ, const void* L2, int64_t primary,
                        void* stack, void* calls, void* n_calls, void* n_intv,
                        void* steps, void* chain, int device,
                        cudaStream_t stream) {
-    Shape12 s;
-    cudaError_t err = shape_fwd<Idx>(L, device, &s);
+    ShapeSplit s;
+    cudaError_t err = shape_split<Idx>(0, L, n, device, &s);
     if (err != cudaSuccess) return err;  // refused: no launch is made
     if ((uintptr_t)occ & 15) return cudaErrorInvalidValue;  // load16
-    const int64_t blocks = unit_blocks(s, n);
     if (n == 0) return cudaSuccess;
-    if (blocks == 0 || slots < 1) return cudaErrorInvalidValue;
-    err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
-    if (err != cudaSuccess) return err;
-    TPUBWA_LAUNCH(smem_fwd_kernel<Idx>, (int)blocks, 32 * s.warps,
-                  (size_t)(s.warps * s.warp_bytes), stream,
+    if (slots < 1) return cudaErrorInvalidValue;
+    if (s.groups < n) {  // the job queue is used
+        err = cudaMemsetAsync(queue, 0, sizeof(int32_t), stream);
+        if (err != cudaSuccess) return err;
+    }
+    // (a template-id's comma would split the launch macro's arguments)
+    const auto kernel = smem_fwd_kernel<Idx, kFwdGroup>;
+    TPUBWA_LAUNCH(kernel, (int)s.blocks, s.threads, 0, stream,
                   index_of<Idx>(occ, L2, primary, seq_len), (const uint8_t*)q,
                   L, (const int32_t*)lens, (const int32_t*)read,
                   (const int32_t*)x0, (const Idx*)min_intv,
-                  (const uint8_t*)one_shot, (const int32_t*)ids, n, slots,
-                  (size_t)s.warp_bytes, (int32_t*)queue, (Idx*)stack,
+                  (const uint8_t*)one_shot, (const int32_t*)ids, (int)n,
+                  (int)s.groups, slots, (int32_t*)queue, (Idx*)stack,
                   (int32_t*)calls, (int32_t*)n_calls, (int32_t*)n_intv,
                   (int32_t*)steps, (int32_t*)chain);
     return cudaGetLastError();
@@ -1015,15 +1255,15 @@ extern "C" int tpubwa_smem_jobs_shape(int idx64, int64_t L, int device,
     return (int)err;
 }
 
-// K-fwd: the jobs ids[0, n) (as tpubwa_smem_jobs's), a warp a job taken
-// from the queue queue[0] (an int32 the entry zeroes on the stream
-// first); the t-th job's first `slots` stack intervals (x0, x1, size, qe)
-// go to stack[t] ([n, slots, 4] of the rank type) and its first `slots`
-// calls (x, m, ret) to calls[t] ([n, slots, 3] int32), its counts of
-// calls and intervals to n_calls[t] and n_intv[t]; steps and chain (the
-// forward steps, a job) may be null.  A read length whose stacks do not
-// fit a block's shared memory (see tpubwa_smem_fwd_shape), or an n the
-// queue's counter cannot take, is refused before anything runs.
+// K-fwd: the jobs ids[0, n) (as tpubwa_smem_jobs's), a group of lanes a
+// job, the jobs past the grid's groups taken from the queue queue[0] (an
+// int32 the entry zeroes on the stream first, where it is used); the
+// t-th job's first `slots` stack intervals (x0, x1, size, qe) go to
+// stack[t] ([n, slots, 4] of the rank type) and its first `slots` calls
+// (x, m, ret) to calls[t] ([n, slots, 3] int32), its counts of calls and
+// intervals to n_calls[t] and n_intv[t]; steps and chain (the forward
+// steps, a job) may be null.  An n the queue's counter cannot take is
+// refused before anything runs.
 extern "C" int tpubwa_smem_fwd(const void* occ, const void* L2,
                                int64_t primary, int64_t seq_len, int idx64,
                                const void* q, int64_t L, const void* lens,
@@ -1048,8 +1288,10 @@ extern "C" int tpubwa_smem_fwd(const void* occ, const void* L2,
 // the entry zeroes on the stream first); the call's rows of at least
 // min_seed_len bases go to rows[off[t], ...) (intervals of five ranks)
 // and their count to counts[t] (at most m[t]); steps and chain (the
-// backward extensions and strips, a call) may be null.  Refused as
-// tpubwa_smem_fwd.
+// backward extensions and strips, a call) may be null.  A read length
+// whose stacks do not fit a block's shared memory (see
+// tpubwa_smem_split_shape), or an n the queue's counter cannot take, is
+// refused before anything runs.
 extern "C" int tpubwa_smem_bwd(const void* occ, const void* L2,
                                int64_t primary, int64_t seq_len, int idx64,
                                const void* q, int64_t L, const void* read,
@@ -1066,22 +1308,23 @@ extern "C" int tpubwa_smem_bwd(const void* occ, const void* L2,
         (cudaStream_t)stream);
 }
 
-// K-fwd's (bwd 0) or K-bwd's (bwd 1) launch shape for reads of L bases
-// into out[5], as tpubwa_smem_rounds12_shape's
-extern "C" int tpubwa_smem_split_shape(int bwd, int idx64, int64_t L,
-                                       int device, int64_t* out) {
+// K-fwd's (kind 0) or K-bwd's (1) launch for reads of L bases and n
+// units into out[10] (a host array): the lanes a unit, the lanes an
+// interval, a K-bwd call's stack slots, the threads and the shared bytes
+// of a block, the blocks an SM, the card's SMs, the grid's blocks and
+// groups, and the longest read length; returns the error a launch would
+// return before it runs (out is filled as far as it is known).
+extern "C" int tpubwa_smem_split_shape(int kind, int idx64, int64_t L,
+                                       int64_t n, int device, int64_t* out) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    Shape12 s;
-    if (bwd)
-        err = idx64 ? shape_bwd<int64_t>(L, device, &s)
-                    : shape_bwd<int32_t>(L, device, &s);
-    else
-        err = idx64 ? shape_fwd<int64_t>(L, device, &s)
-                    : shape_fwd<int32_t>(L, device, &s);
-    const int64_t got[5] = {s.warp_bytes, s.warps, s.blocks_per_sm, s.sms,
-                            s.max_len};
-    for (int i = 0; i < 5; ++i) out[i] = got[i];
+    ShapeSplit s;
+    err = idx64 ? shape_split<int64_t>(kind, L, n, device, &s)
+                : shape_split<int32_t>(kind, L, n, device, &s);
+    const int64_t got[10] = {s.group, s.lanes, s.cap, s.threads,
+                             s.blocks_per_sm, s.sms, s.shared, s.blocks,
+                             s.groups, s.max_len};
+    for (int i = 0; i < 10; ++i) out[i] = got[i];
     return (int)err;
 }
 

@@ -1,9 +1,11 @@
 // SMEM seeding device functions (bwt.c:bwt_smem1a and
 // bwt_seed_strategy1) over the FM-index functions of csrc/fm.cuh
 // (set_intv, bwt_extend, bwt_extend_group), for the seeding kernels of
-// csrc/smem.cu: smem1a runs one read on a warp (K2); round 3 (K3) runs a
-// read on a group of G lanes, each forward step counted across the group
-// (fm.cuh:bwt_extend_group), the scan itself in csrc/smem.cu.
+// csrc/smem.cu: smem1a runs one read on a warp (K2, K-cur), and its
+// backward half alone (smem1a_bwd) a recorded call (K-bwd); round 3 (K3)
+// and the split's forward half (K-fwd) run a read or a job on a group of
+// G lanes, each step counted across the group (fm.cuh:bwt_extend_group),
+// their machines in csrc/smem.cu.
 // They follow the port's native scalar seeder step for step
 // (tpubwa_torch/native/smem.cpp smem1a :235-318, seed_strategy1
 // :321-344), and so bwa's scalar protocol, not the lockstep machines of
@@ -155,52 +157,6 @@ __device__ __forceinline__ int top_lane(unsigned mask) {
     return 31 - __clz(mask);
 }
 
-// smem1a's forward phase alone (the split's K-fwd): from x (q[x] <= 3,
-// min_intv >= 1, the stacks' last readers done) the warp extends the
-// match forward one base a step, pushing the interval each time the next
-// base shrinks it, and leaves the n_prev pushed intervals flipped into
-// prev, longest match (smallest interval) first, qb 0 and qe their end.
-// Returns the next x (prev[0].qe, the call's return: the backward half
-// never changes it).
-template <class Idx, class Occ>
-__device__ __forceinline__ int smem1a_fwd(const fm::Index<Idx, Occ>& f,
-                                          const uint8_t* q, int len, int x,
-                                          Idx min_intv, Intv<Idx>* curr,
-                                          Intv<Idx>* prev, int& n_prev,
-                                          int& steps, int& chain) {
-    const int lane = threadIdx.x & 31;
-    Intv<Idx> ik = set_intv(f, q[x]);
-    ik.qe = x + 1;
-    // forward: push the interval each time the next base shrinks it
-    int n_curr = 0, i = x + 1;
-    for (; i < len; ++i) {
-        const int c = q[i];
-        if (c > 3) break;
-        // forward extension reads the complement's slot
-        const Intv<Idx> ok = extend_warp<Idx, false>(f, ik, 3 - c);
-        ++steps;
-        ++chain;
-        if (ok.size != ik.size) {
-            if (lane == 0) curr[n_curr] = ik;
-            ++n_curr;
-            if (ok.size < min_intv) break;
-        }
-        ik = ok;
-        ik.qe = i + 1;
-    }
-    // an N, or the read's end, ends the match with ik on the stack
-    if (i == len || q[i] > 3) {
-        if (lane == 0) curr[n_curr] = ik;
-        ++n_curr;
-    }
-    __syncwarp();
-    // longest matches (smallest intervals) first
-    for (int j = lane; j < n_curr; j += 32) prev[j] = curr[n_curr - 1 - j];
-    __syncwarp();
-    n_prev = n_curr;
-    return (int)prev[0].qe;
-}
-
 // smem1a's backward phase alone (the split's K-bwd): from the stack
 // prev[0, n_prev) that smem1a_fwd left for a call at x (every lane
 // holding the same n_prev, prev visible to all of them), the SMEMs into
@@ -315,12 +271,14 @@ __device__ __forceinline__ void smem1a_bwd(const fm::Index<Idx, Occ>& f,
 // interval holds a longer one's), so failures come before survivors; the
 // rule above does not lean on that.
 //
-// Seed mode split's two kernels (K-fwd, K-bwd) run its two phases apart:
-// smem1a_fwd and smem1a_bwd (above) repeat its forward and backward
-// phases line for line.  smem1a keeps its own body, so that K2's, K2-tp's
-// and K-cur's code is the same as before the split (one body calling the
-// halves changed their SASS); tests/test_torch_split_host.py holds the
-// halves, run one after the other, to smem1a (K-cur) on every job.
+// Seed mode split's two kernels (csrc/smem.cu: K-fwd, K-bwd) run its two
+// phases apart: the forward phase a job on a group of lanes
+// (extend_fwd), pushing to global memory, and smem1a_bwd (above), which
+// repeats the backward phase line for line, a recorded call a warp.
+// smem1a keeps its own body, so that K2's, K2-tp's and K-cur's code is
+// the same as before the split (one body calling the halves changed
+// their SASS); tests/test_torch_split_host.py holds the halves, run one
+// after the other, to smem1a (K-cur) on every job.
 template <class Idx, class Occ>
 __device__ int smem1a(const fm::Index<Idx, Occ>& f, const uint8_t* q, int len,
                       int x, Idx min_intv, Intv<Idx>* curr, Intv<Idx>* prev,

@@ -127,7 +127,8 @@ def build_edited(name: str, edits, out: Path, signatures: dict):
     of its sources (it and the headers it includes) with ``edits``
     applied: (file name, old text, new text), each of which must find its
     text exactly once.  For experiments that time a kernel's forms side
-    by side; the package's own build is ``load``."""
+    by side; the package's own build is ``load``.  ``build_info[str(out)]``
+    keeps the library's path, build wall and whole ptxas report."""
     out.mkdir(parents=True, exist_ok=True)
     for src in _sources(CSRC / f"{name}.cu"):
         shutil.copy(src, out / src.name)
@@ -137,11 +138,14 @@ def build_edited(name: str, edits, out: Path, signatures: dict):
             raise RuntimeError(f"{old!r} is not in {fname} once")
         (out / fname).write_text(text.replace(old, new))
     so = out / f"{name}.so"
+    t0 = time.perf_counter()
     res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so),
                           str(out / f"{name}.cu")], capture_output=True,
                          text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {out / name}.cu:\n{res.stderr}")
+    build_info[str(out)] = {"so": str(so), "ptxas": res.stderr,
+                            "seconds": time.perf_counter() - t0}
     lib = ctypes.CDLL(str(so))
     for fn, (restype, argtypes) in signatures.items():
         getattr(lib, fn).restype = restype

@@ -102,8 +102,8 @@ _SIGNATURES = {
     "tpubwa_smem_bwd": (_CI, [_VP, _VP, _CL, _CL, _CI, _VP, _CL, _VP, _VP,
                               _VP, _VP, _VP, _VP, _CL, _CI, _VP, _VP, _VP,
                               _VP, _VP, _CI, _VP]),
-    # (bwd, idx64, L, device, out int64[5]) -> cudaError_t
-    "tpubwa_smem_split_shape": (_CI, [_CI, _CI, _CL, _CI, _VP]),
+    # (kind, idx64, L, n, device, out int64[10]) -> cudaError_t
+    "tpubwa_smem_split_shape": (_CI, [_CI, _CI, _CL, _CL, _CI, _VP]),
 }
 
 

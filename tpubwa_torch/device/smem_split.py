@@ -29,9 +29,9 @@ Two versions of each half, bit-identical by test:
 * ``run_fwd_plain`` and ``run_bwd_plain``, job by job and call by call as
   generators over ``smem_fused.run_reads``;
 * K-fwd and K-bwd, the hand-written CUDA kernels ``smem_fwd_kernel``
-  (a warp a job from a job queue, ``slots`` stack intervals a job and a
-  second launch for the jobs with more, K2's protocol) and
-  ``smem_bwd_kernel`` (a warp a call from a call queue) of
+  (a group of 8 lanes a job, 4 jobs a warp, from a job queue, ``slots``
+  stack intervals a job and a second launch for the jobs with more, K2's
+  protocol) and ``smem_bwd_kernel`` (a warp a call from a call queue) of
   ``csrc/smem.cu``, reached through ``run_fwd`` and ``run_bwd`` for CUDA
   tensors.
 
@@ -39,9 +39,9 @@ The wrappers route by the tensors' device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.  tpubwa's caps (P,
 MAXC, MAXM, CAPF), its overflow flags, span buckets, second chance and
 host redo have no counterpart: every bound comes from the read's length.
-K-bwd keeps three stacks a warp in shared memory (K-fwd two), so both
-take reads of at most ``ksplit_max_len`` bases, and both routes refuse
-longer ones.
+K-bwd keeps three stacks of L + 1 intervals a warp in shared memory, so
+both halves take reads of at most ``ksplit_max_len`` bases, and both
+routes refuse longer ones.
 """
 
 from __future__ import annotations
@@ -63,17 +63,17 @@ from .smem_fused import (_SIGNATURES, H100_BLOCK_SMEM, base_intervals,
 # pushes a few calls of a dozen or two intervals; a job with more is
 # re-run with room for them
 FWD_SLOTS = 128
-# the stacks a warp keeps in shared memory, L + 1 intervals each: K-fwd's
-# curr and prev, K-bwd's curr, prev and the call's rows
-FWD_STACKS, BWD_STACKS = 2, 3
+# the stacks a K-bwd warp keeps in shared memory, L + 1 intervals of five
+# ranks each: curr, prev and the call's rows
+BWD_STACKS = 3
 
 
-def ksplit_max_len(idt, stacks: int = BWD_STACKS) -> int:
+def ksplit_max_len(idt) -> int:
     """The longest read seed mode split takes on an H100 with ranks of
-    ``idt``: K-bwd's ``BWD_STACKS`` x (L + 1) intervals of five ranks
-    must fit a block's shared memory (K-fwd's own limit, at
-    ``FWD_STACKS``, is longer; both wrappers refuse past K-bwd's)."""
-    return H100_BLOCK_SMEM // (stacks * 5 * idt.itemsize) - 1
+    ``idt``: K-bwd's ``BWD_STACKS`` x (L + 1) intervals must fit a
+    block's shared memory (K-fwd keeps no stack; both wrappers refuse
+    past K-bwd's limit)."""
+    return H100_BLOCK_SMEM // (BWD_STACKS * 5 * idt.itemsize) - 1
 
 
 def check_ksplit_len(L: int, idt, max_len: int):
@@ -234,24 +234,31 @@ def run_bwd_plain(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor,
 # ---------------------------------------------------------------------
 # the kernels
 
-def ksplit_shape(lib, bwd: bool, idx64: bool, L: int, device_index: int):
-    """(cudaError, {warp_bytes, warps, blocks_per_sm, sms, max_len}):
-    K-fwd's (or with ``bwd`` K-bwd's) launch shape for reads of ``L``
-    bases on the card (the C entry ``tpubwa_smem_split_shape``); the
-    error is the one a launch at ``L`` returns before it runs."""
-    out = (ctypes.c_int64 * 5)()
-    rc = lib.tpubwa_smem_split_shape(int(bwd), int(idx64), L, device_index,
+SHAPE_KEYS = ("group", "lanes", "cap", "threads", "blocks_per_sm", "sms",
+              "shared", "blocks", "groups", "max_len")
+
+
+def ksplit_shape(lib, kind: int, idx64: bool, L: int, n: int,
+                 device_index: int):
+    """(cudaError, {group, lanes, cap, threads, blocks_per_sm, sms, shared,
+    blocks, groups, max_len}): K-fwd's (``kind`` 0) or K-bwd's (1) launch
+    for reads of ``L`` bases and ``n`` units on the card (the C entry
+    ``tpubwa_smem_split_shape``): lanes a unit and an interval, a call's
+    stack slots, a block's threads and shared bytes, its blocks an SM,
+    the SMs, the grid and the longest read; the error is the one a
+    launch returns before it runs."""
+    out = (ctypes.c_int64 * len(SHAPE_KEYS))()
+    rc = lib.tpubwa_smem_split_shape(kind, int(idx64), L, n, device_index,
                                      out)
-    return rc, dict(zip(("warp_bytes", "warps", "blocks_per_sm", "sms",
-                         "max_len"), list(out)))
+    return rc, dict(zip(SHAPE_KEYS, list(out)))
 
 
-def _refused(lib, rc: int, bwd: bool, idt, L: int, device_index: int,
+def _refused(lib, rc: int, kind: int, idt, L: int, device_index: int,
              what: str):
     """Raise for a launch's error: the card's length refusal where it is
     one."""
     if rc:
-        _, shape = ksplit_shape(lib, bwd, idt == I64, L, device_index)
+        _, shape = ksplit_shape(lib, kind, idt == I64, L, 0, device_index)
         check_ksplit_len(L, idt, shape["max_len"])
     _raise_on(rc, what)
 
@@ -339,14 +346,15 @@ def run_fwd(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor, jobs,
         calls = torch.empty((n, width, 3), dtype=torch.int32, device=dev)
         per_job = [torch.empty(n, dtype=torch.int32, device=dev)
                    for _ in range(4)]  # n_calls, n_intv, steps, chain
-        rc = lib.tpubwa_smem_fwd(
-            *index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
-            read.data_ptr(), x0.data_ptr(), mi.data_ptr(), once.data_ptr(),
-            ids.data_ptr(), n, width, queue.data_ptr(), stack.data_ptr(),
-            calls.data_ptr(), *(x.data_ptr() for x in per_job), dev.index,
-            stream_of(qd))
-        _refused(lib, rc, False, idt, L, dev.index, "smem_fwd")
-        bump(run_fwd)
+        if n:
+            rc = lib.tpubwa_smem_fwd(
+                *index_args(didx), qd.data_ptr(), L, ld.data_ptr(),
+                read.data_ptr(), x0.data_ptr(), mi.data_ptr(),
+                once.data_ptr(), ids.data_ptr(), n, width, queue.data_ptr(),
+                stack.data_ptr(), calls.data_ptr(),
+                *(x.data_ptr() for x in per_job), dev.index, stream_of(qd))
+            _refused(lib, rc, 0, idt, L, dev.index, "smem_fwd")
+            bump(run_fwd)
         return (stack, calls, *per_job)
 
     return collect_calls(launch, len(read), slots, dev, stats=stats)
@@ -388,7 +396,7 @@ def run_bwd(didx: DeviceIndex, qd: torch.Tensor, ld: torch.Tensor, read, x,
         n, min_seed_len, queue.data_ptr(), rows.data_ptr(),
         counts.data_ptr(), steps.data_ptr(), chain.data_ptr(), dev.index,
         stream_of(qd))
-    _refused(lib, rc, True, idt, L, dev.index, "smem_bwd")
+    _refused(lib, rc, 1, idt, L, dev.index, "smem_bwd")
     bump(run_bwd)
     if stats is not None:
         stats.update(steps=steps, chain=chain)

@@ -15,7 +15,8 @@ keyed by a hash of its sources; ``extend_host`` (K1 and K1-floor),
 ``occ_host`` (K-sa and K-ext; ``sa_lookup_refusal``, K-sa's refusal of
 an n past its rank queue), ``reach_host`` (K-reach), ``smem_host``
 (K2, K3 and K-cur), ``fwd_host`` (K-fwd) and ``bwd_host`` (K-bwd) run
-one on a set of jobs, and
+one on a set of jobs, ``form_sources`` writes the sources of K-fwd's
+forms (``SPLIT_FORMS``), and
 ``intrinsics16_host`` runs the host intrinsics alone.  This checks the
 kernel's logic, its memory accesses and that its warp operations are
 reached by all 32 lanes together, where there is no card; what the GPU's
@@ -56,6 +57,56 @@ FAST_FLAGS = ["-std=c++17", "-O2", "-U_FORTIFY_SOURCE"]
 INTRINSICS16 = ("__vadd2", "__vmaxs2", "__vimin_s16x2_relu",
                 "__viaddmin_s16x2", "__viaddmax_s16x2",
                 "__viaddmax_s16x2_relu", "__byte_perm")
+
+
+# csrc/smem.cu's K-fwd in its forms: each form, the edits to the shipped
+# sources (file, old text, new text) that make it: the lanes a job
+# (kFwdGroup) and the blocks of 4 warps an SM it is pinned to
+# (kFwdMinBlocks: its registers).  g32 is the first design's layout, a
+# warp a job.  scripts/exp_split_forms.py times them on a card;
+# ``form_sources`` writes them for the harness.
+SPLIT_SHIPPED = {"kFwdGroup": 8, "kFwdMinBlocks": 8}
+
+
+def _split_form(**consts):
+    return [("smem.cu", f"constexpr int {k} = {SPLIT_SHIPPED[k]};",
+             f"constexpr int {k} = {v};") for k, v in consts.items()
+            if v != SPLIT_SHIPPED[k]]
+
+
+SPLIT_FORMS = {
+    "g4": _split_form(kFwdGroup=4),
+    "g8": _split_form(),
+    "g16": _split_form(kFwdGroup=16),
+    "g32": _split_form(kFwdGroup=32),
+    # other register pins: 40 and 36 warps an SM
+    "b10": _split_form(kFwdMinBlocks=10),
+    "b9": _split_form(kFwdMinBlocks=9),
+}
+
+
+def split_constants(csrc: Path = CSRC) -> dict:
+    """K-fwd's constants in ``csrc``'s smem.cu (kFwdGroup,
+    kFwdMinBlocks)."""
+    import re
+    text = (Path(csrc) / "smem.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+            for k in ("kFwdGroup", "kFwdMinBlocks")}
+
+
+def form_sources(form: str, out: Path) -> Path:
+    """A copy of smem_host's sources in ``out`` with split form ``form``'s
+    edits applied (each must find its text once), for ``csrc=``."""
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    for src in SOURCES["smem_host"]:
+        shutil.copy(CSRC / src, out / src)
+    for fname, old, new in SPLIT_FORMS[form]:
+        text = (out / fname).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{old!r} is not in {fname} once")
+        (out / fname).write_text(text.replace(old, new))
+    return out
 
 
 def build(name: str = "extend_host", sanitize: bool = True,
@@ -414,16 +465,16 @@ def _rows_tail(got, at, count_rows):
 
 
 def fwd_host(arrays, reads, lens, jobs, slots, ids=None, count_rows=False,
-             sanitize=True, reverse=False, card=(0, 0)):
+             sanitize=True, reverse=False, card=(0, 0), csrc=CSRC):
     """One launch of csrc/smem.cu's K-fwd (``tpubwa_smem_fwd``) on the
     host, on the jobs ``ids`` (all where None) of ``jobs`` = (read int32,
     x0 int32, min_intv of the rank type, one_shot bool), ``slots`` stack
     intervals each; ``arrays``, ``reads``, ``lens``, ``reverse``, ``card``
-    and ``sanitize`` as in ``smem_host``.  Returns int64 arrays (stack
-    [n, slots, 4], calls [n, slots, 3], n_calls [n], n_intv [n], steps
-    [n], chain [n]) and with ``count_rows`` the distinct occ rows the
-    launch read.  Raises RuntimeError as ``smem_host`` does (K-fwd
-    refuses reads too long for a block's shared memory)."""
+    and ``sanitize`` as in ``smem_host``; ``csrc``, the sources to build
+    (an edited copy for a form, as ``build`` takes it).  Returns int64
+    arrays (stack [n, slots, 4], calls [n, slots, 3], n_calls [n], n_intv
+    [n], steps [n], chain [n]) and with ``count_rows`` the distinct occ
+    rows the launch read.  Raises RuntimeError as ``smem_host`` does."""
     read, x0, mi, once = jobs
     ids = np.arange(len(read)) if ids is None else ids
     n = len(ids)
@@ -436,7 +487,7 @@ def fwd_host(arrays, reads, lens, jobs, slots, ids=None, count_rows=False,
         np.ascontiguousarray(x0, np.int32), np.ascontiguousarray(mi, dt),
         np.ascontiguousarray(once, np.uint8),
         np.ascontiguousarray(ids, np.int32)), dtype=np.int64,
-        sanitize=sanitize)
+        sanitize=sanitize, csrc=csrc)
     ks, kc = n * slots * 4, n * slots * 3
     out = (got[:ks].reshape(n, slots, 4), got[ks:ks + kc].reshape(n, slots, 3),
            *(got[ks + kc + i * n:ks + kc + (i + 1) * n] for i in range(4)))
